@@ -1,0 +1,128 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each kernel is one `.cu` file under `livekit_server_tpu_torch/csrc/` with
+a plain C entry point. It is compiled with `nvcc` for `sm_90a` into its
+own shared library under `livekit_server_tpu_torch/_build/` at first use
+(the file name carries a digest of the source and flags, so an edited
+source rebuilds) and loaded with `ctypes`. Nothing here runs at import:
+the CPU tests import every module on a machine without `nvcc`.
+
+Each C entry point enqueues its kernel on the stream it is given and
+returns `cudaGetLastError()`; `check` turns a non-zero code into an
+exception. `launches` counts the launches of each kernel; only the
+wrappers in ops/selector.py and ops/allocation.py add to it, at the
+point where they launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD = PACKAGE / "_build"
+
+# Kernel name → CUDA source (csrc/<source>.cu).
+SOURCES = {
+    "decide_rooms": "decide_rooms",
+    "allocate_budget_rooms": "budget_rooms",
+}
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+launches = dict.fromkeys(SOURCES, 0)
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def nvcc() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, /usr/local/cuda/bin/nvcc,
+    or `nvcc` on PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(source: str) -> Path:
+    src = (CSRC / f"{source}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD / f"lib{source}-{digest}.so"
+
+
+def build(names=tuple(SOURCES)) -> dict[str, str]:
+    """Compile the named kernels that are not built yet, one `nvcc` per
+    source, all started together. Returns the compiler's output per
+    kernel (ptxas register/shared-memory report); raises on a failed
+    build with that output."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        source = SOURCES[name]
+        out = library_path(source)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (out, tmp, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    reports = {}
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        text, _ = proc.communicate()
+        reports[name] = text
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{text}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load one kernel's shared library."""
+    build((name,))
+    return ctypes.CDLL(str(library_path(SOURCES[name])))
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current stream on `device`, as the integer the C entry
+    points take."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+            device: torch.device) -> None:
+    """Validate one kernel operand before its pointer crosses to C."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -246,6 +246,13 @@ def float_tolerance(name: str) -> tuple[float, float]:
     return BYTE_TOLERANCE if name.rsplit(".", 1)[-1] in BYTE_LEAVES else FLOAT_TOLERANCE
 
 
+def tree_map(fn, tree, *rest):
+    """Apply fn leaf by leaf over NamedTuple trees of the same structure."""
+    if isinstance(tree, tuple):
+        return type(tree)(*[tree_map(fn, *subs) for subs in zip(tree, *rest)])
+    return fn(tree, *rest)
+
+
 def _unflatten(template, it):
     if isinstance(template, tuple):
         return type(template)(*[_unflatten(sub, it) for sub in template])
@@ -303,10 +310,42 @@ def _temporal_fractions(device: torch.device) -> torch.Tensor:
     return torch.tensor(TEMPORAL_FRACTIONS, dtype=torch.float32, device=device)
 
 
+def route_stats(is_svc, layer, sn, ts, size, arrival_rtp, valid, begin_pic):
+    """Sections 1–2 routing of the phase-1 core: each packet's RTP-stats
+    fields one-hot routed into per-(track, layer) rows, and the tracker's
+    per-(track, layer) sums. Returns (st [R, 5, T*L, K] int32 — sn, ts,
+    size, arrival, valid — and tr [R, 3, T*L] int32 — packets, bytes,
+    frame starts).
+
+    Simulcast layers are separate RTP streams (one stats row each); an
+    SVC track's packets all fold into row 0. Routing is a one-hot select,
+    k preserved, so rows never collide. Tracker rows route by each
+    packet's TRUE spatial layer. The live-page kernel
+    (ops/paged_kernel.py) computes the same two stacks."""
+    R, T, K = sn.shape
+    L = MAX_LAYERS
+    i32 = torch.int32
+    lanes = torch.arange(L, dtype=i32, device=sn.device)
+    eff_layer = torch.where(is_svc[:, :, None], 0, layer.clamp(0, L - 1))
+    st_vals = torch.stack([sn, ts, size, arrival_rtp, valid.to(i32)], dim=1)  # [R,5,T,K]
+    st = torch.where((eff_layer[..., None] == lanes)[:, None], st_vals[..., None], 0)
+    st = st.permute(0, 1, 2, 4, 3).reshape(R, 5, T * L, K)
+    t_lane = layer.clamp(0, L - 1)[..., None] == lanes                  # [R,T,K,L]
+    ones_k = torch.ones_like(size)
+    tr_vals = torch.stack([ones_k, size, ones_k], dim=1)                # [R,3,T,K]
+    tr_pred = torch.stack([valid, valid, valid & begin_pic], dim=1)
+    routed = torch.where(t_lane[:, None] & tr_pred[..., None], tr_vals[..., None], 0)
+    return st, routed.sum(3, dtype=i32).reshape(R, 3, T * L)
+
+
 def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
-               sent_bytes_i, audio_params, bwe_params, red_enabled: bool):
+               sent_bytes_i, audio_params, bwe_params, red_enabled: bool,
+               routed_stats=None):
     """Phase-1 core over all rooms (R leading). Returns (state', partial
-    outputs as a dict, bitrates [R, T, 4, 4] for phase 2)."""
+    outputs as a dict, bitrates [R, T, 4, 4] for phase 2).
+
+    `routed_stats`, when given, is `route_stats`'s (st, tr) precomputed
+    by the live-page kernel; the tick then skips its own routing."""
     R, T, K = inp.sn.shape
     S = state.ctrl.subscribed.shape[-1]
     L = MAX_LAYERS
@@ -315,28 +354,17 @@ def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
     meta = state.meta
 
     # ---- 1. RTP stats per (track, layer) stream --------------------------
-    # Simulcast layers are separate RTP streams (one stats row each); an
-    # SVC track's packets all fold into row 0. Routing is a one-hot
-    # select, k preserved, so rows never collide.
-    lanes = torch.arange(L, dtype=i32, device=dev)
-    eff_layer = torch.where(meta.is_svc[:, :, None], 0, inp.layer.clamp(0, L - 1))
-    st_vals = torch.stack([inp.sn, inp.ts, inp.size, inp.arrival_rtp,
-                           inp.valid.to(i32)])                          # [5,R,T,K]
-    st = torch.where((eff_layer[..., None] == lanes)[None], st_vals[..., None], 0)
-    st = st.permute(0, 1, 2, 4, 3).reshape(5, R, T * L, K)
-    # Tracker rows route by each packet's TRUE spatial layer.
-    t_lane = inp.layer.clamp(0, L - 1)[..., None] == lanes              # [R,T,K,L]
-    ones_k = torch.ones_like(inp.size)
-    tr_vals = torch.stack([ones_k, inp.size, ones_k])
-    tr_pred = torch.stack([inp.valid, inp.valid, inp.valid & inp.begin_pic])
-    routed = torch.where(t_lane[None] & tr_pred[..., None], tr_vals[..., None], 0)
-    tr_sums = routed.sum(3, dtype=i32).reshape(3, R, T * L)
-    stats = rtpstats.update_tick(state.stats, st[0], st[1], st[2], st[3], st[4] != 0)
+    if routed_stats is None:
+        routed_stats = route_stats(meta.is_svc, inp.layer, inp.sn, inp.ts, inp.size,
+                                   inp.arrival_rtp, inp.valid, inp.begin_pic)
+    st, tr_sums = routed_stats
+    stats = rtpstats.update_tick(state.stats, st[:, 0], st[:, 1], st[:, 2], st[:, 3],
+                                 st[:, 4] != 0)
 
     # ---- 2. per-layer liveness + measured [4][4] bitrate matrix ----------
     tracker, layer_status, _changed, tracker_bps, layer_fps = streamtracker.update_tick(
-        state.tracker, streamtracker.TrackerParams(), tr_sums[0], tr_sums[1],
-        inp.tick_ms, frames=tr_sums[2],
+        state.tracker, streamtracker.TrackerParams(), tr_sums[:, 0], tr_sums[:, 1],
+        inp.tick_ms, frames=tr_sums[:, 2],
     )
     layer_oh = torch.nn.functional.one_hot(
         inp.layer.clamp(0, L - 1).long(), L).to(f32)
@@ -703,18 +731,29 @@ def unpack_tick_outputs(buf, dims: PlaneDims, red_enabled: bool = True) -> TickO
     return TickOutputs(**pieces)
 
 
-def device_tick(state: PlaneState, wire: np.ndarray, dims: PlaneDims,
+def device_step(state: PlaneState, wire: np.ndarray, dims: PlaneDims,
                 audio_params: audio.AudioLevelParams = audio.AudioLevelParams(),
                 bwe_params: bwe.BWEParams = bwe.BWEParams(),
                 red_enabled: bool = True):
-    """The runtime's device step: one host→device copy of the wired
+    """The dense runtime's device step: one host→device copy of the wired
     inputs, the tick, one device→host copy of the flat output buffer
-    (which waits for the device). Returns (state', numpy TickOutputs)."""
+    (which waits for the device). Returns (state', flat int32 numpy
+    buffer)."""
     buf = torch.from_numpy(wire).to(state.meta.is_video.device)
     inp = unpack_tick_inputs(*unwire_inputs(buf, dims))
     state, out = media_plane_tick(state, inp, audio_params, bwe_params,
                                   red_enabled=red_enabled)
-    flat = pack_tick_outputs(out).cpu().numpy()
+    return state, pack_tick_outputs(out).cpu().numpy()
+
+
+def device_tick(state: PlaneState, wire: np.ndarray, dims: PlaneDims,
+                audio_params: audio.AudioLevelParams = audio.AudioLevelParams(),
+                bwe_params: bwe.BWEParams = bwe.BWEParams(),
+                red_enabled: bool = True):
+    """`device_step` and the unpack of its buffer: exactly what
+    `PlaneRuntime._device_step` does per tick. Returns (state', numpy
+    TickOutputs)."""
+    state, flat = device_step(state, wire, dims, audio_params, bwe_params, red_enabled)
     return state, unpack_tick_outputs(flat, dims, red_enabled)
 
 

@@ -10,8 +10,8 @@ the CPU tests import every module on a machine without `nvcc`.
 Each C entry point enqueues its kernel on the stream it is given and
 returns `cudaGetLastError()`; `check` turns a non-zero code into an
 exception. `launches` counts the launches of each kernel; only the
-wrappers in ops/selector.py and ops/allocation.py add to it, at the
-point where they launch.
+wrappers in ops/selector.py, ops/allocation.py and ops/paged_kernel.py
+add to it, at the point where they launch.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ BUILD = PACKAGE / "_build"
 SOURCES = {
     "decide_rooms": "decide_rooms",
     "allocate_budget_rooms": "budget_rooms",
+    "paged_kernel": "paged_kernel",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -7,9 +7,9 @@ accounting) — run, like the reference runs them, on the CPU in the
 per-packet write path. The device decides (bit-packed send/drop/switch
 masks); this module rewrites SN/TS/VP8 fields with host-owned state.
 
-A copy of the numpy path of the JAX package's runtime/munge.py
-(`apply_dense` is its spec; the native C++ walker there is host code and
-is not used here).
+The numpy path of the JAX package's runtime/munge.py (`apply_dense` is
+its spec), run over the active (room, track, subscriber) lanes only; the
+native C++ walker there is host code and is not used here.
 """
 
 from __future__ import annotations
@@ -64,111 +64,111 @@ class HostMunger:
         self.last_ki = z()
         self.v_started = f()
 
-    def apply_dense(
-        self,
+    def apply_lanes(
+        self, rr, tt, ss,                                     # [N] lanes
         sn, ts, ts_jump, pid, tl0, keyidx, begin_pic, valid,  # [R, T, K]
-        send, drop, switch,                                   # [R, T, K, S] bool
+        send, drop, switch,                                   # [N, K] bool
     ):
-        """One tick of munging over dense masks, vectorized over (room,
-        track, subscriber) with a loop over the K packet slots. Returns
-        dense (out_sn, out_ts, out_pid, out_tl0, out_ki) [R, T, K, S]
-        (defined where `send`; zero elsewhere)."""
-        R, T, K = np.asarray(sn).shape
-        S = send.shape[-1]
-        sn = np.asarray(sn, np.int64) & M16
-        ts = np.asarray(ts, np.int64) & M32
-        pid = np.asarray(pid, np.int64) & M15
-        tl0 = np.asarray(tl0, np.int64) & M8
-        ki = np.asarray(keyidx, np.int64) & M5
-        jump = np.asarray(ts_jump, np.int64)
-        bp = np.asarray(begin_pic, bool)
-        val = np.asarray(valid, bool)
+        """One tick of munging for the (room, track, subscriber) lanes
+        (rr, tt, ss), vectorized over lanes with a loop over the K packet
+        slots. A lane's state changes only where it forwards or drops a
+        valid packet, so lanes with neither may be left out. Returns
+        (out_sn, out_ts, out_pid, out_tl0, out_ki) [N, K] (defined where
+        `send`; zero elsewhere)."""
+        st = {name: getattr(self, name)[rr, tt, ss] for name in self.FIELDS}
+        sn = np.asarray(sn, np.int64)[rr, tt] & M16
+        ts = np.asarray(ts, np.int64)[rr, tt] & M32
+        pid = np.asarray(pid, np.int64)[rr, tt] & M15
+        tl0 = np.asarray(tl0, np.int64)[rr, tt] & M8
+        ki = np.asarray(keyidx, np.int64)[rr, tt] & M5
+        jump = np.asarray(ts_jump, np.int64)[rr, tt]
+        bp = np.asarray(begin_pic, bool)[rr, tt]
+        val = np.asarray(valid, bool)[rr, tt]
+        N, K = sn.shape
 
-        out_sn = np.zeros((R, T, K, S), np.int32)
-        out_ts = np.zeros((R, T, K, S), np.int64)
-        out_pid = np.zeros((R, T, K, S), np.int32)
-        out_tl0 = np.zeros((R, T, K, S), np.int32)
-        out_ki = np.zeros((R, T, K, S), np.int32)
+        out_sn = np.zeros((N, K), np.int32)
+        out_ts = np.zeros((N, K), np.int64)
+        out_pid = np.zeros((N, K), np.int32)
+        out_tl0 = np.zeros((N, K), np.int32)
+        out_ki = np.zeros((N, K), np.int32)
 
         for k in range(K):
-            v = val[:, :, k][:, :, None]
-            fwd = send[:, :, k, :] & v
-            drp = drop[:, :, k, :] & v & ~fwd
-            sw = switch[:, :, k, :] & fwd
-            sn_k = sn[:, :, k][:, :, None]
-            ts_k = ts[:, :, k][:, :, None]
-            jump_k = jump[:, :, k][:, :, None]
+            v = val[:, k]
+            fwd = send[:, k] & v
+            drp = drop[:, k] & v & ~fwd
+            sw = switch[:, k] & fwd
+            sn_k, ts_k, jump_k = sn[:, k], ts[:, k], jump[:, k]
             pkt_aligned = jump_k < 0
             jump_eff = np.where(pkt_aligned, FALLBACK_TS_JUMP, jump_k)
 
             # --- rtpmunger step ------------------------------------------
-            sw_sn_off = (sn_k - ((self.last_sn + 1) & M16)) & M16
-            sw_ts_off = (ts_k - ((self.last_ts + jump_eff) & M32)) & M32
-            carry_through = pkt_aligned & self.aligned
-            sw_ts_off = np.where(carry_through, self.ts_offset, sw_ts_off)
-            fresh = fwd & ~self.started
-            resync = sw & self.started
-            cur_out_ts = (ts_k - self.ts_offset) & M32
-            shear = _sdiff(cur_out_ts, self.last_ts, M32, 1 << 31)
+            sw_sn_off = (sn_k - ((st["last_sn"] + 1) & M16)) & M16
+            sw_ts_off = (ts_k - ((st["last_ts"] + jump_eff) & M32)) & M32
+            carry_through = pkt_aligned & st["aligned"]
+            sw_ts_off = np.where(carry_through, st["ts_offset"], sw_ts_off)
+            fresh = fwd & ~st["started"]
+            resync = sw & st["started"]
+            cur_out_ts = (ts_k - st["ts_offset"]) & M32
+            shear = _sdiff(cur_out_ts, st["last_ts"], M32, 1 << 31)
             sheared = (
-                fwd & ~sw & self.started & (np.abs(shear) > REANCHOR_TS_THRESH)
+                fwd & ~sw & st["started"] & (np.abs(shear) > REANCHOR_TS_THRESH)
             )
-            shear_ts_off = (ts_k - ((self.last_ts + FALLBACK_TS_JUMP) & M32)) & M32
+            shear_ts_off = (ts_k - ((st["last_ts"] + FALLBACK_TS_JUMP) & M32)) & M32
             anchor = fresh | resync | sheared
-            self.sn_offset = np.where(
-                resync, sw_sn_off, np.where(fresh, 0, self.sn_offset)
+            st["sn_offset"] = np.where(
+                resync, sw_sn_off, np.where(fresh, 0, st["sn_offset"])
             )
-            self.ts_offset = np.where(
+            st["ts_offset"] = np.where(
                 sheared, shear_ts_off,
-                np.where(resync, sw_ts_off, np.where(fresh, 0, self.ts_offset)),
+                np.where(resync, sw_ts_off, np.where(fresh, 0, st["ts_offset"])),
             )
-            self.aligned = np.where(anchor, pkt_aligned, self.aligned)
-            o_sn = (sn_k - self.sn_offset) & M16
-            o_ts = (ts_k - self.ts_offset) & M32
-            self.last_sn = np.where(fwd, o_sn, self.last_sn)
-            self.last_ts = np.where(fwd, o_ts, self.last_ts)
-            self.sn_offset = np.where(
-                drp & self.started, (self.sn_offset + 1) & M16, self.sn_offset
+            st["aligned"] = np.where(anchor, pkt_aligned, st["aligned"])
+            o_sn = (sn_k - st["sn_offset"]) & M16
+            o_ts = (ts_k - st["ts_offset"]) & M32
+            st["last_sn"] = np.where(fwd, o_sn, st["last_sn"])
+            st["last_ts"] = np.where(fwd, o_ts, st["last_ts"])
+            st["sn_offset"] = np.where(
+                drp & st["started"], (st["sn_offset"] + 1) & M16, st["sn_offset"]
             )
-            self.started = self.started | fwd
+            st["started"] = st["started"] | fwd
 
             # --- vp8 step ------------------------------------------------
-            drp_pic = drp & bp[:, :, k][:, :, None]
-            pid_k = pid[:, :, k][:, :, None]
-            tl0_k = tl0[:, :, k][:, :, None]
-            ki_k = ki[:, :, k][:, :, None]
-            sw_pid_off = (pid_k - ((self.last_pid + 1) & M15)) & M15
-            sw_tl0_off = (tl0_k - self.last_tl0 - 1) & M8
-            sw_ki_off = (ki_k - self.last_ki - 1) & M5
-            v_fresh = fwd & ~self.v_started
-            v_resync = sw & self.v_started
-            self.pid_offset = np.where(
-                v_resync, sw_pid_off, np.where(v_fresh, 0, self.pid_offset)
+            drp_pic = drp & bp[:, k]
+            pid_k, tl0_k, ki_k = pid[:, k], tl0[:, k], ki[:, k]
+            sw_pid_off = (pid_k - ((st["last_pid"] + 1) & M15)) & M15
+            sw_tl0_off = (tl0_k - st["last_tl0"] - 1) & M8
+            sw_ki_off = (ki_k - st["last_ki"] - 1) & M5
+            v_fresh = fwd & ~st["v_started"]
+            v_resync = sw & st["v_started"]
+            st["pid_offset"] = np.where(
+                v_resync, sw_pid_off, np.where(v_fresh, 0, st["pid_offset"])
             )
-            self.tl0_offset = np.where(
-                v_resync, sw_tl0_off, np.where(v_fresh, 0, self.tl0_offset)
+            st["tl0_offset"] = np.where(
+                v_resync, sw_tl0_off, np.where(v_fresh, 0, st["tl0_offset"])
             )
-            self.ki_offset = np.where(
-                v_resync, sw_ki_off, np.where(v_fresh, 0, self.ki_offset)
+            st["ki_offset"] = np.where(
+                v_resync, sw_ki_off, np.where(v_fresh, 0, st["ki_offset"])
             )
-            o_pid = (pid_k - self.pid_offset) & M15
-            o_tl0 = (tl0_k - self.tl0_offset) & M8
-            o_ki = (ki_k - self.ki_offset) & M5
-            fwd_bp = fwd & bp[:, :, k][:, :, None]
-            self.last_pid = np.where(fwd_bp, o_pid, self.last_pid)
-            self.last_tl0 = np.where(fwd_bp, o_tl0, self.last_tl0)
-            self.last_ki = np.where(fwd_bp, o_ki, self.last_ki)
-            self.pid_offset = np.where(
-                drp_pic & self.v_started, (self.pid_offset + 1) & M15,
-                self.pid_offset,
+            o_pid = (pid_k - st["pid_offset"]) & M15
+            o_tl0 = (tl0_k - st["tl0_offset"]) & M8
+            o_ki = (ki_k - st["ki_offset"]) & M5
+            fwd_bp = fwd & bp[:, k]
+            st["last_pid"] = np.where(fwd_bp, o_pid, st["last_pid"])
+            st["last_tl0"] = np.where(fwd_bp, o_tl0, st["last_tl0"])
+            st["last_ki"] = np.where(fwd_bp, o_ki, st["last_ki"])
+            st["pid_offset"] = np.where(
+                drp_pic & st["v_started"], (st["pid_offset"] + 1) & M15,
+                st["pid_offset"],
             )
-            self.v_started = self.v_started | fwd
+            st["v_started"] = st["v_started"] | fwd
 
-            out_sn[:, :, k, :] = np.where(fwd, o_sn, 0)
-            out_ts[:, :, k, :] = np.where(fwd, o_ts, 0)
-            out_pid[:, :, k, :] = np.where(fwd, o_pid, 0)
-            out_tl0[:, :, k, :] = np.where(fwd, o_tl0, 0)
-            out_ki[:, :, k, :] = np.where(fwd, o_ki, 0)
+            out_sn[:, k] = np.where(fwd, o_sn, 0)
+            out_ts[:, k] = np.where(fwd, o_ts, 0)
+            out_pid[:, k] = np.where(fwd, o_pid, 0)
+            out_tl0[:, k] = np.where(fwd, o_tl0, 0)
+            out_ki[:, k] = np.where(fwd, o_ki, 0)
+        for name, lane_vals in st.items():
+            getattr(self, name)[rr, tt, ss] = lane_vals
         return out_sn, out_ts, out_pid, out_tl0, out_ki
 
     def apply_columns(
@@ -178,25 +178,44 @@ class HostMunger:
     ):
         """One tick's rewrites from the device's bit-packed masks to egress
         COLUMN arrays (rooms, tracks, ks, subs, sn, ts, pid, tl0, keyidx),
-        in (room, track, k, sub) order."""
+        in (room, track, k, sub) order. Only the lanes that send or drop a
+        valid packet are munged: the masks are walked as words, never
+        unpacked to the dense [R, T, K, S] plane."""
         S = self.dims.subs
-        send = plane.unpack_bits(send_bits, S)
-        drop = plane.unpack_bits(drop_bits, S)
-        switch = plane.unpack_bits(switch_bits, S)
-        o_sn, o_ts, o_pid, o_tl0, o_ki = self.apply_dense(
-            sn, ts, ts_jump, pid, tl0, keyidx, begin_pic, valid,
-            send, drop, switch,
+        val = np.asarray(valid, bool)
+        send_bits = np.asarray(send_bits).view(np.uint32)
+        drop_bits = np.asarray(drop_bits).view(np.uint32)
+        switch_bits = np.asarray(switch_bits).view(np.uint32)
+        busy = np.bitwise_or.reduce(
+            np.where(val[..., None], send_bits | drop_bits, 0), axis=2
+        )                                                       # [R, T, W]
+        r, t, w = np.nonzero(busy)
+        bit = np.arange(32, dtype=np.uint32)
+        i, b = np.nonzero((busy[r, t, w][:, None] >> bit) & 1)
+        rr, tt, ss = r[i], t[i], w[i] * 32 + b                  # (r, t, s) order
+        keep = ss < S
+        rr, tt, ss = rr[keep], tt[keep], ss[keep]
+        word, shift = ss // 32, (ss % 32).astype(np.uint32)
+
+        def lane_bits(bits):  # [R, T, K, W] → [N, K] bool
+            return ((bits[rr, tt, :, word] >> shift[:, None]) & 1).astype(bool)
+
+        send = lane_bits(send_bits)
+        o_sn, o_ts, o_pid, o_tl0, o_ki = self.apply_lanes(
+            rr, tt, ss, sn, ts, ts_jump, pid, tl0, keyidx, begin_pic, valid,
+            send, lane_bits(drop_bits), lane_bits(switch_bits),
         )
-        eff = send & np.asarray(valid, bool)[..., None]
-        rr, tt, kk, ss = np.nonzero(eff)
+        lane, kk = np.nonzero(send & val[rr, tt])
+        order = np.lexsort((ss[lane], kk, tt[lane], rr[lane]))
+        lane, kk = lane[order], kk[order]
         return (
-            rr.astype(np.int32), tt.astype(np.int32),
-            kk.astype(np.int32), ss.astype(np.int32),
-            o_sn[rr, tt, kk, ss].astype(np.int32),
-            (o_ts[rr, tt, kk, ss] & M32).astype(np.uint32).view(np.int32),
-            o_pid[rr, tt, kk, ss].astype(np.int32),
-            o_tl0[rr, tt, kk, ss].astype(np.int32),
-            o_ki[rr, tt, kk, ss].astype(np.int32),
+            rr[lane].astype(np.int32), tt[lane].astype(np.int32),
+            kk.astype(np.int32), ss[lane].astype(np.int32),
+            o_sn[lane, kk].astype(np.int32),
+            (o_ts[lane, kk] & M32).astype(np.uint32).view(np.int32),
+            o_pid[lane, kk].astype(np.int32),
+            o_tl0[lane, kk].astype(np.int32),
+            o_ki[lane, kk].astype(np.int32),
         )
 
     def padding(self, pad_num, pad_track, ts_advance: int):

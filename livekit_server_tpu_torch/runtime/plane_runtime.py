@@ -13,6 +13,12 @@ single-device path. Per tick:
   4. fan out: host munging of the bit-packed masks into egress columns,
      speakers, keyframe requests, congestion → registered callbacks.
 
+The device layout is behind five seams (`_init_device_state`,
+`_init_step`, `_pack_inputs`, `_unpack_outputs`, `_sel_mirror`) plus
+`_tick_rec_extras`; runtime/paged_runtime.py overrides them to run the
+pooled paged plane under the same host side, which speaks LOGICAL dense
+[R, T, S] shapes throughout.
+
 Not carried yet (see ROADMAP.md): the device mesh, the express lane,
 egress-plane sharding, the overload governor, the integrity audit, fault
 injection, the trace ring, the compile ledger, snapshots/restore and the
@@ -22,7 +28,9 @@ pipelined serving loop (`_run`); the munger runs its numpy path.
 from __future__ import annotations
 
 import asyncio
+import functools
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Awaitable, Callable
 
@@ -158,6 +166,8 @@ class StagedTick:
     wire: np.ndarray | None = None   # the packed device inputs, one buffer
     stage_s: float = 0.0
     device_s: float = 0.0
+    kernel_s: float = 0.0            # paged live path: phase-0 kernel span
+    kernel_steps: int = 0            # paged live path: kernel blocks launched
 
 
 class PlaneRuntime:
@@ -195,7 +205,8 @@ class PlaneRuntime:
         self._dirty_rows: set[int] = set()
         self.ctrl_delta_max_rows = max(1, dims.rooms // 8)
 
-        self.state = plane.init_state(dims, device=self.device)
+        self.state = self._init_device_state()
+        self._init_step()
         self.munger = HostMunger(dims)
         self._slab_history: list = [None] * plane.SLAB_WINDOW
         self.host_seq = HostSequencer(dims)
@@ -206,6 +217,8 @@ class PlaneRuntime:
         # Guards self.state across the device step (run in a worker
         # thread) vs. other coroutines touching it.
         self.state_lock = asyncio.Lock()
+        # Per-tick records (timings + subclass extras), newest last.
+        self.recent_ticks: deque = deque(maxlen=120)
         self._on_tick: list[Callable[[TickResult], Awaitable[None] | None]] = []
         self.stats = {
             "ticks": 0, "fwd_packets": 0, "fwd_bytes": 0,
@@ -213,6 +226,38 @@ class PlaneRuntime:
             "ctrl_full_uploads": 0, "ctrl_delta_uploads": 0,
             "ctrl_delta_rows": 0, "ctrl_upload_bytes": 0,
         }
+
+    # -- device-layout seams (overridden by PagedPlaneRuntime) ------------
+
+    def _init_device_state(self) -> plane.PlaneState:
+        """Allocate the device plane state (dense layout)."""
+        return plane.init_state(self.dims, device=self.device)
+
+    def _init_step(self) -> None:
+        """Bind the device step: (state, wire) → (state', flat numpy
+        output buffer)."""
+        self._step = functools.partial(
+            plane.device_step, dims=self.dims, audio_params=self._ap,
+            bwe_params=self._bp, red_enabled=self.red_enabled,
+        )
+
+    def _pack_inputs(self, inp: plane.TickInputs) -> np.ndarray:
+        """Logical numpy TickInputs → the device step's one upload buffer."""
+        return plane.wire_inputs(plane.pack_tick_inputs(inp))
+
+    def _unpack_outputs(self, buf) -> plane.TickOutputs:
+        """The device step's output buffer → LOGICAL-shape TickOutputs."""
+        return plane.unpack_tick_outputs(buf, self.dims, self.red_enabled)
+
+    def _sel_mirror(self, state) -> tuple:
+        """The selector state in LOGICAL [R, T, S] shape: (current_spatial,
+        current_temporal, target_spatial, target_temporal) numpy arrays."""
+        return tuple(x.cpu().numpy() for x in state.sel)
+
+    def _tick_rec_extras(self, st: StagedTick) -> dict:
+        """Extra fields for this tick's `recent_ticks` record; the paged
+        runtime adds the kernel span and the live-page fraction."""
+        return {}
 
     # -- control-plane mutation API (host mirrors; applied at tick edge) --
     def set_track(self, room: int, track: int, *, published: bool, is_video: bool,
@@ -283,9 +328,8 @@ class PlaneRuntime:
         tick, one fetch of the flat output buffer (the fetch waits for the
         device). Caller holds state_lock; runs in a worker thread."""
         t0 = time.perf_counter()
-        self.state, out = plane.device_tick(
-            self.state, st.wire, self.dims, self._ap, self._bp, self.red_enabled,
-        )
+        self.state, buf = self._step(self.state, st.wire)
+        out = self._unpack_outputs(buf)
         st.device_s = time.perf_counter() - t0
         return out
 
@@ -300,7 +344,7 @@ class PlaneRuntime:
         roll = (idx + 1) % q_ticks == 0
         inp, payloads = self.ingest.drain(roll_quality=roll)
         self._slab_history[idx % plane.SLAB_WINDOW] = payloads
-        wire = plane.wire_inputs(plane.pack_tick_inputs(inp))
+        wire = self._pack_inputs(inp)
         st = StagedTick(inp=inp, payloads=payloads, idx=idx, roll=roll, wire=wire)
         st.stage_s = time.perf_counter() - t0
         return st
@@ -342,6 +386,11 @@ class PlaneRuntime:
         self.stats["stage_s"] += st.stage_s
         self.stats["device_s"] += st.device_s
         self.stats["fanout_s"] += fanout_s
+        self.recent_ticks.append({
+            "tick": st.idx, "stage_ms": st.stage_s * 1e3, "device_ms": st.device_s * 1e3,
+            "fanout_ms": fanout_s * 1e3, "fwd_packets": result.fwd_packets,
+            **self._tick_rec_extras(st),
+        })
         for cb in self._on_tick:
             r = cb(result)
             if asyncio.iscoroutine(r):

@@ -64,6 +64,15 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
         synth.make_state(dims, synth.TrafficSpec())
     assert PlaneRuntime(dims, device="cpu").state.meta.is_video.device.type == "cpu"
 
+    from livekit_server_tpu_torch.models import paged
+    from livekit_server_tpu_torch.runtime.paged_runtime import PagedPlaneRuntime
+
+    pdims = paged.PagedDims(2, 4, 2, 8, 2, 4, 4)
+    for entry in (paged.init_table, paged.page_init_template, PagedPlaneRuntime):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(pdims)
+    assert PagedPlaneRuntime(pdims, device="cpu").table.pg_room.device.type == "cpu"
+
     # The ops' init_state helpers follow the same rule: "cuda" by default,
     # an error without a card, the CPU only when asked for.
     from livekit_server_tpu_torch.ops import (

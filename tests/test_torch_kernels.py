@@ -19,9 +19,14 @@ torch.set_num_threads(1)
 import numpy as np  # noqa: E402
 
 from livekit_server_tpu_torch.models import plane, synth  # noqa: E402
-from livekit_server_tpu_torch.ops import allocation, cuda, pacer, selector  # noqa: E402
+from livekit_server_tpu_torch.ops import (  # noqa: E402
+    allocation, cuda, pacer, paged_kernel, selector,
+)
 
 SHAPES = [(4, 4, 8, 40), (3, 5, 6, 7), (2, 3, 4, 70), (2, 12, 4, 100), (64, 10, 8, 10)]
+# Page geometries (P, TP, K, SP) of the live-page kernel: SP=32 sets mask
+# bit 31; TP=3 leaves a warp's last track group empty.
+PAGE_SHAPES = [(16, 2, 4, 4), (24, 4, 8, 8), (64, 8, 8, 32), (12, 3, 5, 8)]
 
 
 def _decide_args(dims, seed, dev):
@@ -47,6 +52,38 @@ def _alloc_args(dims, seed, dev):
             t(rng.integers(-1, 4, (R, S, T)), np.int32),
             torch.from_numpy(rng.random((R, S, T)) < 0.2).to(dev),
             t(rng.random((R, S)) * 8e6, np.float32))
+
+
+def page_args(page, seed, dev, n_live: int, mix_n: int = 0):
+    """Seeded pooled operands of the live-page kernel: decide operands,
+    mix operands (pcm [P, TP, mix_n], levels with ties at the top) and
+    live_rows naming n_live distinct pages, padded with a duplicate to a
+    power of two."""
+    P, TP, K, SP = page
+    rng = np.random.default_rng(seed)
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa: E731
+    b = lambda p, shape: torch.from_numpy(rng.random(shape) < p).to(dev)  # noqa: E731
+    state = selector.SelectorState(
+        i32(rng.integers(-1, 3, (P, TP, SP))), i32(rng.integers(-1, 4, (P, TP, SP))),
+        i32(rng.integers(-1, 3, (P, TP, SP))), i32(rng.integers(0, 4, (P, TP, SP))))
+    pk = lambda lo, hi: i32(rng.integers(lo, hi, (P, TP, K)))  # noqa: E731
+    inp = plane.TickInputs(**dict.fromkeys(plane.TickInputs._fields))._replace(
+        layer=pk(-1, 4), temporal=pk(0, 4), keyframe=b(0.3, (P, TP, K)),
+        layer_sync=b(0.5, (P, TP, K)), end_frame=b(0.4, (P, TP, K)),
+        valid=b(0.85, (P, TP, K)), size=pk(40, 1300), sn=pk(0, 65536),
+        ts=i32(rng.integers(-2**31, 2**31, (P, TP, K), dtype=np.int64)),
+        arrival_rtp=pk(0, 1 << 30), begin_pic=b(0.4, (P, TP, K)))
+    decide = (state, b(0.4, (P, TP)), b(0.6, (P, TP)), b(0.7, (P, TP, SP)), inp)
+    level = rng.random((P, TP)).astype(np.float32)
+    level[:, : min(3, TP)] = level[:, -1:]                   # ties at the top
+    mix = (torch.from_numpy(rng.standard_normal((P, TP, mix_n)).astype(np.float32) * 0.3).to(dev),
+           torch.from_numpy(level).to(dev), b(0.7, (P, TP)),
+           i32(rng.integers(-1, TP, (P, SP))),
+           torch.from_numpy(rng.uniform(0.5, 1.5, (P, TP)).astype(np.float32)).to(dev))
+    live = rng.choice(P, n_live, replace=False)
+    nl = 1 << max(n_live - 1, 0).bit_length()
+    rows = np.concatenate([live, np.repeat(live[:1], nl - n_live)])
+    return decide, mix, i32(rows)
 
 
 def _assert_trees_equal(a, b):
@@ -78,7 +115,35 @@ def test_kernels_match_plain(card, dims):
     want = allocation.allocate_budget_rooms_plain(*args)
     torch.cuda.synchronize()
     _assert_trees_equal(got, want)
-    assert cuda.launches == {name: n + 1 for name, n in before.items()}
+    assert cuda.launches == {**before, "decide_rooms": before["decide_rooms"] + 1,
+                             "allocate_budget_rooms": before["allocate_budget_rooms"] + 1}
+
+
+@pytest.mark.cuda
+def test_paged_kernel_matches_plain(card):
+    """The live-page kernel against its plain versions on the same card
+    inputs at each of PAGE_SHAPES, with padded duplicate live rows:
+    decide (selection, masks, sums, routing stacks), mix and the fused
+    decide+mix launch, every output exact (the float32 mix too: same
+    summation order, no FMA)."""
+    kw = dict(wire_overhead=pacer.WIRE_OVERHEAD_BYTES)
+    for page in PAGE_SHAPES:
+        decide, mix, rows = page_args(page, sum(page), card, n_live=page[0] // 2 + 1,
+                                      mix_n=96)
+        before = cuda.launches["paged_kernel"]
+        got = paged_kernel.decide_pages(*decide, rows, **kw)
+        want = paged_kernel.decide_pages_plain(*decide, rows, **kw)
+        torch.cuda.synchronize()
+        _assert_trees_equal(got, want)
+        got_mix = paged_kernel.mix_pages(*mix, rows)
+        want_mix = paged_kernel.mix_pages_plain(*mix, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got_mix, want_mix), page
+        both, both_mix = paged_kernel.decide_mix_pages(*decide, *mix, rows, **kw)
+        torch.cuda.synchronize()
+        _assert_trees_equal(both, want)
+        assert torch.equal(both_mix, want_mix), page
+        assert cuda.launches["paged_kernel"] == before + 3
 
 
 @pytest.mark.cuda
@@ -118,9 +183,19 @@ def test_wrapper_routing():
     _assert_trees_equal(allocation.allocate_budget_rooms(*args),
                         allocation.allocate_budget_rooms_plain(*args))
     assert cuda.launches == before
+    decide, mix, rows = page_args((8, 2, 3, 4), 5, "cpu", n_live=3, mix_n=4)
+    _assert_trees_equal(paged_kernel.decide_pages(*decide, rows, wire_overhead=42),
+                        paged_kernel.decide_pages_plain(*decide, rows, wire_overhead=42))
+    assert torch.equal(paged_kernel.mix_pages(*mix, rows),
+                       paged_kernel.mix_pages_plain(*mix, rows))
+    assert cuda.launches == before
     args = _decide_args((1, 2, 2, 3), 3, "meta")
     with pytest.raises(ValueError, match="unsupported device"):
         selector.decide_rooms(*args, wire_overhead=42)
+    with pytest.raises(ValueError, match="unsupported device"):
+        paged_kernel.mix_pages(*[x.to("meta") for x in mix], rows.to("meta"))
+    with pytest.raises(ValueError, match="non-empty"):
+        paged_kernel.decide_pages(*decide, rows[:0], wire_overhead=42)
     with pytest.raises(ValueError, match="unsupported device"):
         allocation.allocate_budget_rooms(*_alloc_args((1, 2, 2, 3), 4, "meta"))
 

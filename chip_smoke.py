@@ -45,15 +45,26 @@ Phases (any failure exits non-zero; about two minutes on an H100):
                 runtime's live-extent device step (paged.live_step) at
                 PAGED_TIMING_DIMS at full occupancy and after releasing half
                 the rooms; each kernel's own time beside its byte bound and
-                its plain version's time. A kernel's `ms` is device time: a
+                its plain version's time, at every launch shape of each
+                path: decide_rooms and allocate_budget_rooms on the
+                north-star tick's operands, paged_kernel and
+                allocate_budget_rooms ([65536, 8, 64], first held equal to
+                its plain version) on a full-pool live step's, and
+                decide_rooms and allocate_budget_rooms at the dead-page
+                key's one-page shape (each first held equal to its plain
+                version). A
+                kernel's `ms` is device time: a
                 CUDA graph of GRAPH_LAUNCHES launches of the wrapper, inputs
                 captured from a real tick, replayed between a CUDA event
                 pair, so the wrapper's host work (checks, allocation, the
                 ctypes call) is not in it; `call_ms` is one wrapper call
                 between an event pair, host work included.
 
-Output: JSON lines per phase, a `{"kernels": [...]}` JSON line, the card
-line from nvidia-smi, and as the last line `{"ok": true, "device": {...}}`.
+Output: JSON lines per phase, a `{"kernels": [...]}` JSON line (each
+kernel's numbers on its own path, and under `paths` its launch shape,
+launches, device, call and plain times and bound on each path that
+launches it), the card line from nvidia-smi, and as the last line
+`{"ok": true, "device": {...}}`.
 `--profile` adds torch.profiler breakdowns (device time by kernel) of a
 few north-star dense ticks and a few full-pool paged steps.
 """
@@ -340,30 +351,67 @@ async def runtime_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def capture_kernel_args(state, wire, dims):
-    """Run one tick with the two kernel wrappers wrapped, recording the
-    arguments and results the main path hands them."""
+def capture_calls(wrappers, fn):
+    """Call fn() with each (module, name) wrapper wrapped, recording the
+    arguments, keywords and result of its last call. Returns (fn's result,
+    {name: (args, kwargs, result)})."""
     seen = {}
-    originals = (selector.decide_rooms, allocation.allocate_budget_rooms)
+    originals = [(mod, name, getattr(mod, name)) for mod, name in wrappers]
 
-    def wrap(mod, name, fn):
-        def f(*a, **kw):
-            res = fn(*a, **kw)
+    def wrap(name, f):
+        def g(*a, **kw):
+            res = f(*a, **kw)
             seen[name] = (a, kw, res)
             return res
-        setattr(mod, name, f)
+        return g
 
-    wrap(selector, "decide_rooms", originals[0])
-    wrap(allocation, "allocate_budget_rooms", originals[1])
+    for mod, name, f in originals:
+        setattr(mod, name, wrap(name, f))
     try:
-        state, _ = plane.device_tick(state, wire, dims)
+        out = fn()
     finally:
-        selector.decide_rooms, allocation.allocate_budget_rooms = originals
+        for mod, name, f in originals:
+            setattr(mod, name, f)
+    return out, seen
+
+
+def capture_kernel_args(state, wire, dims):
+    """Run one dense tick with the two kernel wrappers wrapped, recording
+    the arguments and results the main path hands them."""
+    (state, _), seen = capture_calls(
+        [(selector, "decide_rooms"), (allocation, "allocate_budget_rooms")],
+        lambda: plane.device_tick(state, wire, dims))
     return state, seen
 
 
 def nbytes(*trees) -> int:
     return sum(x.numel() * x.element_size() for t in trees for x in plane.tree_leaves(t))
+
+
+def decide_rooms_bytes(a, res) -> int:
+    """Bytes one decide_rooms call must move: its operands (the selector
+    state's four leaves) in, its outputs (the new state's current layers)
+    out."""
+    st = a[0]
+    return nbytes(a[1:], (st.current_spatial, st.current_temporal, st.target_spatial,
+                          st.target_temporal),
+                  res[1:], (res[0].current_spatial, res[0].current_temporal))
+
+
+def decide_pages_bytes(a, res) -> int:
+    """Bytes one decide_pages call must move: each live page's slice of
+    every operand and the live-row index in, the outputs out."""
+    sel, is_svc, is_video, base, inp, rows = a[:6]
+    P = base.shape[0]
+    per_page = sum(x.element_size() * x.numel() // P for x in (
+        *sel, is_svc, is_video, base,
+        *(getattr(inp, f) for f in ("layer", "temporal", "keyframe", "layer_sync",
+                                    "end_frame", "valid", "size", "sn", "ts",
+                                    "arrival_rtp", "begin_pic"))))
+    out_bytes = nbytes(res.send_bits, res.drop_bits, res.switch_bits, res.sel.current_spatial,
+                       res.sel.current_temporal, res.need_kf, res.pkts_sent, res.sent_bytes,
+                       res.fwd_packets, res.fwd_bytes, res.st, res.tr)
+    return per_page * rows.numel() + rows.numel() * rows.element_size() + out_bytes
 
 
 def event_ms(fn, reps: int) -> float:
@@ -398,7 +446,8 @@ def graph_ms(fn, reps: int) -> float:
     return event_ms(graph.replay, reps) / GRAPH_LAUNCHES
 
 
-def timing_phase(dev, profile: bool) -> tuple[dict, dict]:
+def north_star_setup(dev):
+    """The north-star dense state and four ticks of seeded wires."""
     dims, spec = NORTH_STAR, NORTH_STAR_SPEC
     state = synth.make_state(dims, spec, device=dev)
     traffic = synth.init_traffic(dims, spec, seed=SEED)
@@ -406,6 +455,12 @@ def timing_phase(dev, profile: bool) -> tuple[dict, dict]:
     for i in range(4):
         traffic, inp = synth.next_tick(traffic, dims, spec, i, seed=SEED)
         wires.append(plane.wire_inputs(plane.pack_tick_inputs(inp)))
+    return state, wires
+
+
+def timing_phase(dev, profile: bool) -> tuple[dict, dict]:
+    dims = NORTH_STAR
+    state, wires = north_star_setup(dev)
     for i in range(WARMUP_TICKS):
         state, _ = plane.device_tick(state, wires[i % len(wires)], dims)
     times = []
@@ -424,28 +479,27 @@ def timing_phase(dev, profile: bool) -> tuple[dict, dict]:
 
     state, seen = capture_kernel_args(state, wires[0], dims)
     a, kw, res = seen["decide_rooms"]
-    st = a[0]
-    dec_bytes = nbytes(a[1:], (st.current_spatial, st.current_temporal,
-                               st.target_spatial, st.target_temporal),
-                       res[1:], (res[0].current_spatial, res[0].current_temporal))
-    dec = {
-        "ms": graph_ms(lambda: selector.decide_rooms(*a, **kw), KERNEL_REPS),
-        "call_ms": event_ms(lambda: selector.decide_rooms(*a, **kw), KERNEL_REPS),
-        "plain_ms": event_ms(lambda: selector.decide_rooms_plain(*a, **kw), PLAIN_REPS),
-        "bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3, "bytes": dec_bytes,
-    }
+    dec = time_kernel(selector.decide_rooms, selector.decide_rooms_plain, a, kw,
+                      decide_rooms_bytes(a, res))
+    dec["shape"] = list(dims)
     a2, kw2, res2 = seen["allocate_budget_rooms"]
-    al_bytes = nbytes(a2, res2)
-    al = {
-        "ms": graph_ms(lambda: allocation.allocate_budget_rooms(*a2, **kw2), KERNEL_REPS),
-        "call_ms": event_ms(lambda: allocation.allocate_budget_rooms(*a2, **kw2), KERNEL_REPS),
-        "plain_ms": event_ms(lambda: allocation.allocate_budget_rooms_plain(*a2, **kw2),
-                             PLAIN_REPS),
-        "bound_ms": al_bytes / HBM_BYTES_PER_S * 1e3, "bytes": al_bytes,
-    }
+    al = time_kernel(allocation.allocate_budget_rooms, allocation.allocate_budget_rooms_plain,
+                     a2, kw2, nbytes(a2, res2))
+    al["shape"] = list(a2[1].shape)
     if profile:
         profile_ticks(state, wires, dims)
     return tick, {"decide_rooms": dec, "allocate_budget_rooms": al}
+
+
+def time_kernel(kernel, plain, a, kw, bytes_moved: int) -> dict:
+    """A wrapper's device time (`graph_ms`), call time and its plain
+    version's time on the captured operands, beside its byte bound."""
+    return {
+        "ms": graph_ms(lambda: kernel(*a, **kw), KERNEL_REPS),
+        "call_ms": event_ms(lambda: kernel(*a, **kw), KERNEL_REPS),
+        "plain_ms": event_ms(lambda: plain(*a, **kw), PLAIN_REPS),
+        "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes": bytes_moved,
+    }
 
 
 def profile_ticks(state, wires, dims) -> None:
@@ -786,11 +840,10 @@ def time_live_steps(state, table, wires, dims, rows, inv):
     }
 
 
-def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict]:
-    """The live-extent device step at PAGED_TIMING_DIMS filled from the
-    size mix, at full occupancy and after releasing half the rooms, and
-    the phase-0 kernel's own time beside its byte bound and its plain
-    version's time."""
+def full_pool(dev):
+    """The PAGED_TIMING_DIMS pool filled from the size mix: (pager, room
+    sizes per row, device state, table, live rows, live inverse, live
+    pages, two ticks of wires)."""
     dims = PAGED_TIMING_DIMS
     pager = RoomPager(dims.rooms, dims.tracks, dims.subs, tpage=dims.tpage,
                       spage=dims.spage, pool_pages=dims.pool_pages)
@@ -800,46 +853,93 @@ def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict]:
     state, table = paged_pool_state(pager, sizes, dims, dev)
     rows, inv, n_live = live_tables(pager, dev)
     wires = paged_wires(pager, dims, room_sizes, 2)
+    return pager, room_sizes, state, table, rows, inv, n_live, wires
+
+
+def capture_live_step(state, table, wire, rows, inv):
+    """One live step of the PAGED_TIMING_DIMS pool with phase 0's and
+    phase 2's wrappers wrapped; returns (state', {name: (args, kwargs,
+    result)})."""
+    (state, _, _), seen = capture_calls(
+        [(paged_kernel, "decide_pages"), (allocation, "allocate_budget_rooms")],
+        lambda: paged.live_step(state, table, wire, PAGED_TIMING_DIMS, rows, inv))
+    return state, seen
+
+
+def dead_key_calls(dev) -> dict:
+    """The paged path's decide_rooms and allocate_budget_rooms launches of
+    a dead-page key (the 1-page stock tick at PAGED_TIMING_DIMS' page
+    shape): {name: (args, kwargs, result)}."""
+    d = PAGED_TIMING_DIMS
+    _, seen = capture_calls(
+        [(selector, "decide_rooms"), (allocation, "allocate_budget_rooms")],
+        lambda: paged.dead_page_outputs(d.tracks // d.tpage, d.tpage, d.pkts, d.spage,
+                                        PAGED_SPEC.tick_ms, 0, device=dev))
+    return seen
+
+
+def require_exact(name: str, plain, a, kw, res, where: str) -> None:
+    """Raise unless the kernel's result `res` equals plain(*a, **kw) bit
+    for bit."""
+    ok, err = tree_equal(res, plain(*a, **kw))
+    torch.cuda.synchronize()
+    if not ok:
+        raise AssertionError(f"{name} kernel != plain on {where} (max abs err {err})")
+    log(f"{name} exact on {where}")
+
+
+def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict]:
+    """The live-extent device step at PAGED_TIMING_DIMS filled from the
+    size mix, at full occupancy and after releasing half the rooms; the
+    phase-0 kernel's and the phase-2 allocation's own times on operands
+    captured from a live step of the full pool (the allocation held equal
+    to its plain version there first), beside their byte bounds and their
+    plain versions' times; and the dead-page key's decide_rooms and
+    allocate_budget_rooms launches, each held equal to its plain version
+    and timed."""
+    dims = PAGED_TIMING_DIMS
+    pager, room_sizes, state, table, rows, inv, n_live, wires = full_pool(dev)
+    sizes = room_sizes[room_sizes > 0]
     state, full = time_live_steps(state, table, wires, dims, rows, inv)
     full.update(rooms=len(sizes), live_pages=n_live)
     if profile:
         profile_steps(lambda i: paged.live_step(state, table, wires[i % 2], dims, rows, inv))
 
-    # Capture phase 0's operands from one real tick of the full pool.
-    seen = {}
-    original = paged_kernel.decide_pages
-
-    def wrapped(*a, **kw):
-        seen["args"] = (a, kw)
-        return original(*a, **kw)
-
-    paged_kernel.decide_pages = wrapped
-    try:
-        state, _, _ = paged.live_step(state, table, wires[0], dims, rows, inv)
-    finally:
-        paged_kernel.decide_pages = original
-    a, kw = seen["args"]
+    state, seen = capture_live_step(state, table, wires[0], rows, inv)
+    a, kw, res = seen["decide_pages"]
     nl = int(rows.numel())
-    P = dims.pool_pages
-    sel, is_svc, is_video, base, inp = a[:5]
-    per_page = sum(x.element_size() * x.numel() // P for x in (
-        *sel, is_svc, is_video, base,
-        *(getattr(inp, f) for f in ("layer", "temporal", "keyframe", "layer_sync",
-                                    "end_frame", "valid", "size", "sn", "ts",
-                                    "arrival_rtp", "begin_pic"))))
-    res = original(*a, **kw)
-    out_bytes = nbytes(res.send_bits, res.drop_bits, res.switch_bits, res.sel.current_spatial,
-                       res.sel.current_temporal, res.need_kf, res.pkts_sent, res.sent_bytes,
-                       res.fwd_packets, res.fwd_bytes, res.st, res.tr)
-    bytes_moved = per_page * nl + rows.numel() * rows.element_size() + out_bytes
-    kernel = {
-        "ms": graph_ms(lambda: original(*a, **kw), KERNEL_REPS),
-        "call_ms": event_ms(lambda: original(*a, **kw), KERNEL_REPS),
-        "plain_ms": event_ms(lambda: paged_kernel.decide_pages_plain(*a, **kw), PLAIN_REPS),
-        "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes": bytes_moved,
-        "bytes_per_step": bytes_moved / nl, "grid": nl,
-    }
-    del seen, a, kw, res
+    bytes_moved = decide_pages_bytes(a, res)
+    kernel = time_kernel(paged_kernel.decide_pages, paged_kernel.decide_pages_plain, a, kw,
+                         bytes_moved)
+    kernel.update(bytes_per_step=bytes_moved / nl, grid=nl, shape=[nl, dims.tpage, dims.pkts,
+                                                                   dims.spage])
+    a2, kw2, res2 = seen["allocate_budget_rooms"]
+    require_exact("allocate_budget_rooms", allocation.allocate_budget_rooms_plain, a2, kw2,
+                  res2, f"the paged live step's operands {list(a2[1].shape)}")
+    alloc = time_kernel(allocation.allocate_budget_rooms,
+                        allocation.allocate_budget_rooms_plain, a2, kw2, nbytes(a2, res2))
+    alloc["shape"] = list(a2[1].shape)
+    del seen, a, kw, res, a2, kw2, res2
+
+    # The dead-page key's launches, held to their plain versions first.
+    dead_calls = dead_key_calls(dev)
+    a3, kw3, res3 = dead_calls["decide_rooms"]
+    st = a3[0]
+    shape = list(a3[4].shape) + [st.current_spatial.shape[-1]]
+    require_exact("decide_rooms", selector.decide_rooms_plain, a3, kw3, res3,
+                  f"the dead-page key {shape}")
+    dead = time_kernel(selector.decide_rooms, selector.decide_rooms_plain, a3, kw3,
+                       decide_rooms_bytes(a3, res3))
+    dead["shape"] = shape
+    a4, kw4, res4 = dead_calls["allocate_budget_rooms"]
+    require_exact("allocate_budget_rooms", allocation.allocate_budget_rooms_plain, a4, kw4,
+                  res4, f"the dead-page key {list(a4[1].shape)}")
+    alloc["dead_key"] = time_kernel(allocation.allocate_budget_rooms,
+                                    allocation.allocate_budget_rooms_plain, a4, kw4,
+                                    nbytes(a4, res4))
+    alloc["dead_key"]["shape"] = list(a4[1].shape)
+    del dead_calls, a3, kw3, res3, a4, kw4, res4
+    torch.cuda.empty_cache()
 
     # Release every other room: the freed pages re-initialize and drop out
     # of the live rows, as the runtime's page-lane sync does.
@@ -855,7 +955,7 @@ def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict]:
     half.update(rooms=len(sizes) - len(sizes) // 2, live_pages=n_live)
     tick = {"dims": list(dims), "ticks": PAGED_TIMED_TICKS, "full": full, "half": half,
             "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
-    return tick, kernel
+    return tick, {"paged_kernel": kernel, "allocate_budget_rooms": alloc, "decide_rooms": dead}
 
 
 def main() -> int:
@@ -880,25 +980,35 @@ def main() -> int:
     errs["paged_kernel"], mix_t = paged_parity_phase(dev)
     dense_launches = asyncio.run(runtime_phase(dev))
     paged_launches = asyncio.run(paged_runtime_phase(dev))
-    tick, kt = timing_phase(dev, args.profile)
-    paged_tick, kt["paged_kernel"] = paged_timing_phase(dev, args.profile)
+    tick, dense_t = timing_phase(dev, args.profile)
+    paged_tick, paged_t = paged_timing_phase(dev, args.profile)
 
-    # Kernels 1 and 2 belong to the dense path, kernel 3 to the paged path;
-    # each kernel's `launches` is the count from its own path's run.
-    own = {"decide_rooms": dense_launches, "allocate_budget_rooms": dense_launches,
-           "paged_kernel": paged_launches}
+    # decide_rooms and allocate_budget_rooms belong to the dense path,
+    # paged_kernel to the paged path; each kernel's top-level numbers and
+    # `launches` are from its own path, and `paths` gives each path that
+    # launches it: its launch shape, launches and timed numbers there (the
+    # paged allocation's dead-page launch under `dead_key`).
+    launches = {"dense": dense_launches, "paged": paged_launches}
+    timed = {"dense": dense_t, "paged": paged_t}
+    own = {"decide_rooms": "dense", "allocate_budget_rooms": "dense", "paged_kernel": "paged"}
     kernels = []
     for name, meta in KERNELS.items():
+        main_t = timed[own[name]][name]
+        paths = {
+            path: {"launches": launches[path][name], **timed[path][name]}
+            for path in ("dense", "paged") if name in timed[path]
+        }
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": own[name][name],
-            "launches_by_path": {"dense": dense_launches[name], "paged": paged_launches[name]},
-            "max_abs_err": errs[name], "ms": kt[name]["ms"], "call_ms": kt[name]["call_ms"],
-            "plain_ms": kt[name]["plain_ms"], "bound_ms": kt[name]["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
+            "replaces": meta["replaces"], "launches": launches[own[name]][name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "max_abs_err": errs[name], "ms": main_t["ms"], "call_ms": main_t["call_ms"],
+            "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "paths": paths,
         })
     print(json.dumps({"north_star_tick": tick}), flush=True)
-    print(json.dumps({"paged_tick": paged_tick, "paged_kernel": kt["paged_kernel"],
+    print(json.dumps({"paged_tick": paged_tick, "paged_kernel": paged_t["paged_kernel"],
+                      "paged_allocate_budget_rooms": paged_t["allocate_budget_rooms"],
                       "paged_kernel_mix": mix_t}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

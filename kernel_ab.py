@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Old against new: two builds of the port's CUDA kernels timed in one
+process on one card, in turns.
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 kernel_ab.py --old DIR [--kernels NAME ...]
+
+DIR is another tree of this repository (for example the parent commit,
+unpacked with `git archive`). Each named kernel (default: every kernel of
+`cuda.SOURCES` whose source or shared headers differ between the trees)
+is built from DIR's `livekit_server_tpu_torch/csrc/` with the same nvcc
+flags and bound to this tree's wrapper, so the old source must keep the
+C interface of the new one. Both builds run on the operands chip_smoke.py
+captures from the main paths: one north-star dense tick (decide_rooms,
+allocate_budget_rooms), one live step of the full PAGED_TIMING_DIMS pool
+(paged_kernel, allocate_budget_rooms) and the dead-page key's 1-page
+stock tick (decide_rooms, allocate_budget_rooms). For each launch the two
+builds' outputs must be equal; then each build's device time
+(chip_smoke.graph_ms) is taken in the order old, new, new, old. Prints
+one JSON line per launch, the card's name and power limit, and
+`{"ok": true}` last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke
+from livekit_server_tpu_torch.ops import allocation, cuda, paged_kernel, selector
+
+# Kernel name → the module whose `_kernel()` returns its C launch function.
+MODULES = {"decide_rooms": selector, "allocate_budget_rooms": allocation,
+           "paged_kernel": paged_kernel}
+
+
+def changed(old_csrc: Path) -> list[str]:
+    """The kernels whose library would differ when built from old_csrc."""
+    return [name for name, source in cuda.SOURCES.items()
+            if cuda.library_path(source, old_csrc) != cuda.library_path(source)]
+
+
+def build_old(old_csrc: Path, names) -> dict:
+    """Compile old_csrc's sources of the named kernels; returns kernel name
+    → its C launch function, typed as this tree's wrapper types its own."""
+    cuda.build(names, csrc=old_csrc)
+    fns = {}
+    for name in names:
+        source = cuda.SOURCES[name]
+        fn = getattr(ctypes.CDLL(str(cuda.library_path(source, old_csrc))), f"{source}_launch")
+        new = MODULES[name]._kernel()
+        fn.argtypes, fn.restype = new.argtypes, new.restype
+        fns[name] = fn
+    return fns
+
+
+@contextlib.contextmanager
+def using(module, fn):
+    """Route the module's wrapper to the C launch function `fn`."""
+    original = module._kernel
+    module._kernel = lambda: fn
+    try:
+        yield
+    finally:
+        module._kernel = original
+
+
+def launches(dev):
+    """Yield, one path at a time, (path, [(kernel, wrapper, args, kwargs,
+    launch shape, bytes moved)]) for the kernel launches chip_smoke
+    captures there."""
+    alloc = allocation.allocate_budget_rooms
+
+    def row(name, wrapper, a, kw, res, count_bytes):
+        if name == "decide_rooms":          # [R, T, K, S]
+            shape = list(a[4].shape) + [a[0].current_spatial.shape[-1]]
+        elif name == "paged_kernel":        # [live rows, TP, K, SP]
+            shape = [a[5].numel(), *a[4].layer.shape[1:], a[3].shape[-1]]
+        else:                               # [R, S, T]
+            shape = list(a[1].shape)
+        return name, wrapper, a, kw, shape, count_bytes(a, res)
+
+    state, wires = chip_smoke.north_star_setup(dev)
+    state, _ = chip_smoke.plane.device_tick(state, wires[0], chip_smoke.NORTH_STAR)
+    _, seen = chip_smoke.capture_kernel_args(state, wires[1], chip_smoke.NORTH_STAR)
+    del state, wires
+    yield "dense", [
+        row("decide_rooms", selector.decide_rooms, *seen["decide_rooms"],
+            chip_smoke.decide_rooms_bytes),
+        row("allocate_budget_rooms", alloc, *seen["allocate_budget_rooms"], chip_smoke.nbytes)]
+    del seen
+    torch.cuda.empty_cache()
+
+    _, _, state, table, rows, inv, _, wires = chip_smoke.full_pool(dev)
+    _, seen = chip_smoke.capture_live_step(state, table, wires[0], rows, inv)
+    del state, table, rows, inv, wires
+    yield "paged", [
+        row("paged_kernel", paged_kernel.decide_pages, *seen["decide_pages"],
+            chip_smoke.decide_pages_bytes),
+        row("allocate_budget_rooms", alloc, *seen["allocate_budget_rooms"], chip_smoke.nbytes)]
+    del seen
+    torch.cuda.empty_cache()
+
+    seen = chip_smoke.dead_key_calls(dev)
+    yield "paged dead key", [
+        row("decide_rooms", selector.decide_rooms, *seen["decide_rooms"],
+            chip_smoke.decide_rooms_bytes),
+        row("allocate_budget_rooms", alloc, *seen["allocate_budget_rooms"], chip_smoke.nbytes)]
+
+
+def compare(name: str, path: str, call, a, kw, shape, old_fn, bytes_moved: int) -> dict:
+    module = MODULES[name]
+    new_out = call(*a, **kw)
+    with using(module, old_fn):
+        old_out = call(*a, **kw)
+    torch.cuda.synchronize()
+    ok, _ = chip_smoke.tree_equal(new_out, old_out)
+    if not ok:
+        raise AssertionError(f"{name} ({path}): old and new kernels disagree")
+    del new_out, old_out
+    times = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        ctx = using(module, old_fn) if which == "old" else contextlib.nullcontext()
+        with ctx:
+            times[which].append(chip_smoke.graph_ms(lambda: call(*a, **kw),
+                                                    chip_smoke.KERNEL_REPS))
+    row = {"kernel": name, "path": path, "shape": shape,
+           "old_ms": times["old"], "new_ms": times["new"],
+           "bound_ms": bytes_moved / chip_smoke.HBM_BYTES_PER_S * 1e3, "bytes": bytes_moved}
+    row["speedup"] = sum(times["old"]) / sum(times["new"])
+    row["new_over_bound"] = sum(times["new"]) / 2 / row["bound_ms"]
+    print(json.dumps({"kernel_ab": row}), flush=True)
+    return row
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old", type=Path, required=True,
+                    help="a tree of this repository holding the old kernel sources")
+    ap.add_argument("--kernels", nargs="+", choices=sorted(cuda.SOURCES),
+                    help="kernels to compare (default: those whose sources differ)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    old_csrc = args.old / "livekit_server_tpu_torch" / "csrc"
+    names = args.kernels or changed(old_csrc)
+    cuda.build()
+    old = build_old(old_csrc, names)
+    for path, calls in launches(dev):
+        for name, wrapper, a, kw, shape, bytes_moved in calls:
+            if name in old:
+                compare(name, path, wrapper, a, kw, shape, old[name], bytes_moved)
+        del calls, a, kw
+    print(chip_smoke.card_line(), flush=True)
+    print(json.dumps({"ok": True}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -143,6 +143,15 @@ def _kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _fits(T: int, S: int) -> bool:
+    """Whether one room's tile of the kernel fits the card's shared memory."""
+    fn = cuda.library("allocate_budget_rooms").budget_rooms_fits
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return bool(fn(T, S))
+
+
 def allocate_budget_rooms(bitrates, max_spatial, max_temporal, muted, budget):
     """All rooms' allocation at once.
 
@@ -167,6 +176,9 @@ def allocate_budget_rooms(bitrates, max_spatial, max_temporal, muted, budget):
     S = budget.shape[-1]
     if T > 64:
         raise ValueError(f"allocate_budget_rooms: T={T} exceeds the kernel's 64 tracks")
+    if not _fits(T, S):
+        raise ValueError(f"allocate_budget_rooms: one room at T={T} S={S} exceeds the "
+                         "kernel's shared memory")
     cuda.require(bitrates, "bitrates", torch.float32, (R, T, MAX_SPATIAL, MAX_TEMPORAL), device)
     cuda.require(max_spatial, "max_spatial", torch.int32, (R, S, T), device)
     cuda.require(max_temporal, "max_temporal", torch.int32, (R, S, T), device)

@@ -1,10 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each kernel is one `.cu` file under `livekit_server_tpu_torch/csrc/` with
-a plain C entry point. It is compiled with `nvcc` for `sm_90a` into its
-own shared library under `livekit_server_tpu_torch/_build/` at first use
-(the file name carries a digest of the source and flags, so an edited
-source rebuilds) and loaded with `ctypes`. Nothing here runs at import:
+a plain C entry point; sources may include the shared `csrc/*.cuh`
+headers. It is compiled with `nvcc` for `sm_90a` into its own shared
+library under `livekit_server_tpu_torch/_build/` at first use (the file
+name carries a digest of the source, every header and the flags, so an
+edited source or header rebuilds) and loaded with `ctypes`. Nothing here runs at import:
 the CPU tests import every module on a machine without `nvcc`.
 
 Each C entry point enqueues its kernel on the stream it is given and
@@ -61,27 +62,32 @@ def nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
-    src = (CSRC / f"{source}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD / f"lib{source}-{digest}.so"
+def library_path(source: str, csrc: Path | None = None) -> Path:
+    """The built library of csrc/<source>.cu (`csrc` defaults to CSRC)."""
+    csrc = CSRC if csrc is None else csrc
+    h = hashlib.sha256((csrc / f"{source}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{source}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=tuple(SOURCES)) -> dict[str, str]:
+def build(names=tuple(SOURCES), csrc: Path | None = None) -> dict[str, str]:
     """Compile the named kernels that are not built yet, one `nvcc` per
-    source, all started together. Returns the compiler's output per
-    kernel (ptxas register/shared-memory report); raises on a failed
-    build with that output."""
+    source, all started together; `csrc` (default CSRC) holds the sources.
+    Returns the compiler's output per kernel (ptxas register/shared-memory
+    report); raises on a failed build with that output."""
+    csrc = CSRC if csrc is None else csrc
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         source = SOURCES[name]
-        out = library_path(source)
+        out = library_path(source, csrc)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         procs[name] = (out, tmp, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")],
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{source}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     reports = {}

@@ -161,6 +161,15 @@ def _kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _fits(T: int, K: int, S: int) -> bool:
+    """Whether one room's tile of the kernel fits the card's shared memory."""
+    fn = cuda.library("decide_rooms").decide_rooms_fits
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return bool(fn(T, K, S))
+
+
 def decide_rooms(state: SelectorState, is_svc, is_video, base, pkt_spatial,
                  pkt_temporal, pkt_keyframe, pkt_layer_sync, pkt_end_frame,
                  pkt_valid, pkt_size, wire_overhead: int):
@@ -192,8 +201,9 @@ def decide_rooms(state: SelectorState, is_svc, is_video, base, pkt_spatial,
     S = state.current_spatial.shape[-1]
     if min(R, T, K, S) < 1:
         raise ValueError(f"decide_rooms: empty shape R={R} T={T} K={K} S={S}")
-    if 2 * S + 2 > 12288:
-        raise ValueError(f"decide_rooms: S={S} exceeds the 48 KB shared-memory sums")
+    if not _fits(T, K, S):
+        raise ValueError(f"decide_rooms: one room at T={T} K={K} S={S} exceeds the "
+                         "kernel's shared memory")
     W = bits.mask_words(S)
     i32, b8 = torch.int32, torch.bool
     pkt = (pkt_spatial, pkt_temporal, pkt_keyframe, pkt_layer_sync,

@@ -1,5 +1,5 @@
 """The port stands alone: no module of livekit_server_tpu_torch, and not
-chip_smoke.py, imports jax or the JAX package; its entry points default
+chip_smoke.py or kernel_ab.py, imports jax or the JAX package; its entry points default
 to the card and refuse to fall back to the CPU."""
 
 import ast
@@ -13,7 +13,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
-SOURCES = sorted((ROOT / "livekit_server_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "livekit_server_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "livekit_server_tpu")
 
 

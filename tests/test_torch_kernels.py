@@ -1,12 +1,14 @@
-"""The port's CUDA kernels against their plain PyTorch versions.
+"""The port's CUDA kernels against their plain PyTorch versions at the
+shapes that stress their shared-memory staging, and the wrappers'
+routing, operand checks and build paths on the CPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with a card and no jax (skip the JAX-based conftest there):
 
-    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels*.py
 
 Tests marked `cuda` need an NVIDIA GPU and `nvcc`; elsewhere they skip.
-The rest check the wrappers' routing on the CPU.
+The kernels at the tick shapes are in tests/test_torch_kernels_card.py.
 """
 
 import pytest
@@ -16,158 +18,53 @@ torch = pytest.importorskip("torch")
 # other workers, and the tensors here are small.
 torch.set_num_threads(1)
 
-import numpy as np  # noqa: E402
+from torch_kernel_fixture import (  # noqa: E402, F401 (card: a fixture)
+    alloc_args, assert_trees_equal, card, decide_args, page_args,
+)
+from torch_paged_fixture import phase2_alloc_case  # noqa: E402
 
-from livekit_server_tpu_torch.models import plane, synth  # noqa: E402
 from livekit_server_tpu_torch.ops import (  # noqa: E402
-    allocation, cuda, pacer, paged_kernel, selector,
+    allocation, cuda, paged_kernel, pacer, selector,
 )
 
-SHAPES = [(4, 4, 8, 40), (3, 5, 6, 7), (2, 3, 4, 70), (2, 12, 4, 100), (64, 10, 8, 10)]
-# Page geometries (P, TP, K, SP) of the live-page kernel: SP=32 sets mask
-# bit 31; TP=3 leaves a warp's last track group empty.
-PAGE_SHAPES = [(16, 2, 4, 4), (24, 4, 8, 8), (64, 8, 8, 32), (12, 3, 5, 8)]
-
-
-def _decide_args(dims, seed, dev):
-    R, T, K, S = dims
-    rng = np.random.default_rng(seed)
-    i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)  # noqa: E731
-    b = lambda p, shape: torch.from_numpy(rng.random(shape) < p).to(dev)  # noqa: E731
-    state = selector.SelectorState(
-        i32(rng.integers(-1, 3, (R, T, S))), i32(rng.integers(-1, 4, (R, T, S))),
-        i32(rng.integers(-1, 3, (R, T, S))), i32(rng.integers(0, 4, (R, T, S))))
-    pkt = (i32(rng.integers(0, 3, (R, T, K))), i32(rng.integers(0, 4, (R, T, K))),
-           b(0.3, (R, T, K)), b(0.5, (R, T, K)), b(0.4, (R, T, K)),
-           b(0.9, (R, T, K)), i32(rng.integers(40, 1300, (R, T, K))))
-    return (state, b(0.5, (R, T)), b(0.6, (R, T)), b(0.7, (R, T, S)), *pkt)
-
-
-def _alloc_args(dims, seed, dev):
-    R, T, K, S = dims
-    rng = np.random.default_rng(seed)
-    bit = rng.random((R, T, 4, 4)) * 2e6 * (rng.random((R, T, 4, 4)) > 0.3)
-    t = lambda a, dt: torch.from_numpy(a.astype(dt)).to(dev)  # noqa: E731
-    return (t(bit, np.float32), t(rng.integers(-1, 4, (R, S, T)), np.int32),
-            t(rng.integers(-1, 4, (R, S, T)), np.int32),
-            torch.from_numpy(rng.random((R, S, T)) < 0.2).to(dev),
-            t(rng.random((R, S)) * 8e6, np.float32))
-
-
-def page_args(page, seed, dev, n_live: int, mix_n: int = 0):
-    """Seeded pooled operands of the live-page kernel: decide operands,
-    mix operands (pcm [P, TP, mix_n], levels with ties at the top) and
-    live_rows naming n_live distinct pages, padded with a duplicate to a
-    power of two."""
-    P, TP, K, SP = page
-    rng = np.random.default_rng(seed)
-    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa: E731
-    b = lambda p, shape: torch.from_numpy(rng.random(shape) < p).to(dev)  # noqa: E731
-    state = selector.SelectorState(
-        i32(rng.integers(-1, 3, (P, TP, SP))), i32(rng.integers(-1, 4, (P, TP, SP))),
-        i32(rng.integers(-1, 3, (P, TP, SP))), i32(rng.integers(0, 4, (P, TP, SP))))
-    pk = lambda lo, hi: i32(rng.integers(lo, hi, (P, TP, K)))  # noqa: E731
-    inp = plane.TickInputs(**dict.fromkeys(plane.TickInputs._fields))._replace(
-        layer=pk(-1, 4), temporal=pk(0, 4), keyframe=b(0.3, (P, TP, K)),
-        layer_sync=b(0.5, (P, TP, K)), end_frame=b(0.4, (P, TP, K)),
-        valid=b(0.85, (P, TP, K)), size=pk(40, 1300), sn=pk(0, 65536),
-        ts=i32(rng.integers(-2**31, 2**31, (P, TP, K), dtype=np.int64)),
-        arrival_rtp=pk(0, 1 << 30), begin_pic=b(0.4, (P, TP, K)))
-    decide = (state, b(0.4, (P, TP)), b(0.6, (P, TP)), b(0.7, (P, TP, SP)), inp)
-    level = rng.random((P, TP)).astype(np.float32)
-    level[:, : min(3, TP)] = level[:, -1:]                   # ties at the top
-    mix = (torch.from_numpy(rng.standard_normal((P, TP, mix_n)).astype(np.float32) * 0.3).to(dev),
-           torch.from_numpy(level).to(dev), b(0.7, (P, TP)),
-           i32(rng.integers(-1, TP, (P, SP))),
-           torch.from_numpy(rng.uniform(0.5, 1.5, (P, TP)).astype(np.float32)).to(dev))
-    live = rng.choice(P, n_live, replace=False)
-    nl = 1 << max(n_live - 1, 0).bit_length()
-    rows = np.concatenate([live, np.repeat(live[:1], nl - n_live)])
-    return decide, mix, i32(rows)
-
-
-def _assert_trees_equal(a, b):
-    for x, y in zip(plane.tree_leaves(a), plane.tree_leaves(b)):
-        assert x.shape == y.shape and x.dtype == y.dtype
-        assert torch.equal(x, y)
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU interpret mode)")
-    return torch.device("cuda")
+# (R, T, K, S, paged) for the staged kernels: rows of odd byte lengths
+# (S = 7, 50, 70: 16-byte copies with ragged heads and tails), one room,
+# and a prime room count above one tile (the persistent loop's tail).
+# `paged` takes the allocation operands from the paged phase-2 geometry
+# [R, S=8, T=64] with fill tracks past each room's own pages.
+STAGING = {
+    "paged-phase2-1037": (1037, 64, 8, 8, True),
+    "one-room-s7": (1, 5, 6, 7, False),
+    "s50-k16": (13, 8, 16, 50, False),
+    "prime-1037-s70": (1037, 3, 4, 70, False),
+}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims", SHAPES)
-def test_kernels_match_plain(card, dims):
-    """Each kernel against its plain version on the same card inputs;
-    every output exact (the float32 `used` budget included)."""
-    args = _decide_args(dims, sum(dims), card)
+@pytest.mark.parametrize("case", list(STAGING))
+def test_kernels_match_plain_staging(card, case):
+    """decide_rooms and allocate_budget_rooms against their plain
+    versions on the same card inputs at shapes that stress the staged
+    spans' ragged edges and the persistent loop's tail; every output
+    exact, float32 `used` included, and one launch each."""
+    R, T, K, S, paged = STAGING[case]
+    seed = R + T + K + S
     before = dict(cuda.launches)
+    args = decide_args((R, T, K, S), seed, card)
     got = selector.decide_rooms(*args, wire_overhead=pacer.WIRE_OVERHEAD_BYTES)
     want = selector.decide_rooms_plain(*args, wire_overhead=pacer.WIRE_OVERHEAD_BYTES)
     torch.cuda.synchronize()
-    _assert_trees_equal(got, want)
-    args = _alloc_args(dims, sum(dims), card)
+    assert_trees_equal(got, want)
+    if paged:
+        args = tuple(torch.from_numpy(a).to(card) for a in phase2_alloc_case(seed, R, T, S))
+    else:
+        args = alloc_args((R, T, K, S), seed, card)
     got = allocation.allocate_budget_rooms(*args)
     want = allocation.allocate_budget_rooms_plain(*args)
     torch.cuda.synchronize()
-    _assert_trees_equal(got, want)
+    assert_trees_equal(got, want)
     assert cuda.launches == {**before, "decide_rooms": before["decide_rooms"] + 1,
                              "allocate_budget_rooms": before["allocate_budget_rooms"] + 1}
-
-
-@pytest.mark.cuda
-def test_paged_kernel_matches_plain(card):
-    """The live-page kernel against its plain versions on the same card
-    inputs at each of PAGE_SHAPES, with padded duplicate live rows:
-    decide (selection, masks, sums, routing stacks), mix and the fused
-    decide+mix launch, every output exact (the float32 mix too: same
-    summation order, no FMA)."""
-    kw = dict(wire_overhead=pacer.WIRE_OVERHEAD_BYTES)
-    for page in PAGE_SHAPES:
-        decide, mix, rows = page_args(page, sum(page), card, n_live=page[0] // 2 + 1,
-                                      mix_n=96)
-        before = cuda.launches["paged_kernel"]
-        got = paged_kernel.decide_pages(*decide, rows, **kw)
-        want = paged_kernel.decide_pages_plain(*decide, rows, **kw)
-        torch.cuda.synchronize()
-        _assert_trees_equal(got, want)
-        got_mix = paged_kernel.mix_pages(*mix, rows)
-        want_mix = paged_kernel.mix_pages_plain(*mix, rows)
-        torch.cuda.synchronize()
-        assert torch.equal(got_mix, want_mix), page
-        both, both_mix = paged_kernel.decide_mix_pages(*decide, *mix, rows, **kw)
-        torch.cuda.synchronize()
-        _assert_trees_equal(both, want)
-        assert torch.equal(both_mix, want_mix), page
-        assert cuda.launches["paged_kernel"] == before + 3
-
-
-@pytest.mark.cuda
-def test_tick_on_card_matches_cpu(card):
-    """Five ticks of the whole plane on the card against the CPU path:
-    integers exact, floats within `plane.float_tolerance` of each leaf
-    (powf and reduction order may differ by an ulp)."""
-    dims = plane.PlaneDims(6, 6, 8, 12)
-    spec = synth.TrafficSpec(video_tracks=2, audio_tracks=3, svc=True)
-    states = {d: synth.make_state(dims, spec, device=d) for d in ("cpu", "cuda")}
-    traffic = synth.init_traffic(dims, spec, seed=1)
-    for i in range(5):
-        traffic, inp = synth.next_tick(traffic, dims, spec, i, seed=1)
-        outs = {}
-        for d in states:
-            states[d], outs[d] = plane.media_plane_tick(
-                states[d], plane.inputs_to_device(inp, d))
-        for name, x, y in zip(plane.TickOutputs._fields, outs["cpu"], outs["cuda"]):
-            y = y.cpu()
-            if x.is_floating_point():
-                rtol, atol = plane.float_tolerance(name)
-                torch.testing.assert_close(y, x, rtol=rtol, atol=atol, msg=name)
-            else:
-                assert torch.equal(x, y)
 
 
 def test_wrapper_routing():
@@ -176,20 +73,20 @@ def test_wrapper_routing():
     plain version."""
     before = dict(cuda.launches)
     dims = (3, 4, 5, 9)
-    args = _decide_args(dims, 1, "cpu")
-    _assert_trees_equal(selector.decide_rooms(*args, wire_overhead=42),
-                        selector.decide_rooms_plain(*args, wire_overhead=42))
-    args = _alloc_args(dims, 2, "cpu")
-    _assert_trees_equal(allocation.allocate_budget_rooms(*args),
-                        allocation.allocate_budget_rooms_plain(*args))
+    args = decide_args(dims, 1, "cpu")
+    assert_trees_equal(selector.decide_rooms(*args, wire_overhead=42),
+                       selector.decide_rooms_plain(*args, wire_overhead=42))
+    args = alloc_args(dims, 2, "cpu")
+    assert_trees_equal(allocation.allocate_budget_rooms(*args),
+                       allocation.allocate_budget_rooms_plain(*args))
     assert cuda.launches == before
     decide, mix, rows = page_args((8, 2, 3, 4), 5, "cpu", n_live=3, mix_n=4)
-    _assert_trees_equal(paged_kernel.decide_pages(*decide, rows, wire_overhead=42),
-                        paged_kernel.decide_pages_plain(*decide, rows, wire_overhead=42))
+    assert_trees_equal(paged_kernel.decide_pages(*decide, rows, wire_overhead=42),
+                       paged_kernel.decide_pages_plain(*decide, rows, wire_overhead=42))
     assert torch.equal(paged_kernel.mix_pages(*mix, rows),
                        paged_kernel.mix_pages_plain(*mix, rows))
     assert cuda.launches == before
-    args = _decide_args((1, 2, 2, 3), 3, "meta")
+    args = decide_args((1, 2, 2, 3), 3, "meta")
     with pytest.raises(ValueError, match="unsupported device"):
         selector.decide_rooms(*args, wire_overhead=42)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -197,7 +94,7 @@ def test_wrapper_routing():
     with pytest.raises(ValueError, match="non-empty"):
         paged_kernel.decide_pages(*decide, rows[:0], wire_overhead=42)
     with pytest.raises(ValueError, match="unsupported device"):
-        allocation.allocate_budget_rooms(*_alloc_args((1, 2, 2, 3), 4, "meta"))
+        allocation.allocate_budget_rooms(*alloc_args((1, 2, 2, 3), 4, "meta"))
 
 
 def test_operand_checks():
@@ -223,3 +120,19 @@ def test_build_names_each_source():
         assert "sm_90a" in " ".join(cuda.NVCC_FLAGS)
         path = cuda.library_path(source)
         assert path.parent == cuda.BUILD and path.name.startswith(f"lib{source}-")
+
+
+def test_library_path_digests_headers(tmp_path, monkeypatch):
+    """A library's path changes when any shared `csrc/*.cuh` header
+    changes or appears, so an edited header never reuses a stale build;
+    it stays the same while nothing changes."""
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(cuda, "CSRC", tmp_path)
+    first = cuda.library_path("k")
+    assert cuda.library_path("k") == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = cuda.library_path("k")
+    assert second != first
+    (tmp_path / "extra.cuh").write_text("// new\n")
+    assert cuda.library_path("k") not in (first, second)

@@ -144,3 +144,25 @@ def assert_leaves_match(port_leaves, ref_leaves, names, where):
             np.testing.assert_allclose(p, r, rtol=rtol, atol=atol, err_msg=f"{where} {name}")
         else:
             assert np.array_equal(p, r.astype(p.dtype)), (where, name)
+
+
+def phase2_alloc_case(seed: int, rooms: int, tracks: int = 64, subs: int = 8, tpage: int = 4):
+    """numpy operands of `allocate_budget_rooms` at the paged phase-2
+    geometry [rooms, subs, tracks]: each room allocates over the full
+    track extent, and the tracks past its own pages (a random multiple of
+    `tpage`) are fill tracks as `models/paged.py` `_allocate` builds them
+    (bitrates 0, caps MAX_LAYERS-1 / 3, muted). Returns (bitrates
+    [R, T, 4, 4] f32, max_spatial, max_temporal [R, S, T] i32, muted
+    [R, S, T] bool, budget [R, S] f32)."""
+    rng = np.random.default_rng(seed)
+    R, T, S = rooms, tracks, subs
+    own = tpage * rng.integers(1, T // tpage + 1, R)
+    real = np.arange(T)[None, :] < own[:, None]                         # [R, T]
+    bit = rng.random((R, T, 4, 4)) * 2e6 * (rng.random((R, T, 4, 4)) > 0.3)
+    bit = np.where(real[:, :, None, None], bit, 0.0).astype(np.float32)
+    fill = ~real[:, None, :]                                            # [R, 1, T]
+    ms = np.where(fill, tplane.MAX_LAYERS - 1, rng.integers(-1, 4, (R, S, T))).astype(np.int32)
+    mt = np.where(fill, 3, rng.integers(-1, 4, (R, S, T))).astype(np.int32)
+    mu = fill | (rng.random((R, S, T)) < 0.3)
+    bud = (rng.random((R, S)) * 3e7).astype(np.float32)
+    return bit, ms, mt, mu, bud

@@ -8,8 +8,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; about two minutes on an H100):
 
   1. build    — compile every CUDA kernel with nvcc (one process per
-                source, in parallel) and print the card's name and power
-                limit;
+                source, in parallel); print each kernel's registers and
+                spills (ptxas -v) and the card's name and power limit;
   2. parity   — each dense-tick kernel against its plain PyTorch version on
                 the card, seeded inputs, at PlaneDims(4, 4, 8, 40),
                 (1024, 10, 8, 10) and (10240, 8, 16, 50); then the live-page
@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; about two minutes on an H100):
                 32) (mask bit 31) and the full 65536-page pool of
                 PAGED_TIMING_DIMS filled from the room-size mix; integers,
                 bools and floats (the float32 budget, the mix) must be equal
-                bit for bit;
+                bit for bit; at the full pool, the mix entries' device time
+                (a CUDA graph of MIX_GRAPH_LAUNCHES kernel launches) and
+                call time beside their byte bounds;
   3. runtime  — a PlaneRuntime at PlaneDims(1024, 10, 8, 10) (1k rooms ×
                 10 participants, 2 VP9-SVC video + 2 Opus tracks per room)
                 fed RUNTIME_TICKS ticks of seeded traffic through
@@ -47,9 +49,10 @@ Phases (any failure exits non-zero; about two minutes on an H100):
                 the rooms; each kernel's own time beside its byte bound and
                 its plain version's time, at every launch shape of each
                 path: decide_rooms and allocate_budget_rooms on the
-                north-star tick's operands, paged_kernel and
-                allocate_budget_rooms ([65536, 8, 64], first held equal to
-                its plain version) on a full-pool live step's, and
+                north-star tick's operands, paged_kernel on a live step's
+                at full and at half occupancy (65536 and 32768 grid steps),
+                allocate_budget_rooms ([65536, 8, 64]) on the full-pool
+                live step's (each first held equal to its plain version), and
                 decide_rooms and allocate_budget_rooms at the dead-page
                 key's one-page shape (each first held equal to its plain
                 version). A
@@ -61,9 +64,13 @@ Phases (any failure exits non-zero; about two minutes on an H100):
                 between an event pair, host work included.
 
 Output: JSON lines per phase, a `{"kernels": [...]}` JSON line (each
-kernel's numbers on its own path, and under `paths` its launch shape,
-launches, device, call and plain times and bound on each path that
-launches it), the card line from nvidia-smi, and as the last line
+kernel's numbers on its own path, its ptxas registers and spill bytes,
+and under `paths` its launch shape, launches, device, call and plain
+times and bound on each path that launches it — paged_kernel's
+half-occupancy launch under `half` and its mix entries under `mix`;
+paged_kernel's `ms` is its launch alone and `wrapper_ms` the whole
+decide_pages call, whose gathers of the selector targets are torch ops),
+the card line from nvidia-smi, and as the last line
 `{"ok": true, "device": {...}}`.
 `--profile` adds torch.profiler breakdowns (device time by kernel) of a
 few north-star dense ticks and a few full-pool paged steps.
@@ -74,6 +81,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -84,6 +92,7 @@ import torch
 
 from livekit_server_tpu_torch.models import paged, plane, synth
 from livekit_server_tpu_torch.ops import allocation, cuda, pacer, paged_kernel, selector
+from livekit_server_tpu_torch.ops.mix import MIX_TOP_K
 from livekit_server_tpu_torch.runtime import PlaneRuntime
 from livekit_server_tpu_torch.runtime.paged_runtime import PagedPlaneRuntime
 from livekit_server_tpu_torch.runtime.pager import RoomPager
@@ -109,6 +118,7 @@ TIMED_TICKS = 100
 WARMUP_TICKS = 5
 KERNEL_REPS = 50
 GRAPH_LAUNCHES = 20
+MIX_GRAPH_LAUNCHES = 3             # the mix writes 2 GB a launch at the full pool
 PLAIN_REPS = 5
 
 KERNELS = {
@@ -147,6 +157,15 @@ ROOM_MIX_SEED = 9
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers a thread and spill bytes (stores + loads) of the kernel in
+    one library's nvcc -Xptxas -v output (each library holds one kernel)."""
+    regs = re.findall(r"Used (\d+) registers", text)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+    return {"registers": int(regs[-1]) if regs else None,
+            "spill_bytes": sum(int(a) + int(b) for a, b in spills) if spills else None}
 
 
 def card_line() -> str:
@@ -414,6 +433,15 @@ def decide_pages_bytes(a, res) -> int:
     return per_page * rows.numel() + rows.numel() * rows.element_size() + out_bytes
 
 
+def mix_pages_bytes(mix, rows) -> int:
+    """Bytes one mix_pages launch must move: each live page's slice of
+    every mix operand and the live-row index in, the [NL, SP, N] mix out."""
+    pcm, sub_track = mix[0], mix[3]
+    P, nl = pcm.shape[0], rows.numel()
+    return (sum(x.element_size() * x.numel() // P for x in mix) * nl
+            + nl * rows.element_size() + nl * sub_track.shape[1] * pcm.shape[2] * 4)
+
+
 def event_ms(fn, reps: int) -> float:
     """Median over `reps` calls of fn, each between a CUDA event pair."""
     times = []
@@ -427,11 +455,11 @@ def event_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, reps: int) -> float:
-    """Device time of one call of fn: GRAPH_LAUNCHES calls captured in a
-    CUDA graph, the graph replayed `reps` times between CUDA event pairs;
-    the median replay over GRAPH_LAUNCHES. Host work in fn runs once, at
-    capture, and is not timed."""
+def graph_ms(fn, reps: int, launches: int = GRAPH_LAUNCHES) -> float:
+    """Device time of one call of fn: `launches` calls captured in a CUDA
+    graph, the graph replayed `reps` times between CUDA event pairs; the
+    median replay over `launches`. Host work in fn runs once, at capture,
+    and is not timed."""
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -439,11 +467,11 @@ def graph_ms(fn, reps: int) -> float:
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(GRAPH_LAUNCHES):
+        for _ in range(launches):
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    return event_ms(graph.replay, reps) / GRAPH_LAUNCHES
+    return event_ms(graph.replay, reps) / launches
 
 
 def north_star_setup(dev):
@@ -595,18 +623,44 @@ def page_args(page, rng, dev, rows=None, mix_n=MIX_N):
     return decide, mix, rows
 
 
+def full_pool_rows(dev):
+    """The live rows of the PAGED_TIMING_DIMS pool filled from the size
+    mix, on the card, and the live page count."""
+    d = PAGED_TIMING_DIMS
+    pager = RoomPager(d.rooms, d.tracks, d.subs, tpage=d.tpage, spage=d.spage,
+                      pool_pages=d.pool_pages)
+    admit_rooms(pager)
+    rows, _, n_live = live_tables(pager, dev)
+    return rows, n_live
+
+
+def decide_launch(sel_state, is_svc, is_video, base, inp, rows, **kw):
+    """decide_pages' kernel launch alone: its outputs as one tuple, without
+    the wrapper's gathers of the live rows' selector targets."""
+    decided, _ = paged_kernel._launch(rows, (sel_state, is_svc, is_video, base, inp), None,
+                                      top_k=0, **kw)
+    return tuple(decided)
+
+
+def mix_launch(mix, rows):
+    """mix_pages' kernel launch alone (the wrapper's tanh is another op)."""
+    return paged_kernel._launch(rows, None, mix, wire_overhead=0, top_k=MIX_TOP_K)[1]
+
+
+def decide_mix_launch(decide, mix, rows, kw):
+    """decide_mix_pages' kernel launch alone: its outputs as one tuple."""
+    decided, mixed = paged_kernel._launch(rows, decide, mix, top_k=MIX_TOP_K, **kw)
+    return (*decided, mixed)
+
+
 def paged_parity_phase(dev) -> tuple[float, dict]:
     """decide_pages, mix_pages and decide_mix_pages against their plain
     versions at each page geometry; every output equal, the float32 mix
     included. Returns the largest absolute difference seen (0 when exact)
-    and, at the full-width pool, the mix entries' call times beside the
-    mix's byte bound and its plain version's time."""
+    and, at the full-width pool, the mix entries' device and call times
+    beside their byte bounds and the mix's plain version's time."""
     rng = np.random.default_rng(SEED)
-    pager = RoomPager(PAGED_TIMING_DIMS.rooms, PAGED_TIMING_DIMS.tracks,
-                      PAGED_TIMING_DIMS.subs, tpage=PAGED_TIMING_DIMS.tpage,
-                      spage=PAGED_TIMING_DIMS.spage, pool_pages=PAGED_TIMING_DIMS.pool_pages)
-    admit_rooms(pager)
-    full_rows, _, n_live = live_tables(pager, dev)
+    full_rows, n_live = full_pool_rows(dev)
     d = PAGED_TIMING_DIMS
     geoms = [(g, None) for g in PAGE_GEOMS] + [((d.pool_pages, d.tpage, d.pkts, d.spage),
                                                 full_rows)]
@@ -632,18 +686,23 @@ def paged_parity_phase(dev) -> tuple[float, dict]:
         del checks
         log(f"paged parity ok at page geometry {page}, {rows.numel()} grid steps")
     log(f"full-width pool: {n_live} live pages of {d.pool_pages}")
-    # The mix writes [NL, SP, N] float32 (2 GB at the full pool), too large
-    # to capture GRAPH_LAUNCHES calls in one graph: wrapper-call times only.
-    nl, P = int(rows.numel()), d.pool_pages
-    mix_bytes = (sum(x.element_size() * x.numel() // P for x in mix) * nl
-                 + rows.numel() * rows.element_size()
-                 + nl * d.spage * mix[0].shape[2] * 4)
+    # The mix writes [NL, SP, N] float32 (2 GB at the full pool): its device
+    # time is a graph of MIX_GRAPH_LAUNCHES kernel launches; the call times
+    # are the wrappers' (the tanh included).
+    mix_bytes = mix_pages_bytes(mix, rows)
+    decide_bytes = decide_pages_bytes((*decide, rows),
+                                      paged_kernel.decide_pages(*decide, rows, **kw))
     mix_t = {
+        "mix_ms": graph_ms(lambda: mix_launch(mix, rows), KERNEL_REPS, MIX_GRAPH_LAUNCHES),
+        "decide_mix_ms": graph_ms(lambda: decide_mix_launch(decide, mix, rows, kw), KERNEL_REPS,
+                                  MIX_GRAPH_LAUNCHES),
         "mix_call_ms": event_ms(lambda: paged_kernel.mix_pages(*mix, rows), KERNEL_REPS),
         "decide_mix_call_ms": event_ms(
             lambda: paged_kernel.decide_mix_pages(*decide, *mix, rows, **kw), KERNEL_REPS),
         "mix_plain_ms": event_ms(lambda: paged_kernel.mix_pages_plain(*mix, rows), PLAIN_REPS),
-        "mix_bound_ms": mix_bytes / HBM_BYTES_PER_S * 1e3, "mix_bytes": mix_bytes, "grid": nl,
+        "mix_bound_ms": mix_bytes / HBM_BYTES_PER_S * 1e3, "mix_bytes": mix_bytes,
+        "decide_mix_bound_ms": (mix_bytes + decide_bytes) / HBM_BYTES_PER_S * 1e3,
+        "grid": int(rows.numel()),
     }
     del decide, mix
     torch.cuda.empty_cache()
@@ -856,6 +915,22 @@ def full_pool(dev):
     return pager, room_sizes, state, table, rows, inv, n_live, wires
 
 
+def release_half(pager, room_sizes, state, table, dev):
+    """Release every other room of the full pool: the freed pages
+    re-initialize and drop out of the live rows, as the runtime's page-lane
+    sync does. Returns (live rows, live inverse, live pages, two ticks of
+    wires); state, table and room_sizes are updated in place."""
+    dims = PAGED_TIMING_DIMS
+    for r in range(1, int((room_sizes > 0).sum()), 2):
+        pager.release_room(r)
+        room_sizes[r] = 0
+    delta = pager.drain_delta()
+    paged.apply_table_delta(table, *paged.pack_table_delta(pager, delta))
+    paged.reinit_pages(state, delta.freed_pages, paged.page_init_template(dims, dev))
+    rows, inv, n_live = live_tables(pager, dev)
+    return rows, inv, n_live, paged_wires(pager, dims, room_sizes, 2)
+
+
 def capture_live_step(state, table, wire, rows, inv):
     """One live step of the PAGED_TIMING_DIMS pool with phase 0's and
     phase 2's wrappers wrapped; returns (state', {name: (args, kwargs,
@@ -888,15 +963,36 @@ def require_exact(name: str, plain, a, kw, res, where: str) -> None:
     log(f"{name} exact on {where}")
 
 
+def time_decide_pages(seen, where: str) -> dict:
+    """The captured decide_pages launch, run again on its operands (the
+    step updates the pool's selector state in place after it), held equal
+    to its plain version, then timed beside its byte bound and its plain
+    version's time: the kernel's launch alone and the whole wrapper."""
+    a, kw, _ = seen["decide_pages"]
+    res = paged_kernel.decide_pages(*a, **kw)
+    require_exact("paged_kernel", paged_kernel.decide_pages_plain, a, kw, res, where)
+    bytes_moved = decide_pages_bytes(a, res)
+    nl = int(a[5].numel())
+    out = time_kernel(paged_kernel.decide_pages, paged_kernel.decide_pages_plain, a, kw,
+                      bytes_moved)
+    # `ms` is the kernel's own launch; `wrapper_ms` adds the wrapper's two
+    # gathers of the live rows' selector targets (torch ops).
+    out["wrapper_ms"] = out["ms"]
+    out["ms"] = graph_ms(lambda: decide_launch(*a, **kw), KERNEL_REPS)
+    out.update(bytes_per_step=bytes_moved / nl, grid=nl,
+               shape=[nl, *a[4].layer.shape[1:], a[3].shape[-1]])
+    return out
+
+
 def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict]:
     """The live-extent device step at PAGED_TIMING_DIMS filled from the
     size mix, at full occupancy and after releasing half the rooms; the
-    phase-0 kernel's and the phase-2 allocation's own times on operands
-    captured from a live step of the full pool (the allocation held equal
-    to its plain version there first), beside their byte bounds and their
-    plain versions' times; and the dead-page key's decide_rooms and
-    allocate_budget_rooms launches, each held equal to its plain version
-    and timed."""
+    phase-0 kernel's own time on operands captured from a live step at
+    each occupancy and the phase-2 allocation's on the full pool's (each
+    held equal to its plain version there first), beside their byte
+    bounds and their plain versions' times; and the dead-page key's
+    decide_rooms and allocate_budget_rooms launches, each held equal to
+    its plain version and timed."""
     dims = PAGED_TIMING_DIMS
     pager, room_sizes, state, table, rows, inv, n_live, wires = full_pool(dev)
     sizes = room_sizes[room_sizes > 0]
@@ -906,20 +1002,15 @@ def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict]:
         profile_steps(lambda i: paged.live_step(state, table, wires[i % 2], dims, rows, inv))
 
     state, seen = capture_live_step(state, table, wires[0], rows, inv)
-    a, kw, res = seen["decide_pages"]
-    nl = int(rows.numel())
-    bytes_moved = decide_pages_bytes(a, res)
-    kernel = time_kernel(paged_kernel.decide_pages, paged_kernel.decide_pages_plain, a, kw,
-                         bytes_moved)
-    kernel.update(bytes_per_step=bytes_moved / nl, grid=nl, shape=[nl, dims.tpage, dims.pkts,
-                                                                   dims.spage])
+    kernel = time_decide_pages(seen, f"the full-occupancy live step's operands ({n_live} "
+                               "live pages)")
     a2, kw2, res2 = seen["allocate_budget_rooms"]
     require_exact("allocate_budget_rooms", allocation.allocate_budget_rooms_plain, a2, kw2,
                   res2, f"the paged live step's operands {list(a2[1].shape)}")
     alloc = time_kernel(allocation.allocate_budget_rooms,
                         allocation.allocate_budget_rooms_plain, a2, kw2, nbytes(a2, res2))
     alloc["shape"] = list(a2[1].shape)
-    del seen, a, kw, res, a2, kw2, res2
+    del seen, a2, kw2, res2
 
     # The dead-page key's launches, held to their plain versions first.
     dead_calls = dead_key_calls(dev)
@@ -941,18 +1032,13 @@ def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict]:
     del dead_calls, a3, kw3, res3, a4, kw4, res4
     torch.cuda.empty_cache()
 
-    # Release every other room: the freed pages re-initialize and drop out
-    # of the live rows, as the runtime's page-lane sync does.
-    for r in range(1, len(sizes), 2):
-        pager.release_room(r)
-        room_sizes[r] = 0
-    delta = pager.drain_delta()
-    paged.apply_table_delta(table, *paged.pack_table_delta(pager, delta))
-    paged.reinit_pages(state, delta.freed_pages, paged.page_init_template(dims, dev))
-    rows, inv, n_live = live_tables(pager, dev)
-    wires = paged_wires(pager, dims, room_sizes, 2)
+    rows, inv, n_live, wires = release_half(pager, room_sizes, state, table, dev)
     state, half = time_live_steps(state, table, wires, dims, rows, inv)
     half.update(rooms=len(sizes) - len(sizes) // 2, live_pages=n_live)
+    state, seen = capture_live_step(state, table, wires[0], rows, inv)
+    kernel["half"] = time_decide_pages(seen, f"the half-occupancy live step's operands "
+                                       f"({n_live} live pages)")
+    del seen
     tick = {"dims": list(dims), "ticks": PAGED_TIMED_TICKS, "full": full, "half": half,
             "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     return tick, {"paged_kernel": kernel, "allocate_budget_rooms": alloc, "decide_rooms": dead}
@@ -971,8 +1057,10 @@ def main() -> int:
     reports = cuda.build()
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"nvcc {name}: {line.strip()}")
+    ptxas = {name: ptxas_report(text) for name, text in reports.items()}
+    print(json.dumps({"ptxas": ptxas}), flush=True)
     card = card_line()
     log(f"build ok in {time.perf_counter() - t0:.1f} s; card: {card}")
 
@@ -989,6 +1077,7 @@ def main() -> int:
     # launches it: its launch shape, launches and timed numbers there (the
     # paged allocation's dead-page launch under `dead_key`).
     launches = {"dense": dense_launches, "paged": paged_launches}
+    paged_t["paged_kernel"]["mix"] = mix_t
     timed = {"dense": dense_t, "paged": paged_t}
     own = {"decide_rooms": "dense", "allocate_budget_rooms": "dense", "paged_kernel": "paged"}
     kernels = []
@@ -1005,11 +1094,12 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": main_t["ms"], "call_ms": main_t["call_ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "paths": paths,
+            **ptxas.get(name, {}),
         })
     print(json.dumps({"north_star_tick": tick}), flush=True)
     print(json.dumps({"paged_tick": paged_tick, "paged_kernel": paged_t["paged_kernel"],
-                      "paged_allocate_budget_rooms": paged_t["allocate_budget_rooms"],
-                      "paged_kernel_mix": mix_t}), flush=True)
+                      "paged_allocate_budget_rooms": paged_t["allocate_budget_rooms"]}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,14 @@ flags and bound to this tree's wrapper, so the old source must keep the
 C interface of the new one. Both builds run on the operands chip_smoke.py
 captures from the main paths: one north-star dense tick (decide_rooms,
 allocate_budget_rooms), one live step of the full PAGED_TIMING_DIMS pool
-(paged_kernel, allocate_budget_rooms) and the dead-page key's 1-page
-stock tick (decide_rooms, allocate_budget_rooms). For each launch the two
-builds' outputs must be equal; then each build's device time
-(chip_smoke.graph_ms) is taken in the order old, new, new, old. Prints
-one JSON line per launch, the card's name and power limit, and
-`{"ok": true}` last.
+(paged_kernel, allocate_budget_rooms) and one after half its rooms are
+released (paged_kernel), and the dead-page key's 1-page stock tick
+(decide_rooms, allocate_budget_rooms); and on the operands of
+chip_smoke's full-pool parity check, paged_kernel's mix entries (kernel
+launches alone, off the main path). For each launch the two builds'
+outputs must be equal; then each build's device time (chip_smoke.graph_ms)
+is taken in the order old, new, new, old. Prints one JSON line per launch,
+the card's name and power limit, and `{"ok": true}` last.
 """
 
 from __future__ import annotations
@@ -31,10 +33,11 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import chip_smoke
-from livekit_server_tpu_torch.ops import allocation, cuda, paged_kernel, selector
+from livekit_server_tpu_torch.ops import allocation, cuda, pacer, paged_kernel, selector
 
 # Kernel name → the module whose `_kernel()` returns its C launch function.
 MODULES = {"decide_rooms": selector, "allocate_budget_rooms": allocation,
@@ -74,8 +77,8 @@ def using(module, fn):
 
 def launches(dev):
     """Yield, one path at a time, (path, [(kernel, wrapper, args, kwargs,
-    launch shape, bytes moved)]) for the kernel launches chip_smoke
-    captures there."""
+    launch shape, bytes moved, launches a timing graph)]) for the kernel
+    launches chip_smoke captures there."""
     alloc = allocation.allocate_budget_rooms
 
     def row(name, wrapper, a, kw, res, count_bytes):
@@ -85,7 +88,7 @@ def launches(dev):
             shape = [a[5].numel(), *a[4].layer.shape[1:], a[3].shape[-1]]
         else:                               # [R, S, T]
             shape = list(a[1].shape)
-        return name, wrapper, a, kw, shape, count_bytes(a, res)
+        return name, wrapper, a, kw, shape, count_bytes(a, res), chip_smoke.GRAPH_LAUNCHES
 
     state, wires = chip_smoke.north_star_setup(dev)
     state, _ = chip_smoke.plane.device_tick(state, wires[0], chip_smoke.NORTH_STAR)
@@ -98,14 +101,42 @@ def launches(dev):
     del seen
     torch.cuda.empty_cache()
 
-    _, _, state, table, rows, inv, _, wires = chip_smoke.full_pool(dev)
-    _, seen = chip_smoke.capture_live_step(state, table, wires[0], rows, inv)
-    del state, table, rows, inv, wires
+    pager, room_sizes, state, table, rows, inv, _, wires = chip_smoke.full_pool(dev)
+    state, seen = chip_smoke.capture_live_step(state, table, wires[0], rows, inv)
     yield "paged", [
         row("paged_kernel", paged_kernel.decide_pages, *seen["decide_pages"],
             chip_smoke.decide_pages_bytes),
+        row("paged_kernel", chip_smoke.decide_launch, *seen["decide_pages"],
+            chip_smoke.decide_pages_bytes),
         row("allocate_budget_rooms", alloc, *seen["allocate_budget_rooms"], chip_smoke.nbytes)]
     del seen
+    rows, inv, _, wires = chip_smoke.release_half(pager, room_sizes, state, table, dev)
+    _, seen = chip_smoke.capture_live_step(state, table, wires[0], rows, inv)
+    del state, table, rows, inv, wires
+    yield "paged half", [
+        row("paged_kernel", paged_kernel.decide_pages, *seen["decide_pages"],
+            chip_smoke.decide_pages_bytes),
+        row("paged_kernel", chip_smoke.decide_launch, *seen["decide_pages"],
+            chip_smoke.decide_pages_bytes)]
+    del seen
+    torch.cuda.empty_cache()
+
+    d = chip_smoke.PAGED_TIMING_DIMS
+    full_rows, _ = chip_smoke.full_pool_rows(dev)
+    decide, mix, rows = chip_smoke.page_args((d.pool_pages, d.tpage, d.pkts, d.spage),
+                                             np.random.default_rng(chip_smoke.SEED), dev,
+                                             full_rows)
+    kw = dict(wire_overhead=pacer.WIRE_OVERHEAD_BYTES)
+    shape = [rows.numel(), d.tpage, d.pkts, d.spage, mix[0].shape[2]]   # + samples N
+    mix_bytes = chip_smoke.mix_pages_bytes(mix, rows)
+    decide_bytes = chip_smoke.decide_pages_bytes(
+        (*decide, rows), paged_kernel.decide_pages(*decide, rows, **kw))
+    yield "paged mix (kernel launch alone)", [
+        ("paged_kernel", chip_smoke.mix_launch, (mix, rows), {}, shape, mix_bytes,
+         chip_smoke.MIX_GRAPH_LAUNCHES),
+        ("paged_kernel", chip_smoke.decide_mix_launch, (decide, mix, rows, kw), {}, shape,
+         mix_bytes + decide_bytes, chip_smoke.MIX_GRAPH_LAUNCHES)]
+    del decide, mix, rows
     torch.cuda.empty_cache()
 
     seen = chip_smoke.dead_key_calls(dev)
@@ -115,7 +146,8 @@ def launches(dev):
         row("allocate_budget_rooms", alloc, *seen["allocate_budget_rooms"], chip_smoke.nbytes)]
 
 
-def compare(name: str, path: str, call, a, kw, shape, old_fn, bytes_moved: int) -> dict:
+def compare(name: str, path: str, call, a, kw, shape, old_fn, bytes_moved: int,
+            graph_launches: int) -> dict:
     module = MODULES[name]
     new_out = call(*a, **kw)
     with using(module, old_fn):
@@ -130,8 +162,8 @@ def compare(name: str, path: str, call, a, kw, shape, old_fn, bytes_moved: int) 
         ctx = using(module, old_fn) if which == "old" else contextlib.nullcontext()
         with ctx:
             times[which].append(chip_smoke.graph_ms(lambda: call(*a, **kw),
-                                                    chip_smoke.KERNEL_REPS))
-    row = {"kernel": name, "path": path, "shape": shape,
+                                                    chip_smoke.KERNEL_REPS, graph_launches))
+    row = {"kernel": name, "path": path, "entry": call.__name__, "shape": shape,
            "old_ms": times["old"], "new_ms": times["new"],
            "bound_ms": bytes_moved / chip_smoke.HBM_BYTES_PER_S * 1e3, "bytes": bytes_moved}
     row["speedup"] = sum(times["old"]) / sum(times["new"])
@@ -156,9 +188,10 @@ def main() -> int:
     cuda.build()
     old = build_old(old_csrc, names)
     for path, calls in launches(dev):
-        for name, wrapper, a, kw, shape, bytes_moved in calls:
+        for name, wrapper, a, kw, shape, bytes_moved, graph_launches in calls:
             if name in old:
-                compare(name, path, wrapper, a, kw, shape, old[name], bytes_moved)
+                compare(name, path, wrapper, a, kw, shape, old[name], bytes_moved,
+                        graph_launches)
         del calls, a, kw
     print(chip_smoke.card_line(), flush=True)
     print(json.dumps({"ok": True}), flush=True)

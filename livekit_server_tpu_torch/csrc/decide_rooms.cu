@@ -36,7 +36,8 @@
 //    result is never selected), steps over invalid packets (most of a
 //    tick's K slots: audio sends one packet a tick), and skips the votes
 //    and stores of words that are 0 (zeroed once a tile): all three for an
-//    invalid packet, drop and switch for audio, switch for SVC.
+//    invalid packet, drop and switch for audio, switch for SVC. The
+//    per-packet steps are select_step.cuh's, shared with paged_kernel.cu.
 //  * A mask word is one __ballot_sync; lane 0 writes it to a shared
 //    [3][RB,T,K,W] tile, which leaves as 16-byte coalesced stores. The bit
 //    pattern is formed as uint32, so bit 31 is well defined. Lanes past S
@@ -51,6 +52,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "select_step.cuh"
 #include "staging.cuh"
 
 namespace {
@@ -61,9 +63,11 @@ constexpr int kMinBlocks = 4;             // caps registers at 64 a thread
 constexpr size_t kBlockSmem = 54 * 1024;   // four blocks on an SM
 constexpr int kMaxTileRooms = 64;
 
+using select_step::kEndFrame;
+using select_step::kKeyframe;
+using select_step::kSync;
+using select_step::kValid;
 using staging::slot_bytes;
-
-enum Flag : int { kKeyframe = 1, kSync = 2, kEndFrame = 4, kValid = 8 };
 
 // Shared-memory layout of a block that walks tiles of `rb` rooms: the 14
 // operand slots, then the packed packets, the three mask-word tiles and
@@ -119,38 +123,16 @@ __device__ __forceinline__ void walk(const int4* __restrict__ pk, int K, int W, 
     }
     const int sp = p.x, tp = p.y;
     const bool kf = p.w & kKeyframe, sync = p.w & kSync, eof = p.w & kEndFrame;
-    bool fwd_v, drp_v, sw = false;
-    if (SVC) {
-      const bool up = kf && (tgt_sp > st_sp) && (sp <= tgt_sp);
-      const int s_sp = up ? tgt_sp : st_sp;
-      const bool down = eof && (tgt_sp >= 0) && (tgt_sp < s_sp);
-      const bool on_stream = s_sp >= 0;
-      int s_tp = up ? tgt_tp : st_tp;
-      if (on_stream && sync && tp <= tgt_tp && tp > s_tp) s_tp = tp;
-      if (on_stream && tgt_tp < s_tp) s_tp = tgt_tp;
-      fwd_v = on_stream && (sp <= s_sp) && (tp <= s_tp) && !paused;
-      drp_v = on_stream && !fwd_v;
-      st_sp = paused ? -1 : (down ? tgt_sp : s_sp);
-      st_tp = s_tp;
-    } else {
-      const bool want = (tgt_sp != st_sp) && (tgt_sp >= 0);
-      sw = kf && want && (sp == tgt_sp);
-      const int c_sp = sw ? tgt_sp : st_sp;
-      int c_tp = sw ? tgt_tp : st_tp;
-      const bool on_cur = (sp == c_sp) && (c_sp >= 0);
-      if (on_cur && sync && tp <= tgt_tp && tp > c_tp) c_tp = tp;
-      if (on_cur && tgt_tp < c_tp) c_tp = tgt_tp;
-      fwd_v = on_cur && (tp <= c_tp) && !paused;
-      drp_v = on_cur && (!(tp <= c_tp) || paused);
-      st_sp = paused ? -1 : c_sp;
-      st_tp = c_tp;
-    }
-    const bool fwd = on && (!VIDEO || fwd_v);   // audio: every valid packet
+    const select_step::Decision d =
+        SVC ? select_step::svc(true, sp, tp, kf, sync, eof, tgt_sp, tgt_tp, paused, st_sp, st_tp)
+            : select_step::simulcast(true, sp, tp, kf, sync, tgt_sp, tgt_tp, paused, st_sp,
+                                     st_tp);
+    const bool fwd = on && (!VIDEO || d.fwd);   // audio: every valid packet
     const unsigned fw = __ballot_sync(0xffffffffu, fwd);
     unsigned dw = 0u, ww = 0u;
     if (VIDEO) {
-      dw = __ballot_sync(0xffffffffu, on && drp_v);
-      if (!SVC) ww = __ballot_sync(0xffffffffu, on && sw);
+      dw = __ballot_sync(0xffffffffu, on && d.drop);
+      if (!SVC) ww = __ballot_sync(0xffffffffu, on && d.sw);
     }
     if (lane == 0) {                  // words that stay 0 were zeroed
       const int o = k * W + w;

@@ -20,10 +20,12 @@ Each step fuses, for one live page:
     sum over the page's tracks.
 
 On CUDA tensors the wrappers launch the hand-written kernel
-csrc/paged_kernel.cu (one thread block per entry of `live_rows`); on CPU
-tensors they run the plain versions `decide_pages_plain` and
-`mix_pages_plain`, which gather the live rows and apply the plain
-algebra. Any other device is refused; nothing falls back.
+csrc/paged_kernel.cu (persistent blocks over tiles of consecutive
+entries of `live_rows`); on CPU tensors they run the plain versions
+`decide_pages_plain` and `mix_pages_plain`, which gather the live rows
+and apply the plain algebra. Any other device is refused; nothing falls
+back, and a page geometry whose tile does not fit the card's shared
+memory raises ValueError.
 """
 
 from __future__ import annotations
@@ -107,6 +109,15 @@ def _kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _fits(TP: int, K: int, SP: int, with_decide: bool, with_mix: bool) -> bool:
+    """Whether one page's tile of the kernel fits the card's shared memory."""
+    fn = cuda.library("paged_kernel").paged_kernel_fits
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    return bool(fn(TP, K, SP, NUM_LAYERS, int(with_decide), int(with_mix)))
+
+
 def _launch(live_rows, decide_ops, mix_ops, *, wire_overhead: int, top_k: int):
     """Check the operands, allocate the compact outputs and launch
     csrc/paged_kernel.cu once. `decide_ops` is (sel_state, is_svc,
@@ -155,8 +166,9 @@ def _launch(live_rows, decide_ops, mix_ops, *, wire_overhead: int, top_k: int):
         cuda.require(sub_track, "sub_track", i32, (P, SP), device)
         m_in = [pcm, level, active, gain, sub_track]
         mixed = empty((NL, SP, N), dtype=f32)
-    if -(-TP // (32 // _lanes_per_track(SP))) > 32 or SP * TP + 2 * TP > 8192:
-        raise ValueError(f"paged kernel: page TP={TP} SP={SP} exceeds one thread block")
+    if not _fits(TP, K, SP, decide_ops is not None, mix_ops is not None):
+        raise ValueError(f"paged kernel: one page at TP={TP} K={K} SP={SP} exceeds the "
+                         "kernel's shared memory")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     ptrs = [ptr(t) for t in (live_rows, *d_in, *m_in, *d_out, mixed)]
     err = _kernel()(*ptrs, NL, P, TP, K, SP, N, L, int(wire_overhead), int(top_k),
@@ -165,12 +177,6 @@ def _launch(live_rows, decide_ops, mix_ops, *, wire_overhead: int, top_k: int):
     cuda.check(err, "paged_kernel")
     cuda.launches["paged_kernel"] += 1
     return (d_out if decide_ops is not None else None), mixed
-
-
-def _lanes_per_track(SP: int) -> int:
-    """Warp lanes the kernel gives one track: SP rounded up to a power of
-    two, so a warp holds 32 // that many tracks."""
-    return 1 << max(SP - 1, 0).bit_length()
 
 
 def _live_decide(res, sel_state, live_rows) -> LiveDecide:

@@ -11,6 +11,8 @@ Tests marked `cuda` need an NVIDIA GPU and `nvcc`; elsewhere they skip.
 The kernels at the tick shapes are in tests/test_torch_kernels_card.py.
 """
 
+import shutil
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -125,7 +127,19 @@ def test_build_names_each_source():
 def test_library_path_digests_headers(tmp_path, monkeypatch):
     """A library's path changes when any shared `csrc/*.cuh` header
     changes or appears, so an edited header never reuses a stale build;
-    it stays the same while nothing changes."""
+    it stays the same while nothing changes. Editing the shared selector
+    step `select_step.cuh` rebuilds both kernels that include it."""
+    real = tmp_path / "csrc"
+    shutil.copytree(cuda.CSRC, real)
+    users = ("decide_rooms", "paged_kernel")
+    for source in users:
+        assert '#include "select_step.cuh"' in (real / f"{source}.cu").read_text()
+    before = {source: cuda.library_path(source, real) for source in users}
+    header = real / "select_step.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    for source in users:
+        assert cuda.library_path(source, real) != before[source]
+
     (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
     (tmp_path / "common.cuh").write_text("// v1\n")
     monkeypatch.setattr(cuda, "CSRC", tmp_path)

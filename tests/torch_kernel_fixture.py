@@ -48,11 +48,11 @@ def alloc_args(dims, seed, dev):
             t(rng.random((R, S)) * 8e6, np.float32))
 
 
-def page_args(page, seed, dev, n_live: int, mix_n: int = 0):
-    """Seeded pooled operands of the live-page kernel: decide operands,
-    mix operands (pcm [P, TP, mix_n], levels with ties at the top) and
-    live_rows naming n_live distinct pages, padded with a duplicate to a
-    power of two."""
+def page_args(page, seed, dev, n_live: int, mix_n: int = 0, p_valid: float = 0.85):
+    """Seeded pooled operands of the live-page kernel: decide operands
+    (each packet valid with probability p_valid), mix operands (pcm
+    [P, TP, mix_n], levels with ties at the top) and live_rows naming
+    n_live distinct pages, padded with a duplicate to a power of two."""
     P, TP, K, SP = page
     rng = np.random.default_rng(seed)
     i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa: E731
@@ -64,7 +64,7 @@ def page_args(page, seed, dev, n_live: int, mix_n: int = 0):
     inp = plane.TickInputs(**dict.fromkeys(plane.TickInputs._fields))._replace(
         layer=pk(-1, 4), temporal=pk(0, 4), keyframe=b(0.3, (P, TP, K)),
         layer_sync=b(0.5, (P, TP, K)), end_frame=b(0.4, (P, TP, K)),
-        valid=b(0.85, (P, TP, K)), size=pk(40, 1300), sn=pk(0, 65536),
+        valid=b(p_valid, (P, TP, K)), size=pk(40, 1300), sn=pk(0, 65536),
         ts=i32(rng.integers(-2**31, 2**31, (P, TP, K), dtype=np.int64)),
         arrival_rtp=pk(0, 1 << 30), begin_pic=b(0.4, (P, TP, K)))
     decide = (state, b(0.4, (P, TP)), b(0.6, (P, TP)), b(0.7, (P, TP, SP)), inp)

@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--profile]
 
-Phases (any failure exits non-zero; about two minutes on an H100):
+Phases (any failure exits non-zero; a few minutes on an H100):
 
   1. build    — compile every CUDA kernel with nvcc (one process per
                 source, in parallel); print each kernel's registers and
@@ -41,7 +41,31 @@ Phases (any failure exits non-zero; about two minutes on an H100):
                 as stated in `paged_runtime_phase`, and the first
                 CHECK_TICKS ticks of rooms 0..7 equal to a CPU
                 PagedPlaneRuntime in LOGICAL form;
-  5. timing   — the dense runtime's device step (plane.device_tick: upload,
+  5. serving  — the serving path through the layers that need no aiohttp,
+                msgpack or PyYAML: a Config() with the port overlay,
+                RoomManager on the card, rtc rooms and the pipelined loop
+                (RoomManager.start → PlaneRuntime._run). Dense: the
+                runtime phase's PlaneDims(1024, 10, 8, 10), 10,240
+                participants joined through RoomManager.start_session
+                with MessageChannel sinks, 2 VP9-SVC video + 2 Opus
+                publishers a room (add_track over the signal channel, the
+                track bound as a first media frame binds it), everyone
+                auto-subscribed, a feeder task pushing one seeded synth
+                tick into runtime.ingest per loop tick, SERVING_SECONDS of
+                loop. Paged: PAGED_RUNTIME_DIMS, rooms from the size mix,
+                each participant publishing one track, at least
+                SERVING_PAGED_TICKS loop ticks. Checks: the kernels
+                launched once per loop tick (the paged dead-page key adds
+                its 1-page stock tick), every Opus packet of the first
+                SAMPLE_ROOMS rooms whose tick completed reaches every
+                other participant's media queue exactly once with
+                consecutive munged sns and never its publisher, and every
+                media frame decodes with the port's codec into the fields
+                `_attach_media_queue` writes. Reports ticks, late ticks,
+                pipeline stalls, stage/device/fan-out/send ms and the
+                whole tick's ms, their sum (median, p90), the loop's wall
+                time per tick, forwarded packets and the join time;
+  6. timing   — the dense runtime's device step (plane.device_tick: upload,
                 tick, fetch) at the north-star PlaneDims(10240, 8, 16, 50),
                 median and p90 of TIMED_TICKS ticks after warm-up; the paged
                 runtime's live-extent device step (paged.live_step) at
@@ -63,8 +87,10 @@ Phases (any failure exits non-zero; about two minutes on an H100):
                 ctypes call) is not in it; `call_ms` is one wrapper call
                 between an event pair, host work included.
 
-Output: JSON lines per phase, a `{"kernels": [...]}` JSON line (each
-kernel's numbers on its own path, its ptxas registers and spill bytes,
+Output: JSON lines per phase (the serving phase's under "serving"), a
+`{"kernels": [...]}` JSON line (each kernel's numbers on its own path,
+`launches_by_path` its launches on every path, the serving loop's
+included, its ptxas registers and spill bytes,
 and under `paths` its launch shape, launches, device, call and plain
 times and bound on each path that launches it — paged_kernel's
 half-occupancy launch under `half` and its mix entries under `mix`;
@@ -90,13 +116,20 @@ import time
 import numpy as np
 import torch
 
+from livekit_server_tpu_torch.config.config import Config, load_config, port_overlay
 from livekit_server_tpu_torch.models import paged, plane, synth
 from livekit_server_tpu_torch.ops import allocation, cuda, pacer, paged_kernel, selector
 from livekit_server_tpu_torch.ops.mix import MIX_TOP_K
+from livekit_server_tpu_torch.protocol import packer
+from livekit_server_tpu_torch.routing import LocalNode, LocalRouter, MessageChannel
 from livekit_server_tpu_torch.runtime import PlaneRuntime
 from livekit_server_tpu_torch.runtime.paged_runtime import PagedPlaneRuntime
 from livekit_server_tpu_torch.runtime.pager import RoomPager
 from livekit_server_tpu_torch.runtime.slots import CapacityError
+from livekit_server_tpu_torch.service.roommanager import RoomManager
+from livekit_server_tpu_torch.service.store import LocalStore
+from livekit_server_tpu_torch.telemetry.service import TelemetryService
+from livekit_server_tpu_torch.utils.logger import configure
 
 SEED = 7
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (NVIDIA data sheet)
@@ -153,6 +186,14 @@ PAGED_TICKS = 40
 PAGED_RELEASE_TICK = 20
 PAGED_TIMED_TICKS = 30
 ROOM_MIX_SEED = 9
+# Serving path (RoomManager + the pipelined loop): the dense run's length,
+# the paged run's least loop ticks, the rooms whose audio delivery is
+# checked, and a wall-clock cap on either run.
+SERVING_SECONDS = 10.0
+SERVING_PAGED_TICKS = 10
+SAMPLE_ROOMS = 8
+SERVING_TRACE_TICKS = 4096
+SERVING_WALL_CAP_S = 240.0
 
 
 def log(msg: str) -> None:
@@ -837,6 +878,297 @@ async def paged_runtime_phase(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Serving path: RoomManager, rooms and the pipelined tick loop
+# ---------------------------------------------------------------------------
+
+
+def serving_config(paged_dims: paged.PagedDims | None = None,
+                   dense_dims: plane.PlaneDims = RUNTIME_DIMS) -> Config:
+    """The reference's default Config with the port overlay (every
+    subsystem the port does not carry turned off), built in Python (no
+    YAML parser: PyYAML need not be installed): the dense plane at `dense_dims`,
+    or the paged plane at `paged_dims` (live-extent tick, kernel on), 20 ms
+    ticks, a trace ring that holds every tick of the run."""
+    p = {"tick_ms": RUNTIME_SPEC.tick_ms}
+    if paged_dims is None:
+        p.update(rooms=dense_dims.rooms, tracks_per_room=dense_dims.tracks,
+                 pkts_per_track=dense_dims.pkts, subs_per_room=dense_dims.subs)
+    else:
+        p.update(rooms=paged_dims.rooms, tracks_per_room=paged_dims.tracks,
+                 pkts_per_track=paged_dims.pkts, subs_per_room=paged_dims.subs,
+                 pager_enabled=True, pager_tpage=paged_dims.tpage,
+                 pager_spage=paged_dims.spage, pager_pool_pages=paged_dims.pool_pages,
+                 paged_kernel="on")
+    base = port_overlay()
+    base["plane"].update(p)
+    base.update(development=True, trace={"ring_ticks": SERVING_TRACE_TICKS})
+    return load_config(base=base, env={})
+
+
+async def join_rooms(rm: RoomManager, sizes, pubs, spec: synth.TrafficSpec
+                     ) -> tuple[dict, list, float]:
+    """Room r gets sizes[r] participants p0..p{n-1} through
+    RoomManager.start_session with MessageChannel sinks; participants
+    t < pubs[r] each announce one track (add_track over the signal
+    channel: the first spec.video_tracks VP9-SVC video, the rest Opus) and
+    bind it, in order, as a first media frame does; everyone
+    auto-subscribes. Returns ({(room, identity): (request channel, session
+    task)}, [room][t] → (track col, track sid), the join seconds of all
+    participants)."""
+    sessions = {}
+    t0 = time.perf_counter()
+    for r, size in enumerate(sizes):
+        for t in range(size):
+            req, resp = MessageChannel(), MessageChannel()
+            init = {"identity": f"p{t}", "name": f"p{t}", "auto_subscribe": True,
+                    "grants": {"video": {"roomJoin": True, "room": f"room{r}"}}}
+            task = asyncio.ensure_future(rm.start_session(f"room{r}", init, req, resp))
+            sessions[(r, f"p{t}")] = (req, task)
+    want = sum(sizes)
+    while sum(len(room.participants) for room in rm.rooms.values()) < want:
+        failed = [t for _, t in sessions.values() if t.done()]
+        if failed:
+            raise AssertionError(f"{len(failed)} sessions ended during the joins")
+        await asyncio.sleep(0.005)
+    join_s = time.perf_counter() - t0
+    for r, n_pub in enumerate(pubs):
+        for t in range(n_pub):
+            video = t < spec.video_tracks
+            sessions[(r, f"p{t}")][0].write_message(json.dumps({"add_track": {
+                "cid": f"c{t}", "name": f"c{t}", "type": int(video),
+                "mime_type": "video/vp9" if video else "audio/opus"}}))
+    rooms = [rm.rooms[f"room{r}"] for r in range(len(sizes))]
+    while any(len(room.participants[f"p{t}"].pending_tracks) < 1
+              for room, n_pub in zip(rooms, pubs) for t in range(n_pub)):
+        await asyncio.sleep(0.005)
+    tracks = []
+    for room, n_pub in zip(rooms, pubs):
+        cols = []
+        for t in range(n_pub):
+            track = room.participants[f"p{t}"].publish_pending(f"c{t}")
+            cols.append((track.track_col, track.info.sid))
+        if [c for c, _ in cols] != list(range(n_pub)):
+            raise AssertionError(f"{room.name}: track columns {cols}")
+        tracks.append(cols)
+    return sessions, tracks, join_s
+
+
+def quantiles(xs) -> dict:
+    xs = sorted(xs)
+    if not xs:
+        return {"median": None, "p90": None}
+    return {"median": statistics.median(xs),
+            "p90": xs[min(len(xs) - 1, int(0.9 * len(xs)))]}
+
+
+async def serve_rooms(dev, sizes, pubs, spec: synth.TrafficSpec, cfg: Config,
+                      seconds: float | None, min_ticks: int) -> dict:
+    """Join `sizes` (participants per room; `pubs` of them publish) into a
+    RoomManager on `dev`,
+    run its serving loop (RoomManager.start → PlaneRuntime._run) with a
+    feeder task that pushes one seeded synth tick into runtime.ingest per
+    runtime tick, for `seconds` (or until `min_ticks` loop ticks), then
+    stop. Checks the launches and the audio delivery of the first
+    SAMPLE_ROOMS rooms; returns the report."""
+    store = LocalStore()
+    rm = RoomManager(cfg, LocalRouter(LocalNode()), store,
+                     telemetry=TelemetryService(cfg), device=dev)
+    rt = rm.runtime
+    sessions, tracks, join_s = await join_rooms(rm, sizes, pubs, spec)
+    log(f"serving: {sum(sizes)} participants in {len(sizes)} rooms joined in "
+        f"{join_s:.2f} s")
+    R, T = rt.dims.rooms, rt.dims.tracks
+    room_pubs = np.zeros(R, np.int64)
+    room_pubs[:len(pubs)] = pubs
+    n_sample = min(SAMPLE_ROOMS, len(sizes))
+    audio = [(r, t) for r in range(n_sample) for t in range(spec.video_tracks, pubs[r])]
+    pushed: dict[tuple[int, int], list[tuple[int, bytes]]] = {rt_: [] for rt_ in audio}
+    got: dict[tuple[int, str], list[dict]] = {}
+    done_ticks: list[int] = []
+    frame_keys = {"track_sid", "sn", "ts", "pid", "tl0", "keyidx", "payload"}
+    bad_frames = []
+
+    def drain(res) -> None:
+        # The WS pump's seat: empty every media queue each tick; decode
+        # the sampled rooms' frames with the port's codec.
+        done_ticks.append(res.tick_index)
+        for (r, ident), _ in sessions.items():
+            q = rm.rooms[f"room{r}"].participants[ident].media_queue
+            while not q.empty():
+                data = q.get_nowait()
+                if r < n_sample:
+                    frame = packer.unpackb(data)
+                    if set(frame) != frame_keys:
+                        bad_frames.append(sorted(frame))
+                    got.setdefault((r, ident), []).append(frame)
+
+    rt.on_tick(drain)
+    logical = plane.PlaneDims(R, T, rt.dims.pkts, rt.dims.subs)
+    traffic = synth.init_traffic(logical, spec, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    stop = asyncio.Event()
+
+    async def feeder() -> None:
+        nonlocal traffic
+        i = 0
+        while not stop.is_set():
+            traffic, inp = synth.next_tick(traffic, logical, spec, i, seed=SEED)
+            batch = synth_packets(mask_to_rooms(inp, room_pubs), rng)
+            k = rt.tick_index          # the tick whose drain takes this batch
+            for j in np.nonzero(batch["room"] < n_sample)[0]:
+                key = (int(batch["room"][j]), int(batch["track"][j]))
+                if key in pushed:
+                    s = int(batch["pay_start"][j])
+                    pushed[key].append((k, batch["blob"][s:s + int(batch["pay_length"][j])]
+                                        .tobytes()))
+            rt.ingest.push_batch(**batch)
+            i += 1
+            while rt.tick_index == k and not stop.is_set():
+                await asyncio.sleep(0.001)
+
+    # The warm step and watermark of LivekitServer.start, then the loop.
+    await rt.step_once()
+    rt.mark_warm()
+    base_ticks, base_fwd = rt.stats["ticks"], rt.stats["fwd_packets"]
+    base_late, base_stalls = rt.stats["late_ticks"], rt.stats["pipeline_stalls"]
+    done_ticks.clear()
+    for q in got.values():
+        q.clear()
+    # Count the dead-page computations (misses of the cache in front of
+    # `paged.dead_page_outputs`; each launches kernels 1 and 2 once).
+    dead_keys = []
+    fresh = paged.dead_page_outputs
+
+    def counted(*a, **kw):
+        dead_keys.append(1)
+        return fresh(*a, **kw)
+
+    paged.dead_page_outputs = counted
+    paged.dead_page_outputs_cached.cache_clear()
+    cuda.reset_launches()
+    feed = asyncio.ensure_future(feeder())
+    t0 = time.perf_counter()
+    try:
+        rm.start()
+        while True:
+            await asyncio.sleep(0.05)
+            n = rt.stats["ticks"] - base_ticks
+            if feed.done():
+                feed.result()
+            if (seconds is None or time.perf_counter() - t0 >= seconds) and n >= min_ticks:
+                break
+            if time.perf_counter() - t0 > SERVING_WALL_CAP_S:
+                raise AssertionError(f"serving loop ran {n} ticks in "
+                                     f"{SERVING_WALL_CAP_S} s")
+        stop.set()
+        await feed
+        await rt.stop()
+    finally:
+        paged.dead_page_outputs = fresh
+    wall_s = time.perf_counter() - t0
+    launches = dict(cuda.launches)
+    ticks = rt.stats["ticks"] - base_ticks
+    records = [rec for rec in rt.trace.snapshot() if rec["tick"] >= done_ticks[0]]
+
+    # Launches: once per loop tick (the paged dead-page key adds one 1-page
+    # stock tick per key the card computed).
+    keys = len(dead_keys)
+    if isinstance(rt, PagedPlaneRuntime):
+        expected = {"paged_kernel": ticks, "decide_rooms": keys,
+                    "allocate_budget_rooms": ticks + keys}
+    else:
+        expected = {"decide_rooms": ticks, "allocate_budget_rooms": ticks, "paged_kernel": 0}
+    if launches != expected:
+        raise AssertionError(f"serving loop launches {launches}, expected {expected} "
+                             f"over {ticks} ticks")
+    if len(records) != ticks or sorted(done_ticks) != done_ticks or len(done_ticks) != ticks:
+        raise AssertionError(f"serving loop completed {len(done_ticks)} ticks out of "
+                             f"order or lost records ({len(records)} of {ticks})")
+
+    # Audio delivery on the sampled rooms: every pushed Opus packet whose
+    # tick completed reaches every other participant exactly once, in sn
+    # order; none reaches its publisher.
+    if bad_frames:
+        raise AssertionError(f"media frames with fields {bad_frames[:3]}")
+    completed = set(done_ticks)
+    checked = 0
+    for (r, t) in audio:
+        _col, sid = tracks[r][t]
+        want = [p for k, p in pushed[(r, t)] if k in completed]
+        if not want:
+            continue     # no packet of this track arrived in a completed tick
+        for s in range(sizes[r]):
+            frames = [f for f in got.get((r, f"p{s}"), []) if f["track_sid"] == sid]
+            if s == t:
+                if frames:
+                    raise AssertionError(f"room{r}: publisher p{t} got its own track")
+                continue
+            payloads = [f["payload"] for f in frames]
+            sns = [f["sn"] for f in frames]
+            if payloads != want:
+                raise AssertionError(
+                    f"room{r} track {t} → p{s}: {len(payloads)} frames, "
+                    f"{len(want)} pushed, first mismatch at "
+                    f"{next((i for i, (a, b) in enumerate(zip(payloads, want)) if a != b), min(len(payloads), len(want)))}")
+            if any((b - a) & 0xFFFF != 1 for a, b in zip(sns, sns[1:])):
+                raise AssertionError(f"room{r} track {t} → p{s}: sn not consecutive")
+            checked += len(frames)
+
+    if not checked:
+        raise AssertionError("no audio frame of the sampled rooms was delivered")
+    for req, _task in sessions.values():
+        req.close()
+    await rm.stop()
+    await asyncio.wait_for(asyncio.gather(*(task for _, task in sessions.values())), 30)
+
+    ms = lambda key: quantiles([rec[key] * 1e3 for rec in records])  # noqa: E731
+    return {
+        "rooms": len(sizes), "participants": int(sum(sizes)), "join_s": join_s,
+        "ticks": ticks, "wall_s": wall_s, "ticks_per_s": ticks / wall_s,
+        "late_ticks": rt.stats["late_ticks"] - base_late,
+        "pipeline_stalls": rt.stats["pipeline_stalls"] - base_stalls,
+        "fwd_packets": rt.stats["fwd_packets"] - base_fwd,
+        "stage_ms": ms("stage_s"), "device_ms": ms("device_s"),
+        "fanout_ms": ms("fanout_s"), "send_ms": ms("send_s"),
+        "tick_ms": quantiles([(rec["stage_s"] + rec["device_s"] + rec["fanout_s"]
+                               + rec["send_s"]) * 1e3 for rec in records]),
+        "wall_ms_per_tick": wall_s / ticks * 1e3,
+        "launches": launches, "audio_frames_checked": checked,
+        "ingest_dropped": rt.ingest.dropped,
+    }
+
+
+async def serving_phase(dev, dense_dims: plane.PlaneDims = RUNTIME_DIMS,
+                        paged_dims: paged.PagedDims = PAGED_RUNTIME_DIMS,
+                        seconds: float = SERVING_SECONDS,
+                        paged_ticks: int = SERVING_PAGED_TICKS) -> dict:
+    """The serving path on the card: RoomManager → rtc rooms → the
+    pipelined PlaneRuntime loop, dense (every room RUNTIME_SPEC's 2 VP9-SVC
+    video and 2 Opus publishers among its participants) for `seconds`,
+    then paged (rooms from the size mix, admitted as in
+    `paged_runtime_phase`, each participant publishing one track) for at
+    least `paged_ticks` loop ticks. Returns both reports."""
+    n_pub = RUNTIME_SPEC.video_tracks + RUNTIME_SPEC.audio_tracks
+    configure("warn")     # no info line per join and leave of 20k sessions
+    dense = await serve_rooms(
+        dev, [dense_dims.subs] * dense_dims.rooms, [n_pub] * dense_dims.rooms, RUNTIME_SPEC,
+        serving_config(dense_dims=dense_dims), seconds, 1)
+    log(f"serving dense ok: {dense['ticks']} ticks in {dense['wall_s']:.1f} s, "
+        f"{dense['late_ticks']} late, launches {dense['launches']}")
+    scratch = RoomPager(paged_dims.rooms, paged_dims.tracks, paged_dims.subs,
+                        tpage=paged_dims.tpage, spage=paged_dims.spage,
+                        pool_pages=paged_dims.pool_pages)
+    sizes = admit_rooms(scratch)
+    paged_report = await serve_rooms(dev, sizes, sizes, PAGED_SPEC, serving_config(paged_dims),
+                                     None, paged_ticks)
+    log(f"serving paged ok: {paged_report['ticks']} ticks in "
+        f"{paged_report['wall_s']:.1f} s, {paged_report['late_ticks']} late, launches "
+        f"{paged_report['launches']}")
+    return {"dense": {"dims": list(dense_dims), **dense},
+            "paged": {"dims": list(paged_dims), **paged_report}}
+
+
 def paged_pool_state(pager: RoomPager, sizes, dims: paged.PagedDims, dev):
     """Device pool state and table for the pager's rooms (sizes[r]
     participants, each publishing one track and subscribed to all others),
@@ -1068,6 +1400,8 @@ def main() -> int:
     errs["paged_kernel"], mix_t = paged_parity_phase(dev)
     dense_launches = asyncio.run(runtime_phase(dev))
     paged_launches = asyncio.run(paged_runtime_phase(dev))
+    serving = asyncio.run(serving_phase(dev))
+    print(json.dumps({"serving": serving}), flush=True)
     tick, dense_t = timing_phase(dev, args.profile)
     paged_tick, paged_t = paged_timing_phase(dev, args.profile)
 
@@ -1076,7 +1410,9 @@ def main() -> int:
     # `launches` are from its own path, and `paths` gives each path that
     # launches it: its launch shape, launches and timed numbers there (the
     # paged allocation's dead-page launch under `dead_key`).
-    launches = {"dense": dense_launches, "paged": paged_launches}
+    launches = {"dense": dense_launches, "paged": paged_launches,
+                "serving_dense": serving["dense"]["launches"],
+                "serving_paged": serving["paged"]["launches"]}
     paged_t["paged_kernel"]["mix"] = mix_t
     timed = {"dense": dense_t, "paged": paged_t}
     own = {"decide_rooms": "dense", "allocate_budget_rooms": "dense", "paged_kernel": "paged"}

@@ -192,10 +192,17 @@ class IngestBuffer:
         self.sub_reset = np.zeros((R, S), bool)
         self.rx_pkts = np.zeros((R, T), np.int64)
         self.rx_bytes = np.zeros((R, T), np.int64)
+        # Egress tx counters of the WS media path, [R, S, (pkts, bytes)].
+        self.ws_tx = np.zeros((R, S, 2), np.int64)
         self.nack_overflow = 0
         self._nack_seen: set = set()
         self._nack_tick_cnt = np.zeros((R, S), np.int32)
         self.dupes = 0
+
+    @property
+    def dropped(self) -> int:
+        """Total ingest drops (the port sheds for capacity only)."""
+        return self.dropped_capacity
 
     def _bind(self, s: _StagingSet) -> None:
         for name in _StagingSet.ARRAYS:

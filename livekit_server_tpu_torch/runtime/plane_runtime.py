@@ -13,24 +13,31 @@ single-device path. Per tick:
   4. fan out: host munging of the bit-packed masks into egress columns,
      speakers, keyframe requests, congestion → registered callbacks.
 
+The serving loop (`start` → `_run` → `stop`) pipelines three stages
+within one tick window: stage N+1 ‖ device N ‖ fan-out N-1; `step_once`
+runs one tick sequentially (tests, warm-up) and refuses to run while the
+loop does.
+
 The device layout is behind five seams (`_init_device_state`,
 `_init_step`, `_pack_inputs`, `_unpack_outputs`, `_sel_mirror`) plus
 `_tick_rec_extras`; runtime/paged_runtime.py overrides them to run the
 pooled paged plane under the same host side, which speaks LOGICAL dense
 [R, T, S] shapes throughout.
 
-Not carried yet (see ROADMAP.md): the device mesh, the express lane,
-egress-plane sharding, the overload governor, the integrity audit, fault
-injection, the trace ring, the compile ledger, snapshots/restore and the
-pipelined serving loop (`_run`); the munger runs its numpy path.
+Not carried yet (see ROADMAP.md): pinned host buffers and graph capture
+of the tick, the device mesh, the express lane, egress-plane sharding,
+the overload governor, the integrity audit, fault injection, the compile
+ledger and snapshots/restore; the munger runs its numpy path.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import functools
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Awaitable, Callable
 
@@ -40,6 +47,7 @@ import torch
 from livekit_server_tpu_torch.device import resolve
 from livekit_server_tpu_torch.models import plane
 from livekit_server_tpu_torch.ops import audio as audio_ops, bwe as bwe_ops
+from livekit_server_tpu_torch.runtime import trace as trace_mod
 from livekit_server_tpu_torch.runtime.ingest import IngestBuffer
 from livekit_server_tpu_torch.runtime.munge import HostMunger
 from livekit_server_tpu_torch.runtime.probe import PAD_BYTES, ProbeController
@@ -83,6 +91,21 @@ class EgressBatch:
 
     def __len__(self) -> int:
         return len(self.rooms)
+
+    def to_packets(self) -> list[EgressPacket]:
+        """Materialize EgressPacket objects (WS delivery, tests)."""
+        out = []
+        for i in range(len(self.rooms)):
+            r, t, k = int(self.rooms[i]), int(self.tracks[i]), int(self.ks[i])
+            payload, marker = self.payloads.get(r, t, k)
+            out.append(EgressPacket(
+                room=r, track=t, sub=int(self.subs[i]),
+                sn=int(self.sn[i]) & 0xFFFF, ts=int(self.ts[i]) & 0xFFFFFFFF,
+                pid=int(self.pid[i]), tl0=int(self.tl0[i]),
+                keyidx=int(self.keyidx[i]), size=len(payload), payload=payload,
+                marker=marker, dd=self.payloads.get_dd(r, t, k),
+            ))
+        return out
 
 
 class HostSequencer:
@@ -152,12 +175,33 @@ class TickResult:
     tick_s: float
     padding: list[EgressPacket] = field(default_factory=list)
     outputs: Any = None            # the tick's TickOutputs (numpy)
+    # Quality / stats views of the outputs that the rooms and telemetry
+    # read, indexed by room row (the rest are in `outputs`).
+    track_quality: Any = None     # [R, T] int32 ConnectionQuality enum
+    track_mos: Any = None         # [R, T] float32
+    sub_quality: Any = None       # [R, S] int32
+    track_loss_pct: Any = None    # [R, T] float32
+    track_jitter_ms: Any = None   # [R, T] float32
+    target_layers: Any = None     # [R, S, T] int32 (-1 = paused)
+    track_bps: Any = None         # [R, T] float32
     quality_window_closed: bool = False
+    _egress_cache: list[EgressPacket] | None = None
+
+    @property
+    def egress(self) -> list[EgressPacket]:
+        """Lazy object view of egress_batch (WS fan-out, tests)."""
+        if self._egress_cache is None:
+            self._egress_cache = self.egress_batch.to_packets()
+        return self._egress_cache
 
 
 @dataclass
 class StagedTick:
-    """One tick's host-staged inputs and its per-stage timings."""
+    """One tick's host-staged inputs, carried through the three-stage
+    pipeline (stage N+1 ‖ device N ‖ fan-out N-1) with its per-stage
+    timings. `wire` is the packed device input, a buffer of its own: the
+    ingest staging set it was packed from is free again as soon as
+    `_stage_host` returns, whatever the device copy is doing."""
 
     inp: plane.TickInputs
     payloads: Any
@@ -168,6 +212,16 @@ class StagedTick:
     device_s: float = 0.0
     kernel_s: float = 0.0            # paged live path: phase-0 kernel span
     kernel_steps: int = 0            # paged live path: kernel blocks launched
+    edge: float = 0.0      # scheduled dispatch edge (perf_counter)
+    deadline: float = 0.0  # owning-tick egress deadline; 0 = unaccounted
+    depth: int = 0         # pipeline depth this tick ran at
+    edge_over_us: float = 0.0  # wake overshoot past the dispatch edge
+    # Span start stamps for the trace ring: staging start, the ctrl-upload
+    # window and the device dispatch time.
+    stage_t0: float = 0.0
+    upload_t0: float = 0.0
+    upload_s: float = 0.0
+    device_t0: float = 0.0
 
 
 class PlaneRuntime:
@@ -175,11 +229,23 @@ class PlaneRuntime:
 
     def __init__(self, dims: plane.PlaneDims, tick_ms: int = 10,
                  audio_params=None, bwe_params=None, red_enabled: bool = True,
-                 device="cuda"):
+                 low_latency: bool = False, trace_enabled: bool = True,
+                 trace_ring_ticks: int = 512, trace_sample_every: int = 64,
+                 blackbox_events: int = 64, device="cuda"):
         self.device = resolve(device)
+        # The ctrl upload (event-loop thread) and the device step (the
+        # executor's thread) both enqueue on this one stream, in the order
+        # state_lock admits them; a per-thread current stream cannot split
+        # them.
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
         self.dims = dims
         self.tick_ms = tick_ms
         self.red_enabled = red_enabled
+        # low_latency: complete each tick's egress before the next tick
+        # starts (about one tick less forward latency) instead of
+        # overlapping it with the next device step.
+        self.low_latency = low_latency
         self.slots = SlotAllocator(dims.rooms, dims.tracks, dims.subs)
         self.ingest = IngestBuffer(dims, tick_ms)
         self.tick_index = 0
@@ -204,6 +270,10 @@ class PlaneRuntime:
         self._ctrl_dirty = True          # full upload needed
         self._dirty_rows: set[int] = set()
         self.ctrl_delta_max_rows = max(1, dims.rooms // 8)
+        # Subscriptions exempt from an overload pause (screen shares,
+        # active-speaker pins); recorded for the governor, which the port
+        # does not carry yet.
+        self.pinned = np.zeros((R, T, S), bool)
 
         self.state = self._init_device_state()
         self._init_step()
@@ -214,18 +284,42 @@ class PlaneRuntime:
         self._last_committed = np.zeros((R, S), np.float32)
         self._last_congested = np.zeros((R, S), bool)
         self._last_deficient = np.zeros((R, S), bool)
-        # Guards self.state across the device step (run in a worker
+        self._task: asyncio.Task | None = None
+        self._complete_task: asyncio.Task | None = None
+        # Guards self.state across the device step (run in the worker
         # thread) vs. other coroutines touching it.
         self.state_lock = asyncio.Lock()
-        # Per-tick records (timings + subclass extras), newest last.
-        self.recent_ticks: deque = deque(maxlen=120)
         self._on_tick: list[Callable[[TickResult], Awaitable[None] | None]] = []
         self.stats = {
-            "ticks": 0, "fwd_packets": 0, "fwd_bytes": 0,
+            "ticks": 0, "fwd_packets": 0, "fwd_bytes": 0, "late_ticks": 0,
+            # Pipeline shape: cumulative per-stage seconds + stall count
+            # (a window that found the previous fan-out still running).
             "stage_s": 0.0, "device_s": 0.0, "fanout_s": 0.0,
+            "pipeline_stalls": 0,
             "ctrl_full_uploads": 0, "ctrl_delta_uploads": 0,
             "ctrl_delta_rows": 0, "ctrl_upload_bytes": 0,
         }
+        self.recent_tick_s: deque = deque(maxlen=120)  # /debug/ticks window
+        # Per-tick stage records (idx/depth/stage_ms/device_ms/fanout_ms/
+        # total_ms/late + subclass extras), newest last.
+        self.recent_ticks: deque = deque(maxlen=120)
+        # Tick-edge sleep calibration: measured coarse-sleep overshoot of
+        # this host (seconds; < 0 = not yet calibrated) and the last
+        # wake's overshoot past its edge.
+        self._sleep_bias = -1.0
+        self._edge_overshoot_us = 0.0
+        # One worker: device steps are strictly ordered.
+        self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="plane")
+        # Set by mark_warm: the kernels are built and a tick has run.
+        self.warm = False
+        # Tick span ring and sampled wire-latency attribution (None when
+        # tracing is off); the per-room black box is always on.
+        self.trace = None
+        self.wire_stages = None
+        if trace_enabled:
+            self.trace = trace_mod.TickTraceRing(trace_ring_ticks)
+            self.wire_stages = trace_mod.LatencyAttribution(trace_sample_every)
+        self.blackbox = trace_mod.BlackBox(R, blackbox_events)
 
     # -- device-layout seams (overridden by PagedPlaneRuntime) ------------
 
@@ -259,6 +353,18 @@ class PlaneRuntime:
         runtime adds the kernel span and the live-page fraction."""
         return {}
 
+    def _on_stream(self):
+        """Enqueue on the runtime's stream (no-op on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def occupancy(self) -> dict:
+        """Per-resource occupancy (rooms/tracks/subs used vs pool) for
+        admission gating and /debug; `admittable_rooms` is how many more
+        minimal rooms this plane could accept."""
+        return self.slots.occupancy()
+
     # -- control-plane mutation API (host mirrors; applied at tick edge) --
     def set_track(self, room: int, track: int, *, published: bool, is_video: bool,
                   pub_muted: bool = False, is_svc: bool = False,
@@ -286,6 +392,12 @@ class PlaneRuntime:
         self.ctrl.max_temporal[room, track, sub] = max_temporal
         self._dirty_rows.add(room)
 
+    def set_pinned(self, room: int, track: int, sub: int, pinned: bool) -> None:
+        """Exempt one subscription from an overload video pause (screen
+        shares, active speakers). Recorded only: the governor that reads
+        the pin (ROADMAP A14) is not ported, so nothing is uploaded."""
+        self.pinned[room, track, sub] = pinned
+
     def clear_room(self, room: int) -> None:
         self.meta.published[room, :] = False
         self.meta.pub_muted[room, :] = False
@@ -305,7 +417,8 @@ class PlaneRuntime:
         """Ship pending host-mirror control mutations to the device: the
         dirtied room rows (O(dirty rows) bytes), or the full mirrors when
         the full flag is set or too many rows are dirty. Writes into the
-        state's tensors in place. Caller holds state_lock."""
+        state's tensors in place. Caller holds state_lock; reached through
+        `_upload`."""
         rows = self._dirty_rows
         if not self._ctrl_dirty and not rows:
             return
@@ -323,19 +436,33 @@ class PlaneRuntime:
         self._dirty_rows = set()
         self._ctrl_dirty = False
 
+    def _upload(self, st: StagedTick) -> None:
+        """The ctrl upload of `st`'s dispatch, timed, on the runtime's
+        stream. Caller holds state_lock (event-loop thread)."""
+        st.upload_t0 = time.perf_counter()
+        with self._on_stream():
+            self._upload_ctrl()
+        st.upload_s = time.perf_counter() - st.upload_t0
+
     def _device_step(self, st: StagedTick) -> plane.TickOutputs:
         """The device round trip: one upload of the packed inputs, the
         tick, one fetch of the flat output buffer (the fetch waits for the
-        device). Caller holds state_lock; runs in a worker thread."""
+        device). Caller holds state_lock; runs on the executor's thread.
+        The upload reads `st.wire`, which no staging set aliases."""
         t0 = time.perf_counter()
-        self.state, buf = self._step(self.state, st.wire)
+        st.device_t0 = t0
+        with self._on_stream():
+            self.state, buf = self._step(self.state, st.wire)
         out = self._unpack_outputs(buf)
         st.device_s = time.perf_counter() - t0
         return out
 
     def _stage_host(self) -> StagedTick:
         """Claim a tick index, drain the ingest buffer, pack the device
-        inputs. Touches host-owned state only."""
+        inputs into a fresh wire buffer. Touches host-owned state only, so
+        it needs no lock and overlaps an in-flight device step: the drain
+        flips to the other staging set, and the packing consumes the
+        retired set's field views before that set can be drained again."""
         t0 = time.perf_counter()
         idx = self.tick_index
         self.tick_index += 1
@@ -346,6 +473,7 @@ class PlaneRuntime:
         self._slab_history[idx % plane.SLAB_WINDOW] = payloads
         wire = self._pack_inputs(inp)
         st = StagedTick(inp=inp, payloads=payloads, idx=idx, roll=roll, wire=wire)
+        st.stage_t0 = t0
         st.stage_s = time.perf_counter() - t0
         return st
 
@@ -374,37 +502,84 @@ class PlaneRuntime:
         self._last_deficient = np.asarray(out.deficient)
 
     async def _complete(self, out: plane.TickOutputs, st: StagedTick) -> TickResult:
-        """Host post-step: fan out + callbacks."""
+        """Host post-step: fan out + callbacks. Per-stage work times sum
+        into tick_s, and lateness is judged against the owning tick's
+        deadline (dispatch edge + (1 + depth) periods), after the delivery
+        callbacks have run."""
         c0 = time.perf_counter()
-        result = self._fan_out(out, st.payloads, st.inp, st.idx)
+        result = self._fan_out(out, st.payloads, st.inp, 0.0, st.idx)
         fanout_s = time.perf_counter() - c0
         result.tick_s = st.stage_s + st.device_s + fanout_s
         result.quality_window_closed = st.roll
+        self.recent_tick_s.append(round(result.tick_s, 5))
         self.stats["ticks"] += 1
         self.stats["fwd_packets"] += result.fwd_packets
         self.stats["fwd_bytes"] += result.fwd_bytes
         self.stats["stage_s"] += st.stage_s
         self.stats["device_s"] += st.device_s
         self.stats["fanout_s"] += fanout_s
-        self.recent_ticks.append({
-            "tick": st.idx, "stage_ms": st.stage_s * 1e3, "device_ms": st.device_s * 1e3,
-            "fanout_ms": fanout_s * 1e3, "fwd_packets": result.fwd_packets,
-            **self._tick_rec_extras(st),
-        })
+        s0 = time.perf_counter()
         for cb in self._on_tick:
             r = cb(result)
             if asyncio.iscoroutine(r):
                 await r
+        send_s = time.perf_counter() - s0
+        # Egress leaves inside the callbacks, so the deadline check runs
+        # after them.
+        late = bool(st.deadline) and time.perf_counter() > st.deadline
+        if late:
+            self.stats["late_ticks"] += 1
+        self.recent_ticks.append({
+            "idx": st.idx, "depth": st.depth,
+            "stage_ms": round(st.stage_s * 1000.0, 3),
+            "device_ms": round(st.device_s * 1000.0, 3),
+            "fanout_ms": round(fanout_s * 1000.0, 3),
+            "total_ms": round(result.tick_s * 1000.0, 3),
+            "late": late,
+            "edge_overshoot_us": round(st.edge_over_us, 1),
+            "fwd_packets": result.fwd_packets,
+            **self._tick_rec_extras(st),
+        })
+        if self.trace is not None:
+            self.trace.record_tick(
+                st.idx, st.edge, st.stage_t0, st.stage_s, 0.0,
+                st.upload_t0, st.upload_s, st.device_t0, st.device_s,
+                c0, fanout_s, send_s, st.edge_over_us, st.depth, late,
+                kernel_s=st.kernel_s,
+            )
+        self.stats["sleep_bias_us"] = round(max(self._sleep_bias, 0.0) * 1e6, 1)
+        self.stats["edge_overshoot_us"] = round(self._edge_overshoot_us, 1)
         return result
 
+    def mark_warm(self) -> None:
+        """Record that the kernels are built and the first tick ran (the
+        server calls it after its warm step). The port has no compile
+        ledger: a CUDA kernel is built once, at its first launch."""
+        self.warm = True
+
     async def step_once(self) -> TickResult:
-        """One sequential tick. The device round trip runs in a worker
-        thread so the event loop never blocks on the card."""
+        """One sequential tick (tests, warm-up, manual stepping); the
+        device round trip runs on the executor's thread so the event loop
+        never blocks on the card.
+
+        Refused while the serving loop runs: this path's immediate
+        fan-out could land before the loop's deferred fan-out of an
+        earlier tick, which would then rewrite munger lanes backwards and
+        emit egress out of wire order."""
+        if self._task is not None and not self._task.done():
+            raise RuntimeError(
+                "step_once() while the serving loop is running: its "
+                "immediate fan-out would land ahead of the loop's deferred "
+                "fan-out of an earlier tick and rewrite munger lanes "
+                "backwards (out-of-wire-order egress). Stop the loop first "
+                "or consume ticks via on_tick()."
+            )
+        loop = asyncio.get_running_loop()
         st = self._stage_host()
         self._schedule_probe(st)
         async with self.state_lock:
-            self._upload_ctrl()
-            out = await asyncio.to_thread(self._device_step, st)
+            self._upload(st)
+            out = await loop.run_in_executor(self._executor, self._device_step, st)
         self._mirror_probe_inputs(out)
         self.ingest.scrub_retired()
         return await self._complete(out, st)
@@ -421,6 +596,7 @@ class PlaneRuntime:
             hs._budget_refill_ms[room, sub] = now_ms
         rtt = max(1, int(self.ingest.rtt_ms[room, sub]))
         K = self.dims.pkts
+        budget_before = int(hs.budget[room, sub])
         replays: list[EgressPacket] = []
         for sn in sns:
             if len(replays) >= hs.BURST_CAP or hs.budget[room, sub] <= 0:
@@ -457,6 +633,11 @@ class PlaneRuntime:
             ))
         if replays:
             self.stats["rtx_packets"] = self.stats.get("rtx_packets", 0) + len(replays)
+        if budget_before > 0 and int(hs.budget[room, sub]) <= 0:
+            # Replay budget newly exhausted: a NACK storm on this
+            # (room, sub) pair. Black-box it and dump the room's recorder.
+            self.blackbox.emit(room, trace_mod.EV_NACK_STORM, float(sub), float(len(sns)))
+            self.blackbox.dump_to(room, "nack_storm")
         return replays
 
     def _assemble_padding(self, inp) -> list[EgressPacket]:
@@ -469,9 +650,11 @@ class PlaneRuntime:
             for (r, t, s, sn, ts) in pads
         ]
 
-    def _fan_out(self, out: plane.TickOutputs, payloads, inp, tick_idx: int) -> TickResult:
+    def _fan_out(self, out: plane.TickOutputs, payloads, inp, tick_s: float,
+                 tick_idx: int | None = None) -> TickResult:
         """Bit-packed egress masks → host munge → column arrays, plus the
-        speaker / keyframe / congestion views of the tick's outputs."""
+        speaker / keyframe / congestion / quality views of the tick's
+        outputs."""
         rr, tt, kk, ss, b_sn, b_ts, b_pid, b_tl0, b_ki = self.munger.apply_columns(
             inp.sn, inp.ts, inp.ts_jump, inp.pid, inp.tl0, inp.keyidx,
             inp.begin_pic, inp.valid, out.send_bits, out.drop_bits, out.switch_bits,
@@ -489,12 +672,13 @@ class PlaneRuntime:
         congested: dict[int, list[int]] = {}
         for r, s in zip(*np.nonzero(out.congested)):
             congested.setdefault(int(r), []).append(int(s))
-        self.host_seq.record(batch, tick_idx)
+        eff_idx = self.tick_index if tick_idx is None else tick_idx
+        self.host_seq.record(batch, eff_idx)
         padding = self._assemble_padding(inp)
         if padding:
             self.stats["pad_packets"] = self.stats.get("pad_packets", 0) + len(padding)
         return TickResult(
-            tick_index=tick_idx,
+            tick_index=eff_idx,
             egress_batch=batch,
             padding=padding,
             speakers=speakers,
@@ -502,6 +686,172 @@ class PlaneRuntime:
             congested=congested,
             fwd_packets=int(out.fwd_packets.sum()),
             fwd_bytes=int(out.fwd_bytes.sum()),
-            tick_s=0.0,
+            tick_s=tick_s,
             outputs=out,
+            track_quality=out.track_quality,
+            track_mos=out.track_mos,
+            sub_quality=out.sub_quality,
+            track_loss_pct=out.track_loss_pct,
+            track_jitter_ms=out.track_jitter_ms,
+            track_bps=out.track_bps,
+            target_layers=out.target_layers,
         )
+
+    # -- loop ------------------------------------------------------------
+    def start(self) -> None:
+        if self._task is None:
+            self._task = asyncio.ensure_future(self._run())
+
+    async def _calibrate_sleep(self) -> None:
+        """Measure this host's asyncio coarse-sleep overshoot once at loop
+        start; the median of a short burst (plus a small spin cushion)
+        becomes the pre-edge margin `_sleep_until` subtracts before its
+        yield-spin tail."""
+        if self._sleep_bias >= 0:
+            return
+        samples = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            await asyncio.sleep(0.001)
+            samples.append(time.perf_counter() - t0 - 0.001)
+        self._sleep_bias = min(max(float(np.median(samples)) + 2e-4, 3e-4), 4e-3)
+
+    async def _sleep_until(self, when: float) -> None:
+        """Window-edge sleep: a coarse asyncio.sleep to just short of the
+        edge, then a yield loop for the tail, so arrival callbacks keep
+        running while the dispatch lands close to the edge. The wake
+        overshoot is recorded; a coarse sleep that blows through the edge
+        widens the margin (EWMA, capped)."""
+        bias = self._sleep_bias if self._sleep_bias >= 0 else 0.0015
+        delay = when - time.perf_counter() - bias
+        if delay > 0:
+            await asyncio.sleep(delay)
+        while time.perf_counter() < when:
+            await asyncio.sleep(0)
+        over = time.perf_counter() - when
+        self._edge_overshoot_us = over * 1e6
+        if over > 2.5e-4 and self._sleep_bias >= 0:
+            self._sleep_bias = min(self._sleep_bias + 0.25 * over, 4e-3)
+
+    def _edge(self, st: StagedTick, next_at: float, depth: int, period: float) -> None:
+        """Deadline accounting and probe scheduling of a staged tick at
+        its dispatch edge."""
+        st.depth = depth
+        st.edge = next_at
+        st.deadline = next_at + (1 + depth) * period
+        self._schedule_probe(st)
+
+    async def _run(self) -> None:
+        """Three-stage pipelined serving loop: within one tick window,
+
+            stage N+1  ‖  device N  ‖  fan-out N-1
+
+        Tick N, staged during the previous window, is dispatched to the
+        executor's thread at the window edge; while the card runs it, the
+        event loop stages tick N+1 (ingest drain + input packing, into the
+        other ingest staging set) and runs tick N-1's fan-out and egress.
+
+        The completion queue is bounded at 1: if host egress cannot keep
+        up, the loop degrades to sequential (counted in pipeline_stalls)
+        instead of queueing stale sends, and a stalled device step holds
+        the loop at `await fut` with no tick staged past the one already
+        prepared, so depth is bounded by construction.
+
+        self.state has one owner: only the ctrl upload and the dispatched
+        device step touch it, on one stream, and exactly that span runs
+        under state_lock. Staging reads host mirrors only and takes no
+        lock."""
+        period = self.tick_ms / 1000.0
+        await self._calibrate_sleep()
+        next_at = time.perf_counter() + period
+        loop = asyncio.get_running_loop()
+        pending: tuple | None = None   # (out, StagedTick) awaiting fan-out
+        pending_task: asyncio.Task | None = None
+        staged: StagedTick | None = None  # pre-staged next tick
+        depth = 0 if self.low_latency else 1
+        try:
+            while True:
+                if staged is not None:
+                    # No device step completes while the loop sleeps, so
+                    # the mirrors _schedule_probe reads cannot change.
+                    self._edge(staged, next_at, depth, period)
+                await self._sleep_until(next_at)
+                if pending_task is not None:
+                    # Backpressure: the previous fan-out is still running.
+                    if not pending_task.done():
+                        self.stats["pipeline_stalls"] += 1
+                    await asyncio.shield(pending_task)
+                    pending_task = self._complete_task = None
+                if staged is None:
+                    # Cold start, post-resync, or low-latency mode: stage
+                    # at the window edge.
+                    staged = self._stage_host()
+                    self._edge(staged, next_at, depth, period)
+                cur, staged = staged, None
+                cur.edge_over_us = self._edge_overshoot_us
+                stopping = False
+                await self.state_lock.acquire()
+                try:
+                    self._upload(cur)
+                    fut = loop.run_in_executor(self._executor, self._device_step, cur)
+                    if pending is not None:
+                        pending_task = self._complete_task = asyncio.ensure_future(
+                            self._complete(pending[0], pending[1]))
+                        pending = None
+                    if not self.low_latency:
+                        # Stage N+1 while device N runs in the worker.
+                        staged = self._stage_host()
+                    # Fan-out N-1 (the task above) and arriving-packet
+                    # handlers run on the event loop during this await.
+                    try:
+                        out = await asyncio.shield(fut)
+                    except asyncio.CancelledError:
+                        # Stopping: the step runs on in the worker thread
+                        # regardless. Let it finish (under the lock) so its
+                        # tick completes in the drain below instead of
+                        # vanishing with its launches done.
+                        stopping = True
+                        out = await fut
+                finally:
+                    self.state_lock.release()
+                self._mirror_probe_inputs(out)
+                self.ingest.scrub_retired()
+                pending = (out, cur)
+                if stopping:
+                    raise asyncio.CancelledError
+                if self.low_latency:
+                    # Fan out this tick now; `pending` is cleared before
+                    # the await so a cancellation inside _complete cannot
+                    # make the drain below run the same tick twice.
+                    to_complete, pending = pending, None
+                    await self._complete(to_complete[0], to_complete[1])
+                next_at += period
+                if next_at < time.perf_counter() - 5 * period:
+                    next_at = time.perf_counter() + period  # resync after stall
+        except asyncio.CancelledError:
+            # Drain: every dispatched tick's device step has run; its
+            # egress, callbacks and stats must not vanish at shutdown. (A
+            # tick staged but not dispatched is dropped, as in the
+            # reference.)
+            if pending_task is not None:
+                await pending_task
+                self._complete_task = None
+            if pending is not None:
+                await self._complete(pending[0], pending[1])
+            raise
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+        if self._complete_task is not None:
+            self._complete_task.cancel()
+            try:
+                await self._complete_task
+            except asyncio.CancelledError:
+                pass
+            self._complete_task = None

@@ -1,0 +1,337 @@
+"""Server assembly + lifecycle.
+
+Reference parity: pkg/service/server.go (LivekitServer :46-61, Start
+:170-293, Stop :295-316, health :351-364) and the Wire DI graph
+(wire_gen.go:38-138) — here plain constructor wiring in create_server().
+Endpoints: /rtc (WS signal+media), /twirp/livekit.RoomService/* (admin),
+/ (health), /metrics (prometheus text format), /debug/rooms.
+
+Port of the JAX package's service/server.py. `create_server(cfg,
+device=...)` builds the port's RoomManager on `device` ("cuda" by
+default). Routes whose subsystem the port does not carry yet are left
+out (ROADMAP A): the agents, egress, ingress and SIP services, ioinfo,
+/debug/overload, /debug/integrity, /debug/compiles, /debug/egress,
+/debug/migration, /debug/fleet and /debug/trace; so are the UDP/TCP
+media transports and the relay, which RoomManager refuses to configure.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+
+from aiohttp import web
+
+from livekit_server_tpu_torch.config.config import Config, ConfigError
+from livekit_server_tpu_torch.routing import (
+    LocalNode,
+    LocalRouter,
+    NodeState,
+    create_selector,
+)
+from livekit_server_tpu_torch.routing.node import sample_system_stats
+from livekit_server_tpu_torch.routing.selector import NoNodesAvailable
+from livekit_server_tpu_torch.service.roommanager import RoomManager
+from livekit_server_tpu_torch.service.roomservice import RoomServiceAPI
+from livekit_server_tpu_torch.service.rtcservice import RTCService
+from livekit_server_tpu_torch.service.store import LocalStore
+from livekit_server_tpu_torch.telemetry import TelemetryService
+from livekit_server_tpu_torch.version import __version__
+
+
+class LivekitServer:
+    def __init__(self, config: Config, router, store, room_manager, telemetry):
+        self.config = config
+        self.router = router
+        self.store = store
+        self.room_manager: RoomManager = room_manager
+        self.telemetry: TelemetryService = telemetry
+        from livekit_server_tpu_torch.utils.logger import Logger, configure
+
+        self.rtc_service = RTCService(self)
+        self.room_api = RoomServiceAPI(self)
+        configure(config.log_level)
+        self.log = Logger(node=router.local_node.node_id[:12])
+        room_manager.log = self.log
+        room_manager.runtime.blackbox.log = self.log
+        self.app = web.Application(middlewares=[self._request_hooks])
+        self.app.router.add_get("/", self.health)
+        self.app.router.add_get("/rtc", self.rtc_service.handle)
+        self.app.router.add_get("/rtc/validate", self.validate)
+        self.app.router.add_post(
+            "/twirp/livekit.RoomService/{method}", self.room_api.handle
+        )
+        self.app.router.add_get("/metrics", self.metrics)
+        self.app.router.add_get("/debug/rooms", self.debug_rooms)
+        self.app.router.add_get("/debug/analytics", self.debug_analytics)
+        self.app.router.add_get("/debug/tasks", self.debug_tasks)
+        self.app.router.add_get("/debug/ticks", self.debug_ticks)
+        self.app.router.add_get("/debug/pager", self.debug_pager)
+        self.app.router.add_get("/debug/blackbox/{room}", self.debug_blackbox)
+        self._runner: web.AppRunner | None = None
+        self._sites: list[web.TCPSite] = []
+        self._stats_task: asyncio.Task | None = None
+        self.started_at = 0.0
+
+    # -- selector ---------------------------------------------------------
+    def select_node(self) -> LocalNode | None:
+        """Pick an RTC node for a new room (roomallocator.go)."""
+        nodes = getattr(self, "_node_cache", None) or [self.router.local_node]
+        try:
+            return self._selector.select_node(nodes)
+        except NoNodesAvailable:
+            return None
+
+    async def _refresh_nodes(self) -> None:
+        while True:
+            self._node_cache = await self.router.list_nodes()
+            sample_system_stats(self.router.local_node.stats)
+            # Per-participant traffic rates → NodeStats packet/byte rates
+            # (participant_traffic_load.go cadence).
+            self.room_manager.sample_traffic()
+            await asyncio.sleep(2.0)
+
+    def room_manager_media_queue(self, room_name: str, identity: str):
+        room = self.room_manager.rooms.get(room_name)
+        if room is None:
+            return None
+        p = room.participants.get(identity)
+        return getattr(p, "media_queue", None) if p else None
+
+    # -- endpoints --------------------------------------------------------
+    async def health(self, request: web.Request) -> web.Response:
+        # server.go:351 — 406 when node stats are stale
+        age = time.time() - self.router.local_node.stats.updated_at
+        if age > 4.0 and self.started_at and time.time() - self.started_at > 4.0:
+            return web.Response(status=406, text=f"node stats stale ({age:.1f}s)")
+        return web.Response(text="OK")
+
+    async def validate(self, request: web.Request) -> web.Response:
+        """rtcservice.go validate — join preflight without upgrading."""
+        from livekit_server_tpu_torch.auth import TokenError, verify_token
+
+        token = request.query.get("access_token", "")
+        try:
+            claims = verify_token(token, self.config.keys)
+        except TokenError as e:
+            return web.Response(status=401, text=str(e))
+        if not claims.video.room_join:
+            return web.Response(status=401, text="token lacks roomJoin")
+        return web.Response(text="success")
+
+    @web.middleware
+    async def _request_hooks(self, request: web.Request, handler):
+        """Twirp request logging + status metrics (the TwirpLogger /
+        request-status hooks of service/server.go's Twirp server options)."""
+        t0 = time.perf_counter()
+        status = 500
+        try:
+            resp = await handler(request)
+            status = resp.status
+            return resp
+        except web.HTTPException as e:
+            status = e.status
+            raise
+        except asyncio.CancelledError:
+            status = 499  # client went away; not a server error
+            raise
+        finally:
+            if request.path.startswith("/twirp/"):
+                svc = request.path.split("/")[2]
+                method = request.match_info.get("method", "")
+                self.telemetry.add(
+                    "livekit_twirp_requests_total",
+                    service=svc, method=method, status=str(status),
+                )
+                self.log.info(
+                    "twirp", service=svc, method=method, status=status,
+                    dur_ms=round((time.perf_counter() - t0) * 1000.0, 2),
+                )
+
+    async def debug_tasks(self, request: web.Request) -> web.Response:
+        """Asyncio task dump (the pprof goroutine-profile analog, §5.1)."""
+        tasks = []
+        for t in asyncio.all_tasks():
+            tasks.append({
+                "name": t.get_name(),
+                "done": t.done(),
+                "coro": str(getattr(t.get_coro(), "__qualname__", t.get_coro())),
+            })
+        return web.json_response({"count": len(tasks), "tasks": tasks})
+
+    async def debug_ticks(self, request: web.Request) -> web.Response:
+        """Recent tick timing breakdown (§5.1 profiling surface): totals
+        plus the per-tick pipeline-stage split (stage/device/fanout ms,
+        depth, late) so an overlap regression is visible per stage rather
+        than inferred from host_ms_per_tick."""
+        rt = self.room_manager.runtime
+        body = {
+            "tick_ms": rt.tick_ms,
+            "stats": rt.stats,
+            "pipeline_depth": 0 if rt.low_latency else 1,
+            "recent_tick_s": list(getattr(rt, "recent_tick_s", [])),
+            "recent_ticks": list(getattr(rt, "recent_ticks", [])),
+        }
+        body["sleep_bias_us"] = round(
+            max(getattr(rt, "_sleep_bias", 0.0), 0.0) * 1e6, 1
+        )
+        body["edge_overshoot_us"] = round(
+            getattr(rt, "_edge_overshoot_us", 0.0), 1
+        )
+        if rt.wire_stages is not None:
+            # Per-stage wire-latency decomposition (sampled attribution).
+            body["wire_stages"] = rt.wire_stages.summary()
+        return web.json_response(body)
+
+    async def debug_blackbox(self, request: web.Request) -> web.Response:
+        """One room's black-box flight-recorder lane ({room} is a room
+        name, a row index, or `node` for the node lane), plus the
+        retained automatic dumps."""
+        rt = self.room_manager.runtime
+        bb = rt.blackbox
+        key = request.match_info["room"]
+        if key == "node":
+            row = bb.NODE
+        else:
+            room = self.room_manager.rooms.get(key)
+            if room is not None:
+                row = room.slots.row
+            else:
+                try:
+                    row = int(key)
+                except ValueError:
+                    return web.json_response(
+                        {"error": f"unknown room {key!r}"}, status=404
+                    )
+                if not 0 <= row < rt.dims.rooms:
+                    return web.json_response(
+                        {"error": f"row {row} out of range"}, status=404
+                    )
+        return web.json_response({
+            "room": key,
+            "row": row,
+            "events": bb.dump(row),
+            "dumps_total": bb.dumps,
+            "last_dumps": list(bb.last_dumps),
+        })
+
+    async def metrics(self, request: web.Request) -> web.Response:
+        self.telemetry.observe_queue_drops()
+        return web.Response(
+            text=self.telemetry.prometheus_text(), content_type="text/plain"
+        )
+
+    async def debug_pager(self, request: web.Request) -> web.Response:
+        """Paged room-state plane: page-pool occupancy/fragmentation,
+        allocator churn counters, per-room page extents, and per-resource
+        slot occupancy. `paged: false` (with the dense slot occupancy)
+        when the plane runs the dense layout."""
+        rm = self.room_manager
+        rt = rm.runtime
+        pager_stats = getattr(rt, "pager_stats", None)
+        body: dict = {
+            "paged": pager_stats is not None,
+            "occupancy": rt.occupancy(),
+        }
+        if pager_stats is not None:
+            body["pool"] = pager_stats()
+            pager = rt.pager
+            body["rooms"] = {
+                room.name: {
+                    "row": room.slots.row,
+                    "pages": [int(p) for p in pager.pages_of_room(room.slots.row)],
+                    "extent": tuple(pager.extent(room.slots.row)),
+                }
+                for room in rm.rooms.values()
+            }
+        return web.json_response(body)
+
+    async def debug_analytics(self, request: web.Request) -> web.Response:
+        """Recent per-track analytics records (statsworker.go stream seat)."""
+        try:
+            n = max(0, int(request.query.get("n", 100)))
+        except ValueError:
+            return web.Response(status=400, text="n must be an integer")
+        return web.json_response(
+            {"track_stats": self.telemetry.track_stats[-n:] if n else []}
+        )
+
+    async def debug_rooms(self, request: web.Request) -> web.Response:
+        rm = self.room_manager
+        return web.json_response(
+            {
+                "node": self.router.local_node.node_id,
+                "version": __version__,
+                "rooms": {
+                    name: {
+                        "row": r.slots.row,
+                        "participants": list(r.participants),
+                        "tracks": list(r.tracks),
+                        "traffic": rm.participant_traffic(r),
+                    }
+                    for name, r in rm.rooms.items()
+                },
+                "plane": rm.runtime.stats,
+                "ingest_dropped": rm.runtime.ingest.dropped,
+            }
+        )
+
+    # -- lifecycle --------------------------------------------------------
+    async def start(self) -> None:
+        await self.router.register_node()
+        # Warm step before accepting traffic: builds the CUDA kernels
+        # (nvcc, once per process) and runs the first tick, so no session
+        # waits on a build mid-call.
+        await self.room_manager.runtime.step_once()
+        self.room_manager.runtime.mark_warm()
+        self.room_manager.start()
+        self._stats_task = asyncio.ensure_future(self._refresh_nodes())
+        self._runner = web.AppRunner(self.app)
+        await self._runner.setup()
+        for addr in self.config.bind_addresses:
+            site = web.TCPSite(self._runner, addr, self.config.port)
+            await site.start()
+            self._sites.append(site)
+        self.started_at = time.time()
+
+    async def stop(self, force: bool = False) -> None:
+        self.router.local_node.state = NodeState.SHUTTING_DOWN
+        await self.router.drain()
+        if not force:
+            # Single node: nobody to migrate to. Wait briefly for
+            # participants to leave on their own (server.go:295).
+            for _ in range(50):
+                if not any(r.participants for r in self.room_manager.rooms.values()):
+                    break
+                await asyncio.sleep(0.1)
+        if self._stats_task:
+            self._stats_task.cancel()
+        await self.room_manager.stop()
+        await self.router.unregister_node()
+        if self._runner is not None:
+            await self._runner.cleanup()
+
+    @property
+    def port(self) -> int:
+        return self.config.port
+
+
+def create_server(config: Config, device="cuda") -> LivekitServer:
+    """The Wire graph (wire_gen.go InitializeServer) as explicit wiring:
+    the single-node router and store, the media plane on `device`. A
+    shared bus (kv.kind other than memory) waits for ROADMAP A13."""
+    if config.kv.kind not in ("", "memory"):
+        raise ConfigError(
+            f"kv.kind {config.kv.kind!r} needs the multi-node bus, which this "
+            "port does not carry yet (ROADMAP A13 (migration, fleet plane, "
+            "TCP bus)); use kv.kind 'memory'"
+        )
+    node = LocalNode(region=config.region)
+    sample_system_stats(node.stats)
+    router = LocalRouter(node)
+    store = LocalStore()
+    telemetry = TelemetryService(config)
+    rm = RoomManager(config, router, store, telemetry=telemetry, device=device)
+    server = LivekitServer(config, router, store, rm, telemetry)
+    server._selector = create_selector(config.node_selector, config.region)
+    return server

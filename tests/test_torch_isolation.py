@@ -87,3 +87,62 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             init(3)
         assert all(x.device.type == "cpu" for x in init(3, device="cpu"))
+
+
+SERVING_PROBE = r"""
+import asyncio, importlib.abc, json, sys
+import numpy, torch
+
+class Absent(importlib.abc.MetaPathFinder):
+    # Packages a machine serving the port need not have (cryptography is optional).
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {"aiohttp", "msgpack", "yaml", "cryptography", "jax"}:
+            raise ImportError(f"{name} is not installed")
+
+sys.meta_path.insert(0, Absent())
+before = {m.split(".")[0] for m in sys.modules}
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from livekit_server_tpu_torch.models import plane
+
+async def main():
+    cfg = cs.serving_config(dense_dims=plane.PlaneDims(2, 4, 4, 4))
+    rm = cs.RoomManager(cfg, cs.LocalRouter(cs.LocalNode()), cs.LocalStore(),
+                        telemetry=cs.TelemetryService(cfg), device="cpu")
+    req, resp = cs.MessageChannel(), cs.MessageChannel()
+    task = asyncio.ensure_future(rm.start_session(
+        "r", {"identity": "a", "name": "a"}, req, resp))
+    while not rm.rooms.get("r") or not rm.rooms["r"].participants:
+        await asyncio.sleep(0.01)
+    await rm.runtime.step_once()
+    rm.start()
+    await asyncio.sleep(0.05)
+    req.close()
+    await rm.stop()
+    await task
+
+asyncio.run(main())
+after = {m.split(".")[0] for m in sys.modules}
+print(json.dumps(sorted(after - before)))
+"""
+
+
+def test_serving_path_needs_only_torch_numpy_and_stdlib():
+    """What chip_smoke's serving phase loads (config, RoomManager, rtc,
+    routing, telemetry, the codec, the runtime loop) runs with aiohttp,
+    msgpack, PyYAML and cryptography absent, as they may be on a card's host, and
+    adds no module outside the port, torch, numpy and the standard
+    library."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-c", SERVING_PROBE, str(ROOT)], cwd=ROOT,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=300, check=True)
+    added = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    own = {"chip_smoke", "livekit_server_tpu_torch", "__main__"}
+    outside = {m for m in added - own if m not in sys.stdlib_module_names}
+    assert not outside, f"serving path imports {outside}"
+    assert "livekit_server_tpu_torch" in added

@@ -1,0 +1,329 @@
+"""The port's server (livekit_server_tpu_torch.service.server) over real
+HTTP + WebSocket with device="cpu": health and validate, token checks,
+join/publish/subscribe media over the WS, the RoomService API, /metrics
+and /debug, the ConfigError of every subsystem the port does not carry,
+and `serve` (refused without a card, or without aiohttp; answering
+GET / with --device cpu). The test client speaks the reference's wire:
+JSON signal frames and media frames packed and read with `msgpack`."""
+
+import asyncio
+import contextlib
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
+from pathlib import Path
+
+import aiohttp
+import msgpack
+import pytest
+
+torch = pytest.importorskip("torch")
+# One intra-op thread: these tests run beside timing-sensitive tests in
+# other workers, and the tensors here are small.
+torch.set_num_threads(1)
+
+from livekit_server_tpu_torch import cli  # noqa: E402
+from livekit_server_tpu_torch.auth import AccessToken, VideoGrant  # noqa: E402
+from livekit_server_tpu_torch.config import ConfigError, load_config  # noqa: E402
+from livekit_server_tpu_torch.config.config import UNPORTED, port_overlay  # noqa: E402
+from livekit_server_tpu_torch.service.server import create_server  # noqa: E402
+
+API_KEY, API_SECRET = "testkey", "testsecret"
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def make_config(port: int, **extra):
+    """The reference test config's shape, on the port overlay."""
+    base = port_overlay()
+    base["plane"].update(rooms=4, tracks_per_room=4, pkts_per_track=4, subs_per_room=4,
+                         tick_ms=10)
+    base.update(keys={API_KEY: API_SECRET}, port=port, bind_addresses=["127.0.0.1"],
+                room={"empty_timeout_s": 2}, **extra)
+    return load_config(base=base, env={})
+
+
+def token(identity: str, room: str, **grant_kw) -> str:
+    t = AccessToken(API_KEY, API_SECRET)
+    t.identity = identity
+    t.grant = VideoGrant(room_join=True, room=room, **grant_kw)
+    return t.to_jwt()
+
+
+def admin_token(room: str = "") -> str:
+    t = AccessToken(API_KEY, API_SECRET)
+    t.identity = "admin"
+    t.grant = VideoGrant(room_admin=True, room_create=True, room_list=True, room=room)
+    return t.to_jwt()
+
+
+class SignalClient:
+    """A reference-wire client: JSON signal TEXT frames, msgpack media."""
+
+    def __init__(self, session: aiohttp.ClientSession, port: int):
+        self.session, self.port = session, port
+        self.ws = None
+        self.signals: list = []
+        self.media: list = []
+        self._reader: asyncio.Task | None = None
+
+    async def connect(self, room: str, identity: str, query: str = ""):
+        self.ws = await self.session.ws_connect(
+            f"ws://127.0.0.1:{self.port}/rtc?access_token={token(identity, room)}{query}")
+        self._reader = asyncio.ensure_future(self._read())
+        return await self.wait_for("join")
+
+    async def _read(self):
+        async for msg in self.ws:
+            if msg.type == aiohttp.WSMsgType.TEXT:
+                self.signals.append(json.loads(msg.data))
+            elif msg.type == aiohttp.WSMsgType.BINARY:
+                self.media.append(msgpack.unpackb(msg.data, raw=False))
+
+    async def wait_for(self, kind: str, timeout: float = 5.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for m in self.signals:
+                if kind in m:
+                    return m[kind]
+            await asyncio.sleep(0.01)
+        raise TimeoutError(f"no {kind!r} in {self.signals}")
+
+    async def send_signal(self, kind: str, data: dict):
+        await self.ws.send_str(json.dumps({kind: data}))
+
+    async def send_media(self, **frame):
+        await self.ws.send_bytes(msgpack.packb(frame))
+
+    async def close(self):
+        if self._reader:
+            self._reader.cancel()
+        if self.ws is not None:
+            await self.ws.close()
+
+
+@contextlib.asynccontextmanager
+async def running_server():
+    cfg = make_config(_free_port())
+    srv = create_server(cfg, device="cpu")
+    await srv.start()
+    try:
+        yield srv
+    finally:
+        await srv.stop(force=True)
+
+
+async def test_health_validate_and_bad_tokens():
+    async with running_server() as server:
+        base = f"http://127.0.0.1:{server.port}"
+        assert server.room_manager.runtime.device.type == "cpu"
+        assert server.room_manager.runtime.warm
+        async with aiohttp.ClientSession() as s:
+            async with s.get(f"{base}/") as r:
+                assert r.status == 200
+            async with s.get(f"{base}/rtc/validate?access_token={token('a', 'r')}") as r:
+                assert r.status == 200
+            async with s.get(f"{base}/rtc/validate?access_token=garbage") as r:
+                assert r.status == 401
+            async with s.get(f"{base}/rtc") as r:
+                assert r.status == 401
+            t = AccessToken(API_KEY, API_SECRET)
+            t.identity = "x"
+            t.grant = VideoGrant(room_list=True)  # no roomJoin
+            async with s.get(f"{base}/rtc?access_token={t.to_jwt()}") as r:
+                assert r.status == 401
+
+
+async def test_join_publish_subscribe_media():
+    """The single-publisher flow over the wire; bob reads the port's media
+    frames with msgpack, and carol takes the binary signal framing."""
+    async with running_server() as server:
+        async with aiohttp.ClientSession() as s:
+            alice, bob, carol = (SignalClient(s, server.port) for _ in range(3))
+            join_a = await alice.connect("lobby", "alice")
+            assert join_a["participant"]["identity"] == "alice"
+            join_b = await bob.connect("lobby", "bob")
+            assert [p["identity"] for p in join_b["other_participants"]] == ["alice"]
+            carol.ws = await s.ws_connect(
+                f"ws://127.0.0.1:{server.port}/rtc?access_token={token('carol', 'lobby')}"
+                "&signal=binary")
+            while True:    # binary signal frames: 0x00 | [kind id, data]; join is id 0
+                msg = await carol.ws.receive(timeout=5)
+                assert msg.type == aiohttp.WSMsgType.BINARY and msg.data[0] == 0
+                kind_id, data = msgpack.unpackb(msg.data[1:], raw=False)
+                if kind_id == 0:
+                    break
+            assert data["participant"]["identity"] == "carol"
+            await carol.ws.close()
+
+            await alice.send_signal("add_track", {"cid": "mic", "type": 0, "name": "mic"})
+            track_sid = (await alice.wait_for("track_published"))["track"]["sid"]
+            await alice.send_media(cid="mic", sn=99, ts=0, payload=b"bind", audio_level=20,
+                                   frame_ms=20)
+            await bob.wait_for("track_subscribed")
+            for i in range(5):
+                await alice.send_media(cid="mic", sn=100 + i, ts=960 * i,
+                                       payload=b"opus" + bytes([i]), audio_level=20,
+                                       frame_ms=20)
+                deadline = time.monotonic() + 8.0
+                while not any(m["sn"] == 100 + i for m in bob.media):
+                    assert time.monotonic() < deadline, f"sn {100 + i} never delivered"
+                    await asyncio.sleep(0.01)
+            sns = [m["sn"] for m in bob.media]
+            assert [x for x in sns if x >= 100][:5] == [100, 101, 102, 103, 104]
+            frame = next(m for m in bob.media if m["sn"] == 100)
+            assert set(frame) == {"track_sid", "sn", "ts", "pid", "tl0", "keyidx", "payload"}
+            assert frame["payload"] == b"opus\x00" and frame["track_sid"] == track_sid
+            assert not alice.media              # never back to the publisher
+            server.room_manager.sample_traffic()
+            for i in range(5, 40):
+                await alice.send_media(cid="mic", sn=100 + i, ts=960 * i, payload=b"x",
+                                       audio_level=18, frame_ms=20)
+                await asyncio.sleep(0.012)
+            spk = await bob.wait_for("speakers_changed", timeout=5)
+            assert spk["speakers"][0]["sid"] == join_a["participant"]["sid"]
+            rm = server.room_manager
+            rm.sample_traffic()
+            traffic = rm.participant_traffic(rm.rooms["lobby"])
+            assert traffic["alice"]["rx_pps"] > 0 and traffic["bob"]["tx_pps"] > 0
+            await alice.close()
+            await bob.close()
+
+
+async def test_room_service_api():
+    async with running_server() as server:
+        async with aiohttp.ClientSession() as s:
+            hdr = {"Authorization": f"Bearer {admin_token('api-room')}"}
+            base = f"http://127.0.0.1:{server.port}/twirp/livekit.RoomService"
+            async with s.post(f"{base}/CreateRoom", json={"name": "api-room"}, headers=hdr) as r:
+                assert r.status == 200 and (await r.json())["name"] == "api-room"
+            async with s.post(f"{base}/ListRooms", json={}, headers=hdr) as r:
+                assert "api-room" in [x["name"] for x in (await r.json())["rooms"]]
+            alice = SignalClient(s, server.port)
+            await alice.connect("api-room", "alice")
+            async with s.post(f"{base}/ListParticipants", json={"room": "api-room"},
+                              headers=hdr) as r:
+                assert [p["identity"] for p in (await r.json())["participants"]] == ["alice"]
+            async with s.post(f"{base}/UpdateRoomMetadata",
+                              json={"room": "api-room", "metadata": "hello"}, headers=hdr) as r:
+                assert (await r.json())["metadata"] == "hello"
+            await alice.wait_for("room_update")
+            async with s.post(f"{base}/RemoveParticipant",
+                              json={"room": "api-room", "identity": "alice"}, headers=hdr) as r:
+                assert r.status == 200
+            await alice.wait_for("leave")
+            async with s.post(f"{base}/DeleteRoom", json={"room": "api-room"}, headers=hdr) as r:
+                assert r.status == 200
+            await alice.close()
+            async with s.post(f"{base}/DeleteRoom", json={"room": "x"},
+                              headers={"Authorization": f"Bearer {token('u', 'x')}"}) as r:
+                assert r.status == 403
+            async with s.post(f"{base}/ListParticipants", json={"room": "other-room"},
+                              headers=hdr) as r:
+                assert r.status == 403
+
+
+async def test_metrics_and_debug_routes():
+    async with running_server() as server:
+        base = f"http://127.0.0.1:{server.port}"
+        async with aiohttp.ClientSession() as s:
+            alice = SignalClient(s, server.port)
+            await alice.connect("m", "alice")
+            async with s.get(f"{base}/metrics") as r:
+                assert "livekit_events_total" in await r.text()
+            async with s.get(f"{base}/debug/rooms") as r:
+                dbg = await r.json()
+                assert dbg["rooms"]["m"]["participants"] == ["alice"]
+                assert dbg["plane"]["ticks"] >= 1 and "late_ticks" in dbg["plane"]
+            async with s.get(f"{base}/debug/ticks") as r:
+                body = await r.json()
+                assert "pipeline_stalls" in body["stats"] and body["recent_ticks"]
+            async with s.get(f"{base}/debug/pager") as r:
+                assert (await r.json())["paged"] is False
+            async with s.get(f"{base}/debug/blackbox/m") as r:
+                assert [e["event"] for e in (await r.json())["events"]][:2] == [
+                    "room_open", "join"]
+            for gone in ("/debug/compiles", "/debug/fleet", "/agent"):
+                async with s.get(f"{base}{gone}") as r:
+                    assert r.status == 404
+            await alice.close()
+
+
+def test_unported_subsystems_raise_config_error():
+    """Each subsystem the port does not carry, turned on, is refused at
+    construction with the ROADMAP item that brings it."""
+    enabling = {"rtc.udp_port": 7882, "plane.express_max_subs": 2, "plane.mesh_devices": 2}
+    for path, _enabled, _off, item in UNPORTED:
+        section, leaf = path.split(".")
+        cfg = make_config(_free_port())
+        setattr(getattr(cfg, section), leaf, enabling.get(path, True))
+        with pytest.raises(ConfigError, match=item.split(" ")[0]) as err:
+            create_server(cfg, device="cpu")
+        assert path in str(err.value)
+    # A shared bus is not ported: only the single-node router and store.
+    for kind in ("tcp", "redis"):
+        cfg = make_config(_free_port())
+        cfg.kv.kind, cfg.kv.address = kind, "127.0.0.1:1"
+        with pytest.raises(ConfigError, match="A13"):
+            create_server(cfg, device="cpu")
+    for kind in ("", "memory"):
+        cfg = make_config(_free_port())
+        cfg.kv.kind = kind
+        server = create_server(cfg, device="cpu")
+        assert type(server.router).__name__ == "LocalRouter"
+        assert type(server.store).__name__ == "LocalStore"
+
+
+def test_serve_refuses_without_a_card_or_aiohttp(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    port = str(_free_port())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["serve", "--dev", "--port", port])
+    real = cli.importlib.util.find_spec
+    monkeypatch.setattr(cli.importlib.util, "find_spec",
+                        lambda name, *a: None if name == "aiohttp" else real(name, *a))
+    assert cli.main(["serve", "--dev", "--device", "cpu", "--port", port]) == 3
+    assert "aiohttp" in capsys.readouterr().err
+    # An explicit YAML/flag enabling an unported subsystem is refused too.
+    monkeypatch.setattr(cli.importlib.util, "find_spec", real)
+    with pytest.raises(ConfigError, match="supervisor.enabled"):
+        cli.main(["serve", "--dev", "--device", "cpu", "--port", port,
+                  "--supervisor.enabled", "true"])
+
+
+def test_serve_dev_cpu_answers_health():
+    """`python -m livekit_server_tpu_torch serve --dev --device cpu`
+    prints the overlay, then answers GET / with 200."""
+    port = _free_port()
+    # One intra-op thread, as in this process: the suite runs beside
+    # timing-sensitive tests in other workers.
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "livekit_server_tpu_torch", "serve", "--dev", "--device", "cpu",
+         "--port", str(port), "--plane.rooms", "4", "--plane.subs-per-room", "4"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        deadline, status = time.monotonic() + 120, None
+        while status != 200:
+            assert proc.poll() is None, "serve exited"
+            assert time.monotonic() < deadline, "no answer on GET /"
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=2) as r:
+                    status = r.status
+            except OSError:
+                time.sleep(0.2)
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    assert "port overlay" in out and '"supervisor": {"enabled": false}' in out

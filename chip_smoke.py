@@ -65,6 +65,34 @@ Phases (any failure exits non-zero; a few minutes on an H100):
                 pipeline stalls, stage/device/fan-out/send ms and the
                 whole tick's ms, their sum (median, p90), the loop's wall
                 time per tick, forwarded packets and the join time;
+  5b. udp    — the reference's default media wire: each native library
+                (native/csrc/*.cpp) built with g++ and loaded (the build
+                lines, which libcrypto was mapped, whether media is sealed
+                are printed; a library that did not load fails the run);
+                a RoomManager on the card with the UDP transport on an
+                ephemeral loopback port (RoomManager.attach_udp), its
+                participants joined through start_session, publishers
+                bound by `add_track` with `transport: udp`, subscribers
+                latched by sealed punches from a few sink sockets, every
+                media datagram sealed when the process has an AEAD backend.
+                Dense at the runtime phase's PlaneDims(1024, 10, 8, 10):
+                UDP_LOCK_TICKS lockstep ticks (step_once) against a CPU
+                RoomManager of rooms 0..7 fed the same seeded RTP (VP9-SVC
+                with a dependency descriptor, Opus with an audio level),
+                every opened egress datagram of those rooms equal byte for
+                byte (the SSRC, random per node, through the subscriber and
+                track it names), retransmissions of subscriber NACKs and
+                probe padding included; then the pipelined loop for
+                UDP_SECONDS with a publisher process sending one seeded
+                synth tick of sealed datagrams per loop tick. Paged: the
+                size mix at PAGED_RUNTIME_DIMS for at least UDP_PAGED_TICKS
+                loop ticks. Checks the launches (B1 and B2 once per dense
+                tick; B3 once per paged tick, B2 once more per dead-page
+                key); reports the loop's wall ms per tick, ticks/s, the
+                late share, median and p90 of each piece, forward latency
+                (the transport's packet-in → wire-out probe), datagrams sent
+                by the publishers, received by the server, sent (`tx`,
+                `tx_drop`) and received at the sinks, and the egress shards;
   6. timing   — the dense runtime's device step (plane.device_tick: upload,
                 tick, fetch) at the north-star PlaneDims(10240, 8, 16, 50),
                 median and p90 of TIMED_TICKS ticks after warm-up; the paged
@@ -87,7 +115,8 @@ Phases (any failure exits non-zero; a few minutes on an H100):
                 ctypes call) is not in it; `call_ms` is one wrapper call
                 between an event pair, host work included.
 
-Output: JSON lines per phase (the serving phase's under "serving"), a
+Output: JSON lines per phase (the serving phase's under "serving", the
+UDP phase's under "udp"), a
 `{"kernels": [...]}` JSON line (each kernel's numbers on its own path,
 `launches_by_path` its launches on every path, the serving loop's
 included, its ptxas registers and spill bytes,
@@ -107,22 +136,28 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import multiprocessing
 import re
+import select
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
+from livekit_server_tpu_torch import native
 from livekit_server_tpu_torch.config.config import Config, load_config, port_overlay
 from livekit_server_tpu_torch.models import paged, plane, synth
 from livekit_server_tpu_torch.ops import allocation, cuda, pacer, paged_kernel, selector
 from livekit_server_tpu_torch.ops.mix import MIX_TOP_K
 from livekit_server_tpu_torch.protocol import packer
 from livekit_server_tpu_torch.routing import LocalNode, LocalRouter, MessageChannel
-from livekit_server_tpu_torch.runtime import PlaneRuntime
+from livekit_server_tpu_torch.runtime import PlaneRuntime, dd
+from livekit_server_tpu_torch.runtime import crypto as crypto_mod, udp as udp_mod
 from livekit_server_tpu_torch.runtime.paged_runtime import PagedPlaneRuntime
 from livekit_server_tpu_torch.runtime.pager import RoomPager
 from livekit_server_tpu_torch.runtime.slots import CapacityError
@@ -189,7 +224,7 @@ ROOM_MIX_SEED = 9
 # Serving path (RoomManager + the pipelined loop): the dense run's length,
 # the paged run's least loop ticks, the rooms whose audio delivery is
 # checked, and a wall-clock cap on either run.
-SERVING_SECONDS = 10.0
+SERVING_SECONDS = 5.0
 SERVING_PAGED_TICKS = 10
 SAMPLE_ROOMS = 8
 SERVING_TRACE_TICKS = 4096
@@ -1169,6 +1204,603 @@ async def serving_phase(dev, dense_dims: plane.PlaneDims = RUNTIME_DIMS,
             "paged": {"dims": list(paged_dims), **paged_report}}
 
 
+# ---------------------------------------------------------------------------
+# The UDP media wire
+# ---------------------------------------------------------------------------
+
+UDP_LOCK_TICKS = 20
+UDP_NACK_TICK = 10                 # the lockstep tick after which subscribers NACK
+UDP_SECONDS = 10.0
+UDP_PAGED_TICKS = 10
+UDP_VOID_SINKS = 8                 # sockets shared by the unchecked rooms' subscribers
+UDP_SEND_CHUNK = 256               # datagrams a publisher sends between waits
+UDP_WAIT_S = 60.0                  # bound on every wait for the server's receive side
+# The media wire is sealed when the process has an AEAD backend (the
+# `cryptography` package or libcrypto through ctypes): decided once, here.
+REQUIRE_ENCRYPTION = crypto_mod.HAVE_AEAD
+# VP9-SVC L3T2: one template per (spatial, temporal), one decode target
+# per (spatial, temporal) that needs every frame at or below it.
+SVC_LAYERS = ((0, 0), (0, 1), (1, 0), (1, 1), (2, 0), (2, 1))
+SVC_STRUCTURE = dd.Structure(
+    structure_id=0, num_decode_targets=len(SVC_LAYERS),
+    templates=[dd.Template(spatial=s, temporal=t,
+                           dtis=[3 if s <= ds and t <= dt else 0 for ds, dt in SVC_LAYERS],
+                           fdiffs=[1] if t else [])
+               for s, t in SVC_LAYERS])
+
+
+def wire_packets(inp: plane.TickInputs, ssrc: np.ndarray, video: np.ndarray, rng
+                 ) -> list[tuple[int, int, bytearray]]:
+    """One synth tick → cleartext RTP datagrams [(room, track, datagram)]
+    in (room, track, k) order, for the tracks with an SSRC (ssrc[r, t] !=
+    0): VP9-SVC video (`video[r, t]`) with a dependency-descriptor
+    extension (the structure on keyframes), Opus with an audio-level
+    extension; payload bytes from `rng`, of the packets' sizes."""
+    valid = np.asarray(inp.valid) & (ssrc != 0)[:, :, None]
+    r, t, k = np.nonzero(valid)
+    at = lambda f: np.asarray(getattr(inp, f))[r, t, k].tolist()  # noqa: E731
+    sizes = np.asarray(inp.size)[r, t, k].astype(np.int64)
+    blob = rng.integers(0, 256, int(sizes.sum()), dtype=np.uint8).tobytes()
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
+    out = []
+    for i, (rr, tt, sn, ts, layer, temporal, kf, begin, end, pid, level, size) in enumerate(zip(
+            r.tolist(), t.tolist(), at("sn"), at("ts"), at("layer"), at("temporal"),
+            at("keyframe"), at("begin_pic"), at("end_frame"), at("pid"),
+            at("audio_level"), sizes.tolist())):
+        vid = bool(video[rr, tt])
+        if vid:
+            desc = dd.build(begin, end, SVC_LAYERS.index((layer, min(temporal, 1))),
+                            pid & 0xFFFF, structure=SVC_STRUCTURE if kf else None)
+            ext = udp_mod.build_ext_section([(udp_mod.DD_EXT_ID, desc)])
+            body = bytes([(0 if kf else 0x40) | (0x08 if begin else 0)
+                          | (0x04 if end else 0)]) + blob[offs[i]:offs[i] + size - 1]
+            pt = udp_mod.SVC_PT | (0x80 if end else 0)
+        else:
+            ext = udp_mod.build_ext_section(
+                [(udp_mod.AUDIO_LEVEL_EXT_ID, bytes([level & 0x7F]))])
+            body = blob[offs[i]:offs[i] + size]
+            pt = udp_mod.OPUS_PT
+        hdr = bytes([0x90, pt]) + (sn & 0xFFFF).to_bytes(2, "big") + \
+            (ts & 0xFFFFFFFF).to_bytes(4, "big") + int(ssrc[rr, tt]).to_bytes(4, "big")
+        out.append((rr, tt, bytearray(hdr + ext + body)))
+    return out
+
+
+def udp_socket() -> "socket.socket":
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4 << 20)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 4 << 20)
+    s.bind(("127.0.0.1", 0))
+    s.setblocking(False)
+    return s
+
+
+async def wait_until(cond, what: str, timeout: float = UDP_WAIT_S) -> None:
+    """Poll `cond` on the event loop until it holds; fail after `timeout`."""
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+        await asyncio.sleep(0.001)
+
+
+class UdpRig:
+    """A RoomManager on `dev` with its UDP transport on loopback port 0,
+    rooms joined through start_session: participants t < pubs[r] announce
+    one track each over the signal channel with `transport: udp` (the
+    signal handler binds it and assigns its SSRC), every participant asks
+    for UDP media (`subscription` with `udp`) and latches its punch id
+    from a sink socket — its own room's socket for rooms below
+    `n_check`, else one of UDP_VOID_SINKS shared ones. Publishers and
+    subscribers speak through one MediaCryptoClient per participant."""
+
+    def __init__(self, rm: RoomManager, sizes, pubs, n_check: int):
+        self.rm, self.udp = rm, rm.udp
+        self.sizes, self.pubs, self.n_check = list(sizes), list(pubs), n_check
+        self.port = self.udp.transport.get_extra_info("sockname")[1]
+        self.pub_sock = udp_socket()
+        self.check_socks = [udp_socket() for _ in range(n_check)]
+        self.void_socks = [udp_socket() for _ in range(UDP_VOID_SINKS)]
+        self.clients: dict[int, object] = {}        # key_id → MediaCryptoClient
+        self.sessions: dict = {}
+        self.sub_client: dict[tuple[int, int], object] = {}   # (row, sub) → client
+        R, T = rm.runtime.dims.rooms, rm.runtime.dims.tracks
+        self.ssrc = np.zeros((R, T), np.uint32)
+        self.video = np.zeros((R, T), bool)
+        self.pub_client: dict[tuple[int, int], object] = {}   # (row, col) → client
+        self.sent = 0
+
+    def sink_of(self, r: int):
+        return self.check_socks[r] if r < self.n_check else self.void_socks[r % UDP_VOID_SINKS]
+
+    def client(self, session):
+        if session is None:
+            return None
+        c = self.clients.get(session.key_id)
+        if c is None:
+            c = self.clients[session.key_id] = crypto_mod.MediaCryptoClient(
+                session.key_id, session.key)
+        return c
+
+    async def join(self, spec: synth.TrafficSpec) -> float:
+        rm = self.rm
+        sessions = self.sessions
+        t0 = time.perf_counter()
+        for r, size in enumerate(self.sizes):
+            for t in range(size):
+                req, resp = MessageChannel(), MessageChannel()
+                init = {"identity": f"p{t}", "name": f"p{t}", "auto_subscribe": True,
+                        "grants": {"video": {"roomJoin": True, "room": f"room{r}"}}}
+                task = asyncio.ensure_future(rm.start_session(f"room{r}", init, req, resp))
+                sessions[(r, f"p{t}")] = (req, task)
+        want = sum(self.sizes)
+        await wait_until(lambda: sum(len(x.participants) for x in rm.rooms.values()) >= want
+                         or any(task.done() for _, task in sessions.values()), "the joins")
+        if any(task.done() for _, task in sessions.values()):
+            raise AssertionError("a session ended during the joins")
+        join_s = time.perf_counter() - t0
+        rooms = [rm.rooms[f"room{r}"] for r in range(len(self.sizes))]
+        for r, room in enumerate(rooms):
+            if room.slots.row != r:
+                raise AssertionError(f"room{r} on row {room.slots.row}")
+        # Tracks in column order: participant t's announce, for every room,
+        # before participant t + 1's.
+        for t in range(max(self.pubs, default=0)):
+            video = t < spec.video_tracks
+            for r, n_pub in enumerate(self.pubs):
+                if t < n_pub:
+                    sessions[(r, f"p{t}")][0].write_message(json.dumps({"add_track": {
+                        "cid": f"c{t}", "name": f"c{t}", "type": int(video),
+                        "mime_type": "video/vp9" if video else "audio/opus",
+                        "transport": "udp"}}))
+            await wait_until(lambda: all(len(room.tracks) > t for room, n in zip(rooms, self.pubs)
+                                         if t < n), f"track {t} in every room")
+        for ssrc, b in self.udp.bindings.items():
+            self.ssrc[b.room, b.track] = ssrc
+            self.video[b.room, b.track] = b.is_video
+            self.pub_client[(b.room, b.track)] = self.client(b.session)
+        for r, room in enumerate(rooms):
+            for t in range(self.pubs[r]):
+                col = room.participants[f"p{t}"].published
+                if [tr.track_col for tr in col.values()] != [t]:
+                    raise AssertionError(f"room{r}: p{t} published {list(col)}")
+        # UDP media for everyone: punch ids over the signal channel, then a
+        # sealed punch from each subscriber's sink socket.
+        for (r, ident), (req, _task) in sessions.items():
+            req.write_message(json.dumps({"subscription": {"udp": True}}))
+        await wait_until(lambda: len(self.udp._punch_by_sub) >= want, "the punch ids")
+        n = 0
+        for r, room in enumerate(rooms):
+            for p in room.participants.values():
+                key = (r, p.sub_col)
+                pid = self.udp._punch_by_sub[key]
+                c = self.client(p.crypto_session)
+                self.sub_client[key] = c
+                d = udp_mod.PUNCH_REQ + pid.to_bytes(4, "big")
+                self.sink_of(r).sendto(c.seal(d) if c is not None else d, ("127.0.0.1", self.port))
+                n += 1
+                if n % UDP_SEND_CHUNK == 0:
+                    await wait_until(lambda: len(self.udp.sub_addrs) >= n, "the punches")
+        await wait_until(lambda: len(self.udp.sub_addrs) >= want, "the punches")
+        self.drain_checked()
+        return join_s
+
+    async def send(self, dgrams) -> None:
+        """Seal each datagram under its publisher's client and send it to
+        the server in chunks, waiting after each chunk until the server's
+        socket has taken it (the lockstep check needs every packet in)."""
+        rx0 = self.udp.stats["rx"]
+        n = 0
+        for r, t, d in dgrams:
+            c = self.pub_client[(r, t)]
+            self.pub_sock.sendto(c.seal(bytes(d)) if c is not None else bytes(d),
+                                 ("127.0.0.1", self.port))
+            n += 1
+            if n % UDP_SEND_CHUNK == 0:
+                await wait_until(lambda: self.udp.stats["rx"] >= rx0 + n, "the publishers")
+        await wait_until(lambda: self.udp.stats["rx"] >= rx0 + n, "the publishers")
+        self.sent += n
+
+    def drain_checked(self) -> dict:
+        """Open every datagram waiting on the checked rooms' sockets →
+        {(row, sub, track): [media datagram with its SSRC zeroed]}."""
+        got: dict = {}
+        for sock in self.check_socks:
+            while True:
+                try:
+                    frame = sock.recv(4096)
+                except BlockingIOError:
+                    break
+                if frame[0] == crypto_mod.MAGIC:
+                    sess = self.rm.crypto.get(crypto_mod.parse_key_id(frame))
+                    c = self.client(sess)
+                    frame = c.open(frame) if c is not None else None
+                    if frame is None:
+                        raise AssertionError("a sealed egress datagram did not open")
+                if frame[:8] == udp_mod.PUNCH_ACK or 192 <= frame[1] <= 223:
+                    continue                     # punch acks, RTCP
+                key = self.udp.egress_rev.get(int.from_bytes(frame[8:12], "big"))
+                if key is None:
+                    raise AssertionError("egress datagram with an unknown SSRC")
+                got.setdefault(key, []).append(frame[:8] + bytes(4) + frame[12:])
+        return got
+
+    def nack(self, got: dict) -> int:
+        """Each checked subscriber NACKs the last two video packets it got
+        on each video track (RTCP generic NACK, sealed, from its sink);
+        returns the sequence numbers NACKed."""
+        n = 0
+        for (row, sub, track), frames in sorted(got.items()):
+            if not self.video[row, track] or len(frames) < 2:
+                continue
+            sns = [int.from_bytes(f[2:4], "big") for f in frames[-2:]]
+            media = self.udp.subscriber_ssrc(row, sub, track)
+            d = udp_mod.build_nack(0x5EED0000 + sub, media, sns)
+            c = self.sub_client[(row, sub)]
+            self.sink_of(row).sendto(c.seal(d) if c is not None else d,
+                                     ("127.0.0.1", self.port))
+            n += len(sns)
+        return n
+
+    async def close(self) -> None:
+        for req, _task in self.sessions.values():
+            req.close()
+        await self.rm.stop()
+        await asyncio.wait_for(asyncio.gather(*(task for _, task in self.sessions.values())), 60)
+        self.rm.close_transports()
+        for s in (self.pub_sock, *self.check_socks, *self.void_socks):
+            s.close()
+
+
+async def udp_room_manager(dev, cfg: Config) -> RoomManager:
+    """A RoomManager on `dev` with its UDP transport started on an
+    ephemeral loopback port and attached (what RoomManager.start_transports
+    does on rtc.udp_port)."""
+    rm = RoomManager(cfg, LocalRouter(LocalNode()), LocalStore(),
+                     telemetry=TelemetryService(cfg), device=dev)
+    udp = await udp_mod.start_udp_transport(
+        rm.runtime.ingest, "127.0.0.1", 0, crypto=rm.crypto,
+        require_encryption=cfg.rtc.require_encryption,
+        nack_resolver=rm.runtime.resolve_nacks)
+    rm.attach_udp(udp)
+    return rm
+
+
+def udp_config(paged_dims: paged.PagedDims | None = None,
+               dense_dims: plane.PlaneDims = RUNTIME_DIMS) -> Config:
+    cfg = serving_config(paged_dims, dense_dims)
+    cfg.rtc.require_encryption = REQUIRE_ENCRYPTION
+    return cfg
+
+
+async def udp_lockstep(gpu: UdpRig, cpu: UdpRig, spec: synth.TrafficSpec,
+                       ticks: int) -> dict:
+    """Step both rigs `ticks` times through step_once with the same
+    seeded publisher datagrams (the CPU rig gets the checked rooms' only)
+    and hold every opened egress datagram of the checked rooms equal,
+    byte for byte but the SSRC (random per node), which is compared
+    through the (row, sub, track) it names. After UDP_NACK_TICK the
+    checked subscribers NACK, so retransmissions join the comparison."""
+    dims = gpu.rm.runtime.dims
+    R = dims.rooms
+    room_pubs = np.zeros(R, np.int64)
+    room_pubs[:len(gpu.pubs)] = gpu.pubs
+    logical = plane.PlaneDims(R, dims.tracks, dims.pkts, dims.subs)
+    traffic = synth.init_traffic(logical, spec, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    n = cpu.n_check
+    compared = rtx = pads = 0
+    for i in range(ticks):
+        traffic, inp = synth.next_tick(traffic, logical, spec, i, seed=SEED)
+        dgrams = wire_packets(mask_to_rooms(inp, room_pubs), gpu.ssrc, gpu.video, rng)
+        mine = []
+        for r, t, d in dgrams:
+            if r < n:
+                d2 = bytearray(d)
+                d2[8:12] = int(cpu.ssrc[r, t]).to_bytes(4, "big")
+                mine.append((r, t, d2))
+        await gpu.send(dgrams)
+        await cpu.send(mine)
+        await gpu.rm.runtime.step_once()
+        await cpu.rm.runtime.step_once()
+        got_g, got_c = gpu.drain_checked(), cpu.drain_checked()
+        if i == UDP_NACK_TICK:
+            rtx0 = (gpu.udp.stats["rtx_tx"], cpu.udp.stats["rtx_tx"])
+            nacks = (gpu.nack(got_g), cpu.nack(got_c))
+            if nacks[0] != nacks[1] or not nacks[0]:
+                raise AssertionError(f"lockstep: NACKs sent {nacks}")
+            await wait_until(lambda: gpu.udp.stats["nacks_rx"] >= nacks[0]
+                             and cpu.udp.stats["nacks_rx"] >= nacks[1], "the NACKs")
+            rtx += gpu.udp.stats["rtx_tx"] - rtx0[0]
+            if cpu.udp.stats["rtx_tx"] - rtx0[1] != gpu.udp.stats["rtx_tx"] - rtx0[0]:
+                raise AssertionError("lockstep: retransmissions differ")
+            for key, frames in gpu.drain_checked().items():
+                got_g.setdefault(key, []).extend(frames)
+            for key, frames in cpu.drain_checked().items():
+                got_c.setdefault(key, []).extend(frames)
+        if got_g.keys() != got_c.keys():
+            raise AssertionError(f"lockstep tick {i}: egress streams differ "
+                                 f"({len(got_g)} on the card, {len(got_c)} on the CPU)")
+        for key in got_g:
+            if got_g[key] != got_c[key]:
+                raise AssertionError(f"lockstep tick {i}: datagrams to {key} differ")
+            compared += len(got_g[key])
+            pads += sum(1 for f in got_g[key] if f[0] & 0x20)
+    if not compared:
+        raise AssertionError("lockstep: no egress datagram of the checked rooms")
+    return {"ticks": ticks, "rooms": n, "datagrams_compared": compared,
+            "rtx": rtx, "padding": pads, "exact": True}
+
+
+def publisher_main(sock, port: int, streams: list, counters: dict, dims: tuple,
+                   spec: dict, room_pubs: list, first_tick: int, tick_count, ready,
+                   stop, sent) -> None:
+    """The load generator of the real-time loop, in a process of its own:
+    for each serving-loop tick (`tick_count` advances), the next seeded
+    synth tick's datagrams, sealed under each publisher's client (whose
+    tx counters continue from `counters`), sent from `sock` (the socket
+    the server latched the publishers to) to the server's port. `streams`
+    holds (row, col, ssrc, video, key_id, key) per bound track. Sets
+    `ready` once its first tick's datagrams are built."""
+    logical = plane.PlaneDims(*dims)
+    spec = synth.TrafficSpec(**spec)
+    R, T = logical.rooms, logical.tracks
+    ssrc = np.zeros((R, T), np.uint32)
+    video = np.zeros((R, T), bool)
+    clients: dict = {}
+    pub = {}
+    for row, col, sv, vid, key_id, key in streams:
+        ssrc[row, col], video[row, col] = sv, vid
+        if key_id is not None:
+            c = clients.get(key_id)
+            if c is None:
+                c = clients[key_id] = crypto_mod.MediaCryptoClient(key_id, key)
+                c.tx_counter = counters[key_id]
+            pub[(row, col)] = c
+    rp = np.zeros(R, np.int64)
+    rp[:len(room_pubs)] = room_pubs
+    traffic = synth.init_traffic(logical, spec, seed=SEED)
+    for i in range(first_tick):
+        traffic, _ = synth.next_tick(traffic, logical, spec, i, seed=SEED)
+    rng = np.random.default_rng(SEED + 1)
+    sock.setblocking(True)
+    i, seen = first_tick, tick_count.value
+    while not stop.is_set():
+        traffic, inp = synth.next_tick(traffic, logical, spec, i, seed=SEED)
+        dgrams = wire_packets(mask_to_rooms(inp, rp), ssrc, video, rng)
+        ready.set()
+        for r, t, d in dgrams:
+            c = pub.get((r, t))
+            sock.sendto(c.seal(bytes(d)) if c is not None else bytes(d), ("127.0.0.1", port))
+        sent.value += len(dgrams)
+        i += 1
+        while tick_count.value == seen and not stop.is_set():
+            time.sleep(0.0005)
+        seen = tick_count.value
+
+
+class SendSpans:
+    """Seconds spent inside pieces of the transport's tick send, summed
+    over a run: the per-downtrack sender reports (`_send_srs`), the
+    per-entry extension sections (`_build_ext_sections`: dependency
+    descriptors, playout delay) and the native sharded send. Installed by
+    wrapping the bound methods; `restore` puts them back."""
+
+    PIECES = (("sr", "_send_srs"), ("ext", "_build_ext_sections"))
+
+    def __init__(self, udp):
+        self.udp, self.s = udp, {"sr": 0.0, "ext": 0.0, "native_send": 0.0}
+        self._orig = [(udp, attr, getattr(udp, attr)) for _, attr in self.PIECES]
+        self._orig.append((native.egress, "send_sharded", native.egress.send_sharded))
+        for (key, attr), (obj, _, fn) in zip((*self.PIECES, ("native_send", "")), self._orig):
+            setattr(obj, attr or "send_sharded", self._timed(key, fn))
+
+    def _timed(self, key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.s[key] += time.perf_counter() - t0
+        return run
+
+    def restore(self) -> None:
+        for obj, attr, fn in self._orig:
+            setattr(obj, attr, fn)
+
+
+def sink_counter(socks, stop: threading.Event, counts: list) -> None:
+    """Count the datagrams arriving on the sink sockets (a thread: the
+    native batch receive releases the interpreter lock)."""
+    egress = native.egress
+    MAXN, MAXD = 1024, 2048
+    scratch = np.zeros(MAXN * MAXD, np.uint8)
+    offs, lens = np.zeros(MAXN, np.int32), np.zeros(MAXN, np.int32)
+    ips, ports = np.zeros(MAXN, np.uint32), np.zeros(MAXN, np.uint16)
+    while not stop.is_set():
+        ready, _, _ = select.select(socks, [], [], 0.05)
+        for s in ready:
+            counts[0] += max(0, egress.rx_batch(s.fileno(), scratch, offs, lens, ips,
+                                                ports, MAXD))
+
+
+async def udp_loop(rig: UdpRig, spec: synth.TrafficSpec, seconds: float | None,
+                   min_ticks: int, first_tick: int) -> dict:
+    """The real-time serving loop over the wire: RoomManager.start →
+    PlaneRuntime._run, each tick's egress leaving through the transport's
+    native batch send; a publisher process sends one seeded synth tick of
+    sealed datagrams per loop tick; a thread counts what reaches the
+    sinks. Runs `seconds` (or until `min_ticks` ticks); checks the
+    launches; returns the report."""
+    rm, udp = rig.rm, rig.udp
+    rt = rm.runtime
+    dims = rt.dims
+    ctx = multiprocessing.get_context("spawn")
+    tick_count, sent = ctx.Value("q", 0), ctx.Value("q", 0)
+    ready, stop = ctx.Event(), ctx.Event()
+    streams = [(int(r), int(t), int(rig.ssrc[r, t]), bool(rig.video[r, t]),
+                c.key_id if c is not None else None, c.key if c is not None else None)
+               for (r, t), c in rig.pub_client.items()]
+    counters = {k: c.tx_counter for k, c in rig.clients.items()}
+    spec_kw = {f: getattr(spec, f) for f in ("video_tracks", "audio_tracks", "fps",
+                                             "tick_ms", "video_kbps", "audio_kbps", "svc",
+                                             "estimate_bps")}
+    proc = ctx.Process(target=publisher_main, daemon=True, args=(
+        rig.pub_sock, rig.port, streams, counters, (dims.rooms, dims.tracks, dims.pkts, dims.subs),
+        spec_kw, rig.pubs, first_tick, tick_count, ready, stop, sent))
+
+    def on_tick(_res) -> None:
+        tick_count.value += 1
+
+    rt.on_tick(on_tick)
+    socks = [*rig.check_socks, *rig.void_socks]
+    for sock in socks:        # what the lockstep ticks left on the sinks
+        while True:
+            try:
+                sock.recv(4096)
+            except BlockingIOError:
+                break
+    received = [0]
+    sink_stop = threading.Event()
+    sink = threading.Thread(target=sink_counter, args=(socks, sink_stop, received), daemon=True)
+    dead_keys = []
+    fresh = paged.dead_page_outputs
+
+    def counted(*a, **kw):
+        dead_keys.append(1)
+        return fresh(*a, **kw)
+
+    base = dict(rt.stats)
+    tx0 = {k: udp.stats.get(k, 0) for k in ("rx", "tx", "tx_drop", "rtx_tx")}
+    spans = SendSpans(udp)
+    udp.fwd_latency.reset()
+    proc.start()
+    sink.start()
+    paged.dead_page_outputs = counted
+    paged.dead_page_outputs_cached.cache_clear()
+    try:
+        await wait_until(lambda: ready.is_set() or not proc.is_alive(), "the publisher")
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        rm.start()
+        while True:
+            await asyncio.sleep(0.05)
+            n = rt.stats["ticks"] - base["ticks"]
+            if not proc.is_alive():
+                raise AssertionError(f"publisher process exited ({proc.exitcode})")
+            if (seconds is None or time.perf_counter() - t0 >= seconds) and n >= min_ticks:
+                break
+            if time.perf_counter() - t0 > SERVING_WALL_CAP_S:
+                raise AssertionError(f"UDP loop ran {n} ticks in {SERVING_WALL_CAP_S} s")
+        await rt.stop()
+        wall_s = time.perf_counter() - t0
+        launches = dict(cuda.launches)
+    finally:
+        paged.dead_page_outputs = fresh
+        spans.restore()
+        stop.set()
+        proc.join(30)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+        await asyncio.sleep(0.2)       # the last sends reach the sinks
+        sink_stop.set()
+        sink.join(10)
+    ticks = rt.stats["ticks"] - base["ticks"]
+    keys = len(dead_keys)
+    if isinstance(rt, PagedPlaneRuntime):
+        expected = {"paged_kernel": ticks, "decide_rooms": keys,
+                    "allocate_budget_rooms": ticks + keys}
+    else:
+        expected = {"decide_rooms": ticks, "allocate_budget_rooms": ticks, "paged_kernel": 0}
+    if launches != expected:
+        raise AssertionError(f"UDP loop launches {launches}, expected {expected} "
+                             f"over {ticks} ticks")
+    stats = {k: udp.stats.get(k, 0) - v for k, v in tx0.items()}
+    if stats["tx"] <= 0 or received[0] <= 0:
+        raise AssertionError(f"UDP loop: tx {stats['tx']}, {received[0]} received, "
+                             f"{sent.value} sent by the publishers, {ticks} ticks, "
+                             f"transport {udp.stats}")
+    records = rt.trace.snapshot(ticks)
+    ms = lambda key: quantiles([rec[key] * 1e3 for rec in records])  # noqa: E731
+    return {
+        "ticks": ticks, "wall_s": wall_s, "ticks_per_s": ticks / wall_s,
+        "wall_ms_per_tick": wall_s / ticks * 1e3,
+        "late_ticks": rt.stats["late_ticks"] - base["late_ticks"],
+        "late_share": (rt.stats["late_ticks"] - base["late_ticks"]) / ticks,
+        "pipeline_stalls": rt.stats["pipeline_stalls"] - base["pipeline_stalls"],
+        "fwd_packets": rt.stats["fwd_packets"] - base["fwd_packets"],
+        "stage_ms": ms("stage_s"), "device_ms": ms("device_s"),
+        "fanout_ms": ms("fanout_s"), "send_ms": ms("send_s"),
+        "tick_ms": quantiles([(rec["stage_s"] + rec["device_s"] + rec["fanout_s"]
+                               + rec["send_s"]) * 1e3 for rec in records]),
+        "forward_latency": udp.fwd_latency.summary(),
+        "publisher_sent": int(sent.value), "server_rx": stats["rx"],
+        "tx": stats["tx"], "tx_drop": stats["tx_drop"], "rtx_tx": stats["rtx_tx"],
+        "received": received[0], "egress_shards": rt.egress_plane.shards,
+        "send_pieces_ms_per_tick": {k: v / ticks * 1e3 for k, v in spans.s.items()},
+        "ingest_dropped": rt.ingest.dropped, "launches": launches,
+    }
+
+
+def udp_summary(rep: dict) -> str:
+    fl = rep["forward_latency"]
+    return (f"{rep['ticks']} ticks in {rep['wall_s']:.1f} s, wall {rep['wall_ms_per_tick']:.2f} "
+            f"ms/tick, send median {rep['send_ms']['median']:.2f} ms, forward latency "
+            f"p50/p99 {fl['p50_ms']}/{fl['p99_ms']} ms, tx {rep['tx']} (drop "
+            f"{rep['tx_drop']}), received {rep['received']}, launches {rep['launches']}")
+
+
+async def udp_phase(dev, dense_dims: plane.PlaneDims = RUNTIME_DIMS,
+                    paged_dims: paged.PagedDims = PAGED_RUNTIME_DIMS,
+                    seconds: float = UDP_SECONDS, paged_ticks: int = UDP_PAGED_TICKS,
+                    lock_ticks: int = UDP_LOCK_TICKS) -> dict:
+    """The reference's default media wire on the card: RoomManager with
+    the UDP transport on loopback. Dense (RUNTIME_SPEC's 2 VP9-SVC video
+    and 2 Opus publishers a room): `lock_ticks` lockstep ticks against a
+    CPU RoomManager of the first CHECK_ROOMS rooms, then the real-time
+    loop for `seconds`. Paged (the size mix, each participant publishing
+    one track): the real-time loop for at least `paged_ticks` ticks."""
+    configure("warn")
+    status = native.status()
+    if not all(status["loaded"].values()):
+        raise AssertionError(f"native libraries not loaded: {status}")
+    for name, b in status["builds"].items():
+        log(f"native {name}: {b['cmd']}")
+    log(f"libcrypto: {status['libcrypto'] or 'none'}; media sealed: {REQUIRE_ENCRYPTION}")
+    n_pub = RUNTIME_SPEC.video_tracks + RUNTIME_SPEC.audio_tracks
+    n_check = min(CHECK_ROOMS, dense_dims.rooms)
+    gpu = UdpRig(await udp_room_manager(dev, udp_config(dense_dims=dense_dims)),
+                 [dense_dims.subs] * dense_dims.rooms, [n_pub] * dense_dims.rooms, n_check)
+    cpu_dims = plane.PlaneDims(n_check, *dense_dims[1:])
+    cpu = UdpRig(await udp_room_manager("cpu", udp_config(dense_dims=cpu_dims)),
+                 [dense_dims.subs] * n_check, [n_pub] * n_check, n_check)
+    join_s = await gpu.join(RUNTIME_SPEC)
+    await cpu.join(RUNTIME_SPEC)
+    log(f"udp: {sum(gpu.sizes)} participants joined and punched in {join_s:.2f} s")
+    lock = await udp_lockstep(gpu, cpu, RUNTIME_SPEC, lock_ticks)
+    log(f"udp lockstep exact: rooms 0..{n_check - 1}, {lock['datagrams_compared']} "
+        f"datagrams over {lock_ticks} ticks ({lock['rtx']} retransmitted, "
+        f"{lock['padding']} padding)")
+    await cpu.close()
+    dense = await udp_loop(gpu, RUNTIME_SPEC, seconds, 1, lock_ticks)
+    await gpu.close()
+    log(f"udp dense ok: {udp_summary(dense)}")
+    scratch = RoomPager(paged_dims.rooms, paged_dims.tracks, paged_dims.subs,
+                        tpage=paged_dims.tpage, spage=paged_dims.spage,
+                        pool_pages=paged_dims.pool_pages)
+    sizes = admit_rooms(scratch)
+    prig = UdpRig(await udp_room_manager(dev, udp_config(paged_dims)), sizes, sizes, 0)
+    pjoin = await prig.join(PAGED_SPEC)
+    paged_report = await udp_loop(prig, PAGED_SPEC, None, paged_ticks, 0)
+    await prig.close()
+    log(f"udp paged ok: {udp_summary(paged_report)}")
+    return {"native": status, "sealed": REQUIRE_ENCRYPTION,
+            "lockstep": lock,
+            "dense": {"dims": list(dense_dims), "join_s": join_s, **dense},
+            "paged": {"dims": list(paged_dims), "join_s": pjoin, **paged_report}}
+
+
 def paged_pool_state(pager: RoomPager, sizes, dims: paged.PagedDims, dev):
     """Device pool state and table for the pager's rooms (sizes[r]
     participants, each publishing one track and subscribed to all others),
@@ -1386,7 +2018,11 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    # The host libraries (g++) build while nvcc builds the kernels.
+    native_build = threading.Thread(target=native.status)
+    native_build.start()
     reports = cuda.build()
+    native_build.join()
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -1402,6 +2038,8 @@ def main() -> int:
     paged_launches = asyncio.run(paged_runtime_phase(dev))
     serving = asyncio.run(serving_phase(dev))
     print(json.dumps({"serving": serving}), flush=True)
+    udp = asyncio.run(udp_phase(dev))
+    print(json.dumps({"udp": udp}), flush=True)
     tick, dense_t = timing_phase(dev, args.profile)
     paged_tick, paged_t = paged_timing_phase(dev, args.profile)
 
@@ -1412,7 +2050,9 @@ def main() -> int:
     # paged allocation's dead-page launch under `dead_key`).
     launches = {"dense": dense_launches, "paged": paged_launches,
                 "serving_dense": serving["dense"]["launches"],
-                "serving_paged": serving["paged"]["launches"]}
+                "serving_paged": serving["paged"]["launches"],
+                "udp_dense": udp["dense"]["launches"],
+                "udp_paged": udp["paged"]["launches"]}
     paged_t["paged_kernel"]["mix"] = mix_t
     timed = {"dense": dense_t, "paged": paged_t}
     own = {"decide_rooms": "dense", "allocate_budget_rooms": "dense", "paged_kernel": "paged"}

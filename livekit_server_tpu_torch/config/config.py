@@ -786,9 +786,7 @@ UNPORTED: tuple[tuple[str, Callable[[Any], bool], Any, str], ...] = (
     ("fleet.enabled", bool, False, "A13 (migration, fleet plane, TCP bus)"),
     ("limits.governor_enabled", bool, False, "A14 (governor, fault injection)"),
     ("faults.enabled", bool, False, "A14 (governor, fault injection)"),
-    ("rtc.udp_port", lambda v: v != 0, 0,
-     "A12 (UDP/TCP transports, relay, native egress plane)"),
-    ("relay.enabled", bool, False, "A12 (UDP/TCP transports, relay, native egress plane)"),
+    ("relay.enabled", bool, False, "A12b (media relay, WebRTC gateway)"),
     ("plane.express_max_subs", lambda v: v > 0, 0, "A15 (express lane)"),
     ("plane.mesh_devices", lambda v: v > 1, 1, "A10 (multi-GPU)"),
 )

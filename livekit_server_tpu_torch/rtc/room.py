@@ -22,12 +22,8 @@ from livekit_server_tpu_torch.protocol import models as pm
 from livekit_server_tpu_torch.rtc.participant import Participant, PublishedTrack
 from livekit_server_tpu_torch.runtime.plane_runtime import PlaneRuntime
 from livekit_server_tpu_torch.runtime.slots import CapacityError, RoomSlots
+from livekit_server_tpu_torch.runtime.udp import PLI_THROTTLE_MS
 from livekit_server_tpu_torch.utils import ids
-
-# Min spacing of upstream keyframe requests per track (pliThrottle — the
-# sfu/buffer config default); the same value as the reference's UDP
-# transport constant.
-PLI_THROTTLE_MS = 500.0
 
 
 class Room:
@@ -145,12 +141,6 @@ class Room:
                 self.udp.release_subscriber(self.slots.row, p.sub_col)
         if self.crypto is not None and getattr(p, "crypto_session", None) is not None:
             self.crypto.remove(p.crypto_session.key_id)
-        peer = getattr(p, "gateway_peer", None)
-        if peer is not None and self.udp is not None and self.udp.gateway is not None:
-            # Standards-lane client: tear down the DTLS association and
-            # its SSRC bindings with the participant.
-            self.udp.gateway.close_peer(peer)
-            p.gateway_peer = None
         del self.participants[p.identity]
         self.by_sid.pop(p.sid, None)
         self.info.num_participants = len(self.participants)
@@ -182,16 +172,6 @@ class Room:
         )
         if self.udp is not None:
             self.udp.set_track_kind(self.slots.row, col, info.type == pm.TrackType.VIDEO)
-            if (
-                self.udp.audio_mixer is not None
-                and info.type != pm.TrackType.VIDEO
-                and publisher.sub_col >= 0
-            ):
-                # Keep mixer self-exclusion current when the opt-in
-                # preceded the publish (or the mic republished).
-                self.udp.audio_mixer.set_publisher_track(
-                    self.slots.row, publisher.sub_col, col
-                )
         # Count distinct publishers from the track registry (the caller's
         # published dict is updated only after this returns).
         self.info.num_publishers = len({pub.sid for pub, _t in self.tracks.values()})

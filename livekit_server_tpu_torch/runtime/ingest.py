@@ -10,9 +10,10 @@ one tick) drops and counts; payload bytes stay in a host slab.
 A copy of the JAX package's runtime/ingest.py, cut to what the dense
 tick's main path needs: push / push_batch / feedback staging, the
 within-tick reorder + dedup, and the double-buffered drain, with the
-numpy payload gather. Migration freezes, fault injection, the ingress
-policer and the express-lane arrival hook are not carried (their
-runtime features are not ported yet).
+numpy payload gather and the arrival stamps (`t_arr`). Migration
+freezes, fault injection, the ingress policer and the arrival hook
+`on_put` (set only by the express lane) are not carried (their runtime
+features are not ported yet).
 """
 
 from __future__ import annotations
@@ -58,6 +59,10 @@ class PayloadSlab:
     dd_off: np.ndarray | None = None   # int64 — DD extension bytes (-1 none)
     dd_len: np.ndarray | None = None   # int32
     dd_ver: np.ndarray | None = None   # int32
+    # Arrival stamps (time.perf_counter seconds at batch-receive return;
+    # 0 = not stamped): the rx half of the packet-in → wire-out
+    # forward-latency probe (runtime/udp.py observes at send return).
+    t_arr: np.ndarray | None = None    # float64
 
     def get(self, r: int, t: int, k: int) -> tuple[bytes, bool]:
         o = int(self.off[r, t, k])
@@ -110,7 +115,7 @@ class _StagingSet:
         "_count", "sn", "ts", "layer", "temporal", "keyframe", "layer_sync",
         "begin_pic", "end_frame", "pid", "tl0", "keyidx", "size", "frame_ms",
         "audio_level", "arrival_rtp", "ts_jump", "valid",
-        "_slab", "pay_off", "pay_len", "marker",
+        "_slab", "pay_off", "pay_len", "marker", "t_arr",
         "dd_off", "dd_len", "dd_ver",
     )
 
@@ -142,6 +147,7 @@ class _StagingSet:
         self.pay_off = np.full((R, T, K), -1, np.int64)
         self.pay_len = np.zeros((R, T, K), np.int32)
         self.marker = np.zeros((R, T, K), bool)
+        self.t_arr = np.zeros((R, T, K), np.float64)
         self.dd_off = np.full((R, T, K), -1, np.int64)
         self.dd_len = np.zeros((R, T, K), np.int32)
         self.dd_ver = np.full((R, T, K), -1, np.int32)
@@ -154,6 +160,7 @@ class _StagingSet:
         self.pay_off[:] = -1
         self.pay_len[:] = 0
         self.marker[:] = False
+        self.t_arr[:] = 0.0
         self.dd_off[:] = -1
         self.dd_len[:] = 0
         self.dd_ver[:] = -1
@@ -226,8 +233,9 @@ class IngestBuffer:
         ranks[order] = np.arange(n) - np.repeat(grp_start, sizes)
         return order, sorted_rt, grp_start, sizes, ranks
 
-    def push(self, pkt: PacketIn) -> bool:
-        """Stage one packet; False (and counted) if the tick is full."""
+    def push(self, pkt: PacketIn, t_rx: float = 0.0) -> bool:
+        """Stage one packet (arrival stamp `t_rx`, 0 = none); False (and
+        counted) if the tick is full."""
         r, t = pkt.room, pkt.track
         self.rx_pkts[r, t] += 1
         self.rx_bytes[r, t] += pkt.size
@@ -258,6 +266,7 @@ class IngestBuffer:
             self.pay_len[r, t, k] = len(pkt.payload)
             self.marker[r, t, k] = pkt.marker
             self._slab += pkt.payload
+        self.t_arr[r, t, k] = t_rx
         return True
 
     def push_batch(
@@ -265,10 +274,11 @@ class IngestBuffer:
         layer_sync, begin_pic, marker, pid, tl0, keyidx, size, frame_ms,
         audio_level, arrival_rtp, pay_start, pay_length, blob,
         dd_start=None, dd_length=None, dd_version=None, end_frame=None,
+        t_rx: float = 0.0,
     ) -> int:
         """Vectorized push of a whole receive batch (equal-length arrays;
-        payload bytes sliced out of `blob` by (pay_start, pay_length)).
-        Returns packets staged."""
+        payload bytes sliced out of `blob` by (pay_start, pay_length);
+        arrival stamp `t_rx`, 0 = none). Returns packets staged."""
         n = len(room)
         if n == 0:
             return 0
@@ -331,6 +341,7 @@ class IngestBuffer:
         put(self.pay_off, np.where(lens > 0, offs, -1))
         put(self.pay_len, lens)
         put(self.marker, marker)
+        put(self.t_arr, t_rx)
         blob_arr = blob if isinstance(blob, np.ndarray) else np.frombuffer(blob, np.uint8)
         self._slab += _gather_ranges(blob_arr, starts, lens)
         dmask = dd_start >= 0
@@ -482,6 +493,7 @@ class IngestBuffer:
             dd_off=self.dd_off.copy(),
             dd_len=self.dd_len.copy(),
             dd_ver=self.dd_ver.copy(),
+            t_arr=self.t_arr.copy(),
         )
         self._sets[self._active].needs_scrub = True
         nxt = self._sets[1 - self._active]

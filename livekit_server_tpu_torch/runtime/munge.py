@@ -7,9 +7,12 @@ accounting) — run, like the reference runs them, on the CPU in the
 per-packet write path. The device decides (bit-packed send/drop/switch
 masks); this module rewrites SN/TS/VP8 fields with host-owned state.
 
-The numpy path of the JAX package's runtime/munge.py (`apply_dense` is
-its spec), run over the active (room, track, subscriber) lanes only; the
-native C++ walker there is host code and is not used here.
+As in the JAX package's runtime/munge.py, `apply_columns` runs the
+native C++ walker (native/csrc/munge.cpp; `walk_multi` over the egress
+plane's room shards) when the library is loaded. `apply_columns_plain`
+is the numpy path (`apply_dense` of the reference is its spec), run over
+the active (room, track, subscriber) lanes only: the fallback, and the
+plain version the tests hold the walker against.
 """
 
 from __future__ import annotations
@@ -26,6 +29,14 @@ M5 = 0x1F
 
 REANCHOR_TS_THRESH = 900_000
 FALLBACK_TS_JUMP = 3000
+
+
+def _popcount_u32(x: np.ndarray) -> np.ndarray:
+    """Per-element popcount of uint32 words."""
+    x = x - ((x >> 1) & np.uint32(0x55555555))
+    x = (x & np.uint32(0x33333333)) + ((x >> 2) & np.uint32(0x33333333))
+    x = (x + (x >> 4)) & np.uint32(0x0F0F0F0F)
+    return (x * np.uint32(0x01010101)) >> 24
 
 
 def _sdiff(a, b, mask, half):
@@ -63,6 +74,10 @@ class HostMunger:
         self.last_tl0 = z()
         self.last_ki = z()
         self.v_started = f()
+        # Per-shard walk stats of the last sharded apply_columns (read by
+        # EgressPlane.record_munge).
+        self.last_shard_counts = np.zeros(0, np.int64)
+        self.last_shard_ns = np.zeros(0, np.int64)
 
     def apply_lanes(
         self, rr, tt, ss,                                     # [N] lanes
@@ -172,6 +187,43 @@ class HostMunger:
         return out_sn, out_ts, out_pid, out_tl0, out_ki
 
     def apply_columns(
+        self,
+        sn, ts, ts_jump, pid, tl0, keyidx, begin_pic, valid,  # [R, T, K]
+        send_bits, drop_bits, switch_bits,                    # [R, T, K, W] i32
+        shard_plan=None,
+    ):
+        """One tick's rewrites from the device's bit-packed masks to egress
+        COLUMN arrays (rooms, tracks, ks, subs, sn, ts, pid, tl0, keyidx)
+        in (room, track, k, sub) order, by the native walker when it is
+        loaded, else by `apply_columns_plain`.
+
+        `shard_plan` = (r_lo, r_hi) contiguous room ranges (from
+        EgressPlane.room_plan) fans the walk across the native worker
+        shards. Rooms are the state-ownership unit (lanes are indexed
+        [room, track, sub]), so whole-room shards keep every state write
+        thread-private; the output is bit-identical to the unsharded walk
+        (exact per-shard prefix-sum bases)."""
+        from livekit_server_tpu_torch import native
+
+        args = (np.asarray(sn), np.asarray(ts), np.asarray(ts_jump),
+                np.asarray(pid), np.asarray(tl0), np.asarray(keyidx),
+                np.asarray(begin_pic), np.asarray(valid), np.asarray(send_bits),
+                np.asarray(drop_bits), np.asarray(switch_bits))
+        if native.munge is not None:
+            cap = int(_popcount_u32(args[8].astype(np.uint32)).sum(dtype=np.int64))
+            if shard_plan is not None and len(shard_plan[0]) > 1:
+                res = native.munge.walk_multi(*args, self, cap, shard_plan[0],
+                                              shard_plan[1])
+                if res is not None:
+                    cols, self.last_shard_counts, self.last_shard_ns = res
+                    return cols
+            else:
+                res = native.munge.walk(*args, self, cap)
+                if res is not None:
+                    return res
+        return self.apply_columns_plain(*args)
+
+    def apply_columns_plain(
         self,
         sn, ts, ts_jump, pid, tl0, keyidx, begin_pic, valid,  # [R, T, K]
         send_bits, drop_bits, switch_bits,                    # [R, T, K, W] i32

@@ -24,10 +24,14 @@ The device layout is behind five seams (`_init_device_state`,
 pooled paged plane under the same host side, which speaks LOGICAL dense
 [R, T, S] shapes throughout.
 
+The runtime owns the sharded egress plane (runtime/egress_plane.py): its
+room plan shards the native munge walk here, and the UDP transport
+routes each tick's sends through it.
+
 Not carried yet (see ROADMAP.md): pinned host buffers and graph capture
-of the tick, the device mesh, the express lane, egress-plane sharding,
-the overload governor, the integrity audit, fault injection, the compile
-ledger and snapshots/restore; the munger runs its numpy path.
+of the tick, the device mesh, the express lane, the overload governor,
+the integrity audit, fault injection, the compile ledger and
+snapshots/restore.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from livekit_server_tpu_torch.device import resolve
 from livekit_server_tpu_torch.models import plane
 from livekit_server_tpu_torch.ops import audio as audio_ops, bwe as bwe_ops
 from livekit_server_tpu_torch.runtime import trace as trace_mod
+from livekit_server_tpu_torch.runtime.egress_plane import EgressPlane
 from livekit_server_tpu_torch.runtime.ingest import IngestBuffer
 from livekit_server_tpu_torch.runtime.munge import HostMunger
 from livekit_server_tpu_torch.runtime.probe import PAD_BYTES, ProbeController
@@ -69,8 +74,9 @@ class EgressPacket:
     size: int
     payload: bytes
     marker: bool = False
-    padding: bool = False
-    dd: bytes = b""
+    padding: bool = False  # probe padding (RTP P-bit; no media payload)
+    dd: bytes = b""       # dependency-descriptor ext bytes (SVC tracks)
+    t_arr: float = 0.0    # rx stamp (forward-latency probe; 0 = unstamped)
 
 
 @dataclass
@@ -88,14 +94,22 @@ class EgressBatch:
     tl0: np.ndarray       # int32
     keyidx: np.ndarray    # int32
     payloads: Any         # PayloadSlab
+    # Attribution stamps (runtime/trace.py LatencyAttribution): when the
+    # owning tick was dispatched to the device and when its step
+    # committed. 0.0 = unstamped (tracing off, tests).
+    t_dispatch: float = 0.0
+    t_device_end: float = 0.0
 
     def __len__(self) -> int:
         return len(self.rooms)
 
-    def to_packets(self) -> list[EgressPacket]:
-        """Materialize EgressPacket objects (WS delivery, tests)."""
+    def to_packets(self, mask: np.ndarray | None = None) -> list[EgressPacket]:
+        """Materialize EgressPacket objects (WS delivery, TCP fallback,
+        tests); `mask` selects a subset of entries."""
+        idx = np.nonzero(mask)[0] if mask is not None else range(len(self.rooms))
+        ta = self.payloads.t_arr
         out = []
-        for i in range(len(self.rooms)):
+        for i in idx:
             r, t, k = int(self.rooms[i]), int(self.tracks[i]), int(self.ks[i])
             payload, marker = self.payloads.get(r, t, k)
             out.append(EgressPacket(
@@ -104,6 +118,7 @@ class EgressBatch:
                 pid=int(self.pid[i]), tl0=int(self.tl0[i]),
                 keyidx=int(self.keyidx[i]), size=len(payload), payload=payload,
                 marker=marker, dd=self.payloads.get_dd(r, t, k),
+                t_arr=float(ta[r, t, k]) if ta is not None else 0.0,
             ))
         return out
 
@@ -184,6 +199,12 @@ class TickResult:
     track_jitter_ms: Any = None   # [R, T] float32
     target_layers: Any = None     # [R, S, T] int32 (-1 = paused)
     track_bps: Any = None         # [R, T] float32
+    # RED plan (ops/red): per-packet redundancy candidates for the host
+    # egress to assemble (redreceiver.go seat).
+    red_sn: Any = None            # [R, T, K, D] int32
+    red_off: Any = None           # [R, T, K, D] int32
+    red_ok: Any = None            # [R, T, K, D] bool
+    pacer_allowed: Any = None     # [R, S] float32 — leaky-bucket byte budgets
     quality_window_closed: bool = False
     _egress_cache: list[EgressPacket] | None = None
 
@@ -231,7 +252,8 @@ class PlaneRuntime:
                  audio_params=None, bwe_params=None, red_enabled: bool = True,
                  low_latency: bool = False, trace_enabled: bool = True,
                  trace_ring_ticks: int = 512, trace_sample_every: int = 64,
-                 blackbox_events: int = 64, device="cuda"):
+                 blackbox_events: int = 64, egress_shards: int = 0,
+                 egress_multicast: bool = True, device="cuda"):
         self.device = resolve(device)
         # The ctrl upload (event-loop thread) and the device step (the
         # executor's thread) both enqueue on this one stream, in the order
@@ -278,6 +300,11 @@ class PlaneRuntime:
         self.state = self._init_device_state()
         self._init_step()
         self.munger = HostMunger(dims)
+        # Sharded native egress plane: one instance plans the room-aligned
+        # shard cuts of both the munge walk (_fan_out) and the send walk
+        # (the UDP transport attaches it) and aggregates per-shard stats.
+        self.egress_plane = EgressPlane(egress_shards, egress_multicast)
+        self._munge_shard_plan = self.egress_plane.room_plan(dims.rooms)
         self._slab_history: list = [None] * plane.SLAB_WINDOW
         self.host_seq = HostSequencer(dims)
         self.prober = ProbeController(dims, tick_ms)
@@ -509,6 +536,10 @@ class PlaneRuntime:
         c0 = time.perf_counter()
         result = self._fan_out(out, st.payloads, st.inp, 0.0, st.idx)
         fanout_s = time.perf_counter() - c0
+        # Attribution stamps for the wire-latency decomposition: the UDP
+        # transport reads them off the batch inside the callbacks below.
+        result.egress_batch.t_dispatch = st.device_t0
+        result.egress_batch.t_device_end = st.device_t0 + st.device_s
         result.tick_s = st.stage_s + st.device_s + fanout_s
         result.quality_window_closed = st.roll
         self.recent_tick_s.append(round(result.tick_s, 5))
@@ -529,7 +560,7 @@ class PlaneRuntime:
         late = bool(st.deadline) and time.perf_counter() > st.deadline
         if late:
             self.stats["late_ticks"] += 1
-        self.recent_ticks.append({
+        tick_rec = {
             "idx": st.idx, "depth": st.depth,
             "stage_ms": round(st.stage_s * 1000.0, 3),
             "device_ms": round(st.device_s * 1000.0, 3),
@@ -538,15 +569,31 @@ class PlaneRuntime:
             "late": late,
             "edge_overshoot_us": round(st.edge_over_us, 1),
             "fwd_packets": result.fwd_packets,
-            **self._tick_rec_extras(st),
-        })
+        }
+        # Per-shard egress timing: the send callbacks above just ran, so
+        # the plane's last-send snapshot is this tick's (munge likewise).
+        ep = self.egress_plane
+        if ep.last_munge:
+            tick_rec["munge_shard_ms"] = ep.last_munge.get("ms")
+        if ep.last_send:
+            tick_rec["egress_shard_ms"] = [s["ms"] for s in ep.last_send.get("shards", [])]
+        tick_rec.update(self._tick_rec_extras(st))
+        self.recent_ticks.append(tick_rec)
         if self.trace is not None:
-            self.trace.record_tick(
+            slot = self.trace.record_tick(
                 st.idx, st.edge, st.stage_t0, st.stage_s, 0.0,
                 st.upload_t0, st.upload_s, st.device_t0, st.device_s,
                 c0, fanout_s, send_s, st.edge_over_us, st.depth, late,
                 kernel_s=st.kernel_s,
             )
+            if ep.last_send:
+                shards = ep.last_send.get("shards", ())
+                munge_ms = ep.last_munge.get("ms", ()) if ep.last_munge else ()
+                for i in range(len(shards)):
+                    self.trace.set_shard(
+                        slot, i, munge_ms[i] if i < len(munge_ms) else 0.0,
+                        shards[i]["ms"],
+                    )
         self.stats["sleep_bias_us"] = round(max(self._sleep_bias, 0.0) * 1e6, 1)
         self.stats["edge_overshoot_us"] = round(self._edge_overshoot_us, 1)
         return result
@@ -652,13 +699,19 @@ class PlaneRuntime:
 
     def _fan_out(self, out: plane.TickOutputs, payloads, inp, tick_s: float,
                  tick_idx: int | None = None) -> TickResult:
-        """Bit-packed egress masks → host munge → column arrays, plus the
-        speaker / keyframe / congestion / quality views of the tick's
-        outputs."""
+        """Bit-packed egress masks → host munge (the native walker, sharded
+        by the egress plane's room plan) → column arrays, plus the speaker
+        / keyframe / congestion / quality views of the tick's outputs."""
         rr, tt, kk, ss, b_sn, b_ts, b_pid, b_tl0, b_ki = self.munger.apply_columns(
             inp.sn, inp.ts, inp.ts_jump, inp.pid, inp.tl0, inp.keyidx,
             inp.begin_pic, inp.valid, out.send_bits, out.drop_bits, out.switch_bits,
+            shard_plan=self._munge_shard_plan,
         )
+        if len(self.munger.last_shard_ns):
+            self.egress_plane.record_munge(
+                self.munger.last_shard_counts, self.munger.last_shard_ns
+            )
+            self.munger.last_shard_ns = self.munger.last_shard_ns[:0]
         batch = EgressBatch(rooms=rr, tracks=tt, ks=kk, subs=ss, sn=b_sn, ts=b_ts,
                             pid=b_pid, tl0=b_tl0, keyidx=b_ki, payloads=payloads)
         speakers: dict[int, list[tuple[int, float]]] = {}
@@ -695,11 +748,16 @@ class PlaneRuntime:
             track_jitter_ms=out.track_jitter_ms,
             track_bps=out.track_bps,
             target_layers=out.target_layers,
+            red_sn=out.red_sn,
+            red_off=out.red_off,
+            red_ok=out.red_ok,
+            pacer_allowed=out.pacer_allowed,
         )
 
     # -- loop ------------------------------------------------------------
     def start(self) -> None:
         if self._task is None:
+            self.egress_plane.warm()  # spawn shard workers off the hot path
             self._task = asyncio.ensure_future(self._run())
 
     async def _calibrate_sleep(self) -> None:

@@ -9,11 +9,13 @@ reference's per-room worker goroutines (room.go:1278-1396).
 
 Port of the JAX package's service/roommanager.py. It builds the port's
 PlaneRuntime or PagedPlaneRuntime on an explicit `device` ("cuda" by
-default). The subsystems the port does not carry yet (config.UNPORTED:
-supervisor, integrity, migration, fleet, governor, fault injection, the
-UDP/TCP transports and relay, the express lane, a device mesh) are
-refused at construction with a ConfigError naming the ROADMAP item that
-brings each; none is skipped in silence.
+default). The server attaches the UDP media transport (`udp`), through
+which each tick's egress leaves in one native batch; entries without a
+UDP/TCP destination go out as WebSocket frames. The subsystems the port
+does not carry yet (config.UNPORTED: supervisor, integrity, migration,
+fleet, governor, fault injection, the relay, the express lane, a device
+mesh) are refused at construction with a ConfigError naming the ROADMAP
+item that brings each; none is skipped in silence.
 """
 
 from __future__ import annotations
@@ -116,9 +118,13 @@ class RoomManager:
             trace_ring_ticks=config.trace.ring_ticks,
             trace_sample_every=config.trace.sample_every,
             blackbox_events=config.trace.blackbox_events,
+            egress_shards=config.egress.shards,
+            egress_multicast=config.egress.multicast_seal,
             device=device,
         )
         self.rooms: dict[str, Room] = {}
+        self.udp = None     # UDPMediaTransport (start_transports / attach_udp)
+        self.tcp_media = None  # TCPMediaTransport, the TCP fallback
         self._row_to_room: dict[int, Room] = {}
         self._create_locks: dict[str, asyncio.Lock] = {}
         # Media-wire key registry (the DTLS-SRTP key-exchange seat): one
@@ -163,6 +169,7 @@ class RoomManager:
             stored = await self.store.load_room(name)
             room = Room(name, self.runtime, info=info or stored)
             room.crypto = self.crypto
+            room.udp = self.udp
             # Publish-admission gate consulted by Participant.add_track_request.
             room.admission = self._admission_denied
             if info is None and stored is None:
@@ -418,10 +425,36 @@ class RoomManager:
 
         participant.on_media(media_out)
 
+    def handle_pli(self, row: int, track_col: int) -> None:
+        """RTCP PLI from a UDP subscriber → keyframe request toward the
+        publisher over the signal plane (receiver.go SendPLI)."""
+        room = self._row_to_room.get(row)
+        if room is not None:
+            room.handle_keyframe_request(track_col)
+
     # -- tick fan-out -----------------------------------------------------
     def _dispatch_tick(self, res: TickResult) -> None:
+        if self.udp is not None:
+            # Batch wire path: one native call assembles/seals/sends every
+            # UDP-destined entry; only WS-destined entries materialize as
+            # Python packet objects.
+            handled = self.udp.send_egress_batch(
+                res.egress_batch,
+                red_plan=(res.red_sn, res.red_off, res.red_ok),
+                layer_caps=(
+                    self.runtime.ctrl.max_spatial, self.runtime.ctrl.max_temporal
+                ),
+                pacer_allowed=res.pacer_allowed,
+            )
+            if res.padding:
+                # BWE probe padding (UDP subscribers only — padding is a
+                # channel measurement, meaningless over the WS loopback).
+                self.udp.send_egress(res.padding, rtx=True)
+            ws_pkts = res.egress_batch.to_packets(~handled) if len(handled) else []
+        else:
+            ws_pkts = res.egress
         ws_tx = self.runtime.ingest.ws_tx
-        for pkt in res.egress:
+        for pkt in ws_pkts:
             room = self._row_to_room.get(pkt.room)
             if room is not None:
                 room.deliver_egress(pkt)
@@ -478,6 +511,8 @@ class RoomManager:
         if self.telemetry is not None:
             self.telemetry.observe_plane(self.runtime.stats)
             self.telemetry.observe_tick_latency(res.tick_s)
+            if self.udp is not None:
+                self.telemetry.observe_transport(self.udp.stats)
             pager_stats = getattr(self.runtime, "pager_stats", None)
             if pager_stats is not None:
                 self.telemetry.observe_pager(pager_stats())
@@ -487,6 +522,71 @@ class RoomManager:
                 self.telemetry.observe_wire_stages(
                     self.runtime.wire_stages.drain()
                 )
+
+    # -- media transports (rtc/config.go UDPMux, transportmanager.go) -----
+    async def start_transports(self) -> None:
+        """Open the native UDP media transport on rtc.udp_port (0 = none)
+        and, when the node has an AEAD backend, the TCP fallback on
+        rtc.tcp_port (0 = none), and wire them to the runtime and rooms
+        (the reference server's start sequence, without the express lane
+        and the relay, which the port does not carry). To serve on an
+        ephemeral port, start the transport with port 0 and hand it to
+        `attach_udp` instead."""
+        cfg = self.config
+        if not cfg.rtc.udp_port or self.udp is not None:
+            return
+        from livekit_server_tpu_torch.runtime.udp import start_udp_transport
+
+        udp = await start_udp_transport(
+            self.runtime.ingest, cfg.bind_addresses[0], cfg.rtc.udp_port,
+            crypto=self.crypto, require_encryption=cfg.rtc.require_encryption,
+            nack_resolver=self.runtime.resolve_nacks,
+        )
+        self.attach_udp(udp)
+        # TCP media fallback (transportmanager.go:73 ladder): the same
+        # sealed frames, length-prefixed; always encrypted, so it cannot
+        # exist on a node without an AEAD backend.
+        if cfg.rtc.tcp_port and self.crypto is not None:
+            from livekit_server_tpu_torch.runtime.tcp import start_tcp_transport
+
+            try:
+                self.tcp_media = await start_tcp_transport(
+                    udp, self.crypto, cfg.bind_addresses[0], cfg.rtc.tcp_port
+                )
+            except OSError as e:    # port busy: the UDP path still works
+                self.log.warn("TCP media fallback not started",
+                              port=cfg.rtc.tcp_port, error=str(e))
+
+    def attach_udp(self, udp) -> None:
+        """Wire a started UDPMediaTransport to the runtime and the rooms:
+        client PLIs, the sharded egress plane, the wire-latency
+        attribution, the pacer and playout-delay settings."""
+        cfg = self.config
+        udp.on_pli = self.handle_pli
+        udp.attach_egress_plane(self.runtime.egress_plane)
+        udp.wire_stages = self.runtime.wire_stages
+        udp.send_side_bwe = cfg.rtc.congestion_control.send_side_bwe
+        if cfg.rtc.pacer == "no-queue":
+            udp.pacer_spread_ms = cfg.plane.tick_ms / 2.0
+        elif cfg.rtc.pacer == "leaky-bucket":
+            # Per-subscriber byte budgets from the device pacer op gate
+            # egress; over-budget packets defer FIFO.
+            udp.pacer_mode = "leaky-bucket"
+        if cfg.room.playout_delay_max_ms > 0:
+            udp.playout_delay = (
+                cfg.room.playout_delay_min_ms, cfg.room.playout_delay_max_ms,
+            )
+        self.udp = udp
+        for room in self.rooms.values():
+            room.udp = udp
+
+    def close_transports(self) -> None:
+        """Close the UDP socket and the TCP listener, if open."""
+        if self.udp is not None and self.udp.transport is not None:
+            self.udp.transport.close()
+        if self.tcp_media is not None:
+            self.tcp_media.close()
+            self.tcp_media = None
 
     # -- periodic reaping (server.go backgroundWorker) --------------------
     def start(self) -> None:
@@ -546,6 +646,9 @@ class RoomManager:
         rx_b = ing.rx_bytes + ing.rx_pkts * WIRE_OVERHEAD_BYTES
         tx_p = ing.ws_tx[:, :, 0].copy()
         tx_b = ing.ws_tx[:, :, 1].copy()
+        if self.udp is not None:
+            tx_p += self.udp.tx_pkts
+            tx_b += self.udp.tx_bytes
         self._traffic_prev = (now, rx_p, rx_b, tx_p, tx_b)
         if prev is None:
             return

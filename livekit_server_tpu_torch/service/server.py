@@ -10,9 +10,11 @@ Port of the JAX package's service/server.py. `create_server(cfg,
 device=...)` builds the port's RoomManager on `device` ("cuda" by
 default). Routes whose subsystem the port does not carry yet are left
 out (ROADMAP A): the agents, egress, ingress and SIP services, ioinfo,
-/debug/overload, /debug/integrity, /debug/compiles, /debug/egress,
-/debug/migration, /debug/fleet and /debug/trace; so are the UDP/TCP
-media transports and the relay, which RoomManager refuses to configure.
+/debug/overload, /debug/integrity, /debug/compiles,
+/debug/migration, /debug/fleet and /debug/trace; so is the relay, which
+RoomManager refuses to configure. The UDP media transport and the TCP
+fallback open at start (RoomManager.start_transports) on rtc.udp_port
+and rtc.tcp_port.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ class LivekitServer:
         self.app.router.add_get("/debug/tasks", self.debug_tasks)
         self.app.router.add_get("/debug/ticks", self.debug_ticks)
         self.app.router.add_get("/debug/pager", self.debug_pager)
+        self.app.router.add_get("/debug/egress", self.debug_egress)
         self.app.router.add_get("/debug/blackbox/{room}", self.debug_blackbox)
         self._runner: web.AppRunner | None = None
         self._sites: list[web.TCPSite] = []
@@ -181,6 +184,11 @@ class LivekitServer:
         if rt.wire_stages is not None:
             # Per-stage wire-latency decomposition (sampled attribution).
             body["wire_stages"] = rt.wire_stages.summary()
+        udp = self.room_manager.udp
+        if udp is not None:
+            # Measured wall-clock packet-in→wire-out latency (includes
+            # tick-queueing wait) — the probe in runtime/udp.py.
+            body["forward_latency"] = udp.fwd_latency.summary()
         return web.json_response(body)
 
     async def debug_blackbox(self, request: web.Request) -> web.Response:
@@ -220,6 +228,17 @@ class LivekitServer:
         return web.Response(
             text=self.telemetry.prometheus_text(), content_type="text/plain"
         )
+
+    async def debug_egress(self, request: web.Request) -> web.Response:
+        """Sharded egress plane: host_egress_pps, shard plan, canonical
+        grouping rates, per-shard sent/busy totals, and the last tick's
+        per-shard send + munge breakdowns."""
+        rm = self.room_manager
+        snap = rm.runtime.egress_plane.observe()
+        if rm.udp is not None:
+            snap["tx_total"] = rm.udp.stats.get("tx", 0)
+            snap["tx_drop_total"] = rm.udp.stats.get("tx_drop", 0)
+        return web.json_response(snap)
 
     async def debug_pager(self, request: web.Request) -> web.Response:
         """Paged room-state plane: page-pool occupancy/fragmentation,
@@ -284,6 +303,8 @@ class LivekitServer:
         # waits on a build mid-call.
         await self.room_manager.runtime.step_once()
         self.room_manager.runtime.mark_warm()
+        # Native UDP media transport on the RTC port, and the TCP fallback.
+        await self.room_manager.start_transports()
         self.room_manager.start()
         self._stats_task = asyncio.ensure_future(self._refresh_nodes())
         self._runner = web.AppRunner(self.app)
@@ -306,6 +327,7 @@ class LivekitServer:
                 await asyncio.sleep(0.1)
         if self._stats_task:
             self._stats_task.cancel()
+        self.room_manager.close_transports()
         await self.room_manager.stop()
         await self.router.unregister_node()
         if self._runner is not None:

@@ -189,6 +189,14 @@ class TelemetryService:
             "livekit_signal_channel_dropped_total", MessageChannel.total_dropped
         )
 
+    def observe_transport(self, stats: dict[str, Any]) -> None:
+        """UDP/TCP media-wire counters (prometheus/packets.go direction
+        labels: rx/tx, plus NACK/PLI/RTX feedback volumes)."""
+        for k in ("rx", "tx", "rtx_tx", "nacks_rx", "nacks_tx",
+                  "plis_rx", "plis_tx", "bad_frame", "red_tx", "red_rx"):
+            if k in stats:
+                self.set_gauge(f"livekit_media_{k}_total", stats[k])
+
     def observe_tick_latency(self, tick_s: float) -> None:
         # Tick work time gets its own family now;
         # livekit_forward_latency_ms is fed by the attribution sampler

@@ -63,7 +63,7 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
         plane.init_state(dims)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synth.make_state(dims, synth.TrafficSpec())
-    assert PlaneRuntime(dims, device="cpu").state.meta.is_video.device.type == "cpu"
+    assert PlaneRuntime(dims, egress_shards=1, device="cpu").state.meta.is_video.device.type == "cpu"
 
     from livekit_server_tpu_torch.models import paged
     from livekit_server_tpu_torch.runtime.paged_runtime import PagedPlaneRuntime
@@ -72,7 +72,7 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
     for entry in (paged.init_table, paged.page_init_template, PagedPlaneRuntime):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry(pdims)
-    assert PagedPlaneRuntime(pdims, device="cpu").table.pg_room.device.type == "cpu"
+    assert PagedPlaneRuntime(pdims, egress_shards=1, device="cpu").table.pg_room.device.type == "cpu"
 
     # The ops' init_state helpers follow the same rule: "cuda" by default,
     # an error without a card, the CPU only when asked for.
@@ -120,6 +120,17 @@ async def main():
     req.close()
     await rm.stop()
     await task
+    # The UDP media wire: two RoomManagers with the transport on loopback,
+    # sealed publishers and punched subscribers, three lockstep ticks.
+    dims = plane.PlaneDims(2, 4, 4, 4)
+    rigs = [cs.UdpRig(await cs.udp_room_manager("cpu", cs.udp_config(dense_dims=dims)),
+                      [4, 4], [4, 4], 2) for _ in range(2)]
+    for rig in rigs:
+        await rig.join(cs.RUNTIME_SPEC)
+    lock = await cs.udp_lockstep(rigs[0], rigs[1], cs.RUNTIME_SPEC, 3)
+    assert lock["datagrams_compared"] > 0 and cs.REQUIRE_ENCRYPTION
+    for rig in rigs:
+        await rig.close()
 
 asyncio.run(main())
 after = {m.split(".")[0] for m in sys.modules}
@@ -128,11 +139,12 @@ print(json.dumps(sorted(after - before)))
 
 
 def test_serving_path_needs_only_torch_numpy_and_stdlib():
-    """What chip_smoke's serving phase loads (config, RoomManager, rtc,
-    routing, telemetry, the codec, the runtime loop) runs with aiohttp,
-    msgpack, PyYAML and cryptography absent, as they may be on a card's host, and
-    adds no module outside the port, torch, numpy and the standard
-    library."""
+    """What chip_smoke's serving phases load (config, RoomManager, rtc,
+    routing, telemetry, the codec, the runtime loop, and the UDP media
+    wire: transport, native libraries, sealed frames through libcrypto)
+    runs with aiohttp, msgpack, PyYAML and cryptography absent, as they
+    may be on a card's host, and adds no module outside the port, torch,
+    numpy and the standard library."""
     import json
     import os
     import subprocess
@@ -143,6 +155,26 @@ def test_serving_path_needs_only_torch_numpy_and_stdlib():
                          capture_output=True, text=True, timeout=300, check=True)
     added = set(json.loads(out.stdout.strip().splitlines()[-1]))
     own = {"chip_smoke", "livekit_server_tpu_torch", "__main__"}
-    outside = {m for m in added - own if m not in sys.stdlib_module_names}
+    # numpy's compiled random generators register the Cython runtime.
+    numpy_runtime = {m for m in added if m == "cython_runtime" or m.startswith("_cython_")}
+    outside = {m for m in added - own - numpy_runtime if m not in sys.stdlib_module_names}
     assert not outside, f"serving path imports {outside}"
     assert "livekit_server_tpu_torch" in added
+
+
+def test_port_native_sources_are_its_own():
+    """The port builds its native libraries from its own copies
+    (livekit_server_tpu_torch/native/csrc) into its own build directory;
+    no port source reaches for the repository's root native/ sources."""
+    import re
+
+    from livekit_server_tpu_torch import native
+
+    pkg = ROOT / "livekit_server_tpu_torch"
+    assert native._CSRC == pkg / "native" / "csrc"
+    for name in ("rtp_parser", "egress", "munge"):
+        assert (native._CSRC / f"{name}.cpp").is_file()
+        assert native.library_path(name).parent == pkg / "_build" / "native"
+    root_native = re.compile(r'parents\[\d+\]\s*/\s*"native"|ROOT\s*/\s*"native"')
+    bad = [str(p.relative_to(ROOT)) for p in SOURCES if root_native.search(p.read_text())]
+    assert not bad, f"sources reading the root native/: {bad}"

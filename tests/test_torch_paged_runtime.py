@@ -79,7 +79,7 @@ def _capture(rt, log):
 
 
 def _port(**kw):
-    return PagedPlaneRuntime(PD, tick_ms=10, device="cpu", **kw)
+    return PagedPlaneRuntime(PD, tick_ms=10, egress_shards=1, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("mode", ["on", "off"])
@@ -129,7 +129,7 @@ async def test_grid_steps_track_live_pages():
     dims = paged.PagedDims(rooms=8, tracks=2, pkts=2, subs=4, tpage=2, spage=4, pool_pages=8)
 
     async def run(n_rooms):
-        rt = PagedPlaneRuntime(dims, tick_ms=10, paged_kernel="on", device="cpu")
+        rt = PagedPlaneRuntime(dims, tick_ms=10, paged_kernel="on", egress_shards=1, device="cpu")
         for r in range(n_rooms):
             s = rt.slots.alloc_room(f"r{r}")
             s.alloc_track("t0")
@@ -171,7 +171,7 @@ def test_constructor_validation(monkeypatch):
     with pytest.raises(ValueError, match="paged_kernel"):
         _port(paged_kernel="bogus")
     with pytest.raises(TypeError, match="PagedDims"):
-        PagedPlaneRuntime(PD.logical, device="cpu")
+        PagedPlaneRuntime(PD.logical, egress_shards=1, device="cpu")
     assert _port(paged_kernel=True).pager_stats()["paged_kernel"] == "on"
     assert _port(paged_kernel="auto").pager_stats()["paged_kernel"] == "auto"
     assert _port(paged_kernel=False).pager_stats()["paged_kernel"] == "off"

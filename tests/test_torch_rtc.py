@@ -245,13 +245,13 @@ def _compare(jax_run, port_run) -> None:
 
 async def test_rtc_layer_matches_reference_dense(monkeypatch):
     jrt = JRuntime(jplane.PlaneDims(*DIMS), tick_ms=TICK_MS)
-    trt = TRuntime(tplane.PlaneDims(*DIMS), tick_ms=TICK_MS, device="cpu")
+    trt = TRuntime(tplane.PlaneDims(*DIMS), tick_ms=TICK_MS, egress_shards=1, device="cpu")
     _compare(await _run(JAX, jrt, monkeypatch), await _run(PORT, trt, monkeypatch))
 
 
 async def test_rtc_layer_matches_reference_paged(monkeypatch):
     jrt = JPaged(jpaged.PagedDims(**PAGED), tick_ms=TICK_MS, paged_kernel="on")
-    trt = TPaged(tpaged.PagedDims(**PAGED), tick_ms=TICK_MS, paged_kernel="on", device="cpu")
+    trt = TPaged(tpaged.PagedDims(**PAGED), tick_ms=TICK_MS, paged_kernel="on", egress_shards=1, device="cpu")
     _compare(await _run(JAX, jrt, monkeypatch), await _run(PORT, trt, monkeypatch))
 
 
@@ -259,7 +259,7 @@ def test_port_room_refuses_relay_and_reflects_sdp():
     """The port answers request_relay with the reference's no-relay reply
     and reflects an SDP offer (no UDP transport, as in the reference
     without one)."""
-    rt = TRuntime(tplane.PlaneDims(*DIMS), tick_ms=TICK_MS, device="cpu")
+    rt = TRuntime(tplane.PlaneDims(*DIMS), tick_ms=TICK_MS, egress_shards=1, device="cpu")
     room = TRoom("r", rt)
     sink = TChannel()
     p = TParticipant("x", room, response_sink=sink)

@@ -67,7 +67,7 @@ def _packets(rng, tick):
 async def test_runtime_egress_matches_reference():
     dims = jplane.PlaneDims(*DIMS)
     ref = JaxRuntime(dims, tick_ms=10)
-    port = PlaneRuntime(tplane.PlaneDims(*DIMS), tick_ms=10, device="cpu")
+    port = PlaneRuntime(tplane.PlaneDims(*DIMS), tick_ms=10, egress_shards=1, device="cpu")
     try:
         _setup(ref)
         _setup(port)

@@ -41,7 +41,8 @@ def _config_dict() -> dict:
     base = port_overlay()
     base["plane"].update(rooms=2, tracks_per_room=4, pkts_per_track=4, subs_per_room=4,
                          tick_ms=10)
-    base.update(keys={KEY: SECRET}, port=port, bind_addresses=["127.0.0.1"])
+    base.update(keys={KEY: SECRET}, port=port, bind_addresses=["127.0.0.1"],
+                rtc={"udp_port": 0, "tcp_port": 0}, egress={"shards": 1})
     return base
 
 

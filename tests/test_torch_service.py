@@ -2,11 +2,14 @@
 HTTP + WebSocket with device="cpu": health and validate, token checks,
 join/publish/subscribe media over the WS, the RoomService API, /metrics
 and /debug, the ConfigError of every subsystem the port does not carry,
-and `serve` (refused without a card, or without aiohttp; answering
-GET / with --device cpu). The test client speaks the reference's wire:
-JSON signal frames and media frames packed and read with `msgpack`."""
+`serve` (refused without a card, or without aiohttp; answering GET /
+with --device cpu), and the UDP media wire through the server (sealed RTP
+from a publisher's socket to a punched subscriber's). The test client
+speaks the reference's wire: JSON signal frames and media frames packed
+and read with `msgpack`."""
 
 import asyncio
+import base64
 import contextlib
 import json
 import os
@@ -30,7 +33,11 @@ from livekit_server_tpu_torch import cli  # noqa: E402
 from livekit_server_tpu_torch.auth import AccessToken, VideoGrant  # noqa: E402
 from livekit_server_tpu_torch.config import ConfigError, load_config  # noqa: E402
 from livekit_server_tpu_torch.config.config import UNPORTED, port_overlay  # noqa: E402
+from livekit_server_tpu_torch.runtime import udp as udp_mod  # noqa: E402
+from livekit_server_tpu_torch.runtime.crypto import MediaCryptoClient  # noqa: E402
 from livekit_server_tpu_torch.service.server import create_server  # noqa: E402
+from tests.test_native import rtp_packet  # noqa: E402
+from tests.torch_udp_fixture import client_socket, drain, until  # noqa: E402
 
 API_KEY, API_SECRET = "testkey", "testsecret"
 ROOT = Path(__file__).resolve().parent.parent
@@ -49,8 +56,11 @@ def make_config(port: int, **extra):
     base = port_overlay()
     base["plane"].update(rooms=4, tracks_per_room=4, pkts_per_track=4, subs_per_room=4,
                          tick_ms=10)
+    # No fixed media ports (parallel test workers would contend for them)
+    # and one egress shard (no worker threads beside other test workers).
     base.update(keys={API_KEY: API_SECRET}, port=port, bind_addresses=["127.0.0.1"],
-                room={"empty_timeout_s": 2}, **extra)
+                room={"empty_timeout_s": 2}, rtc={"udp_port": 0, "tcp_port": 0},
+                egress={"shards": 1}, **extra)
     return load_config(base=base, env={})
 
 
@@ -260,10 +270,70 @@ async def test_metrics_and_debug_routes():
             await alice.close()
 
 
+async def test_udp_media_through_the_server():
+    """The reference's default media wire through create_server: alice
+    announces a UDP track and sends sealed RTP from her socket; bob asks
+    for UDP media, punches from his socket and receives the sealed stream
+    there (none of it over his WebSocket); /debug/ticks reports the
+    forward latency and /debug/egress the transport's datagrams."""
+    async with running_server() as server:
+        rm = server.room_manager
+        udp = await udp_mod.start_udp_transport(
+            rm.runtime.ingest, "127.0.0.1", 0, crypto=rm.crypto,
+            require_encryption=server.config.rtc.require_encryption,
+            nack_resolver=rm.runtime.resolve_nacks)
+        rm.attach_udp(udp)          # rtc.udp_port on an ephemeral port
+        port = udp.transport.get_extra_info("sockname")[1]
+        async with aiohttp.ClientSession() as s:
+            alice, bob = SignalClient(s, server.port), SignalClient(s, server.port)
+            keys = []
+            for c, name in ((alice, "alice"), (bob, "bob")):
+                mc = (await c.connect("lobby", name))["media_crypto"]
+                keys.append(MediaCryptoClient(mc["key_id"], base64.b64decode(mc["key"])))
+            a_key, b_key = keys
+            await alice.send_signal("add_track", {"cid": "mic", "type": 0, "name": "mic",
+                                                  "transport": "udp"})
+            ssrc = (await alice.wait_for("request_response"))["udp_media"]["ssrc"]
+            await bob.send_signal("subscription", {"udp": True})
+            punch = (await bob.wait_for("request_response"))["udp_punch"]["punch_id"]
+            a_sock, b_sock = client_socket(), client_socket()
+            b_sock.sendto(b_key.seal(udp_mod.PUNCH_REQ + punch.to_bytes(4, "big")),
+                          ("127.0.0.1", port))
+            await until(lambda: b_sock.getsockname() in udp.sub_addrs.values(), "the punch")
+            await bob.wait_for("track_subscribed")
+            got = []
+
+            def media(n: int) -> bool:
+                for f in drain(b_sock, media_only=False):
+                    d = b_key.open(f)
+                    if d is not None and d[:8] != udp_mod.PUNCH_ACK and not 192 <= d[1] <= 223:
+                        got.append(d)
+                return len(got) >= n
+
+            for i in range(5):
+                a_sock.sendto(a_key.seal(rtp_packet(sn=100 + i, ts=960 * i, ssrc=ssrc,
+                                                    audio_level=20,
+                                                    payload=b"opus" + bytes([i]))),
+                              ("127.0.0.1", port))
+                await until(lambda i=i: media(i + 1), f"sn {100 + i} at bob's socket")
+            assert [int.from_bytes(d[2:4], "big") for d in got] == [100, 101, 102, 103, 104]
+            assert [d[-5:] for d in got] == [b"opus" + bytes([i]) for i in range(5)]
+            assert not any(m["sn"] >= 100 for m in bob.media)   # not over the WS
+            base = f"http://127.0.0.1:{server.port}"
+            async with s.get(f"{base}/debug/ticks") as r:
+                assert (await r.json())["forward_latency"]["n"] >= 5
+            async with s.get(f"{base}/debug/egress") as r:
+                assert (await r.json())["tx_total"] >= 5
+            await alice.close()
+            await bob.close()
+            a_sock.close()
+            b_sock.close()
+
+
 def test_unported_subsystems_raise_config_error():
     """Each subsystem the port does not carry, turned on, is refused at
     construction with the ROADMAP item that brings it."""
-    enabling = {"rtc.udp_port": 7882, "plane.express_max_subs": 2, "plane.mesh_devices": 2}
+    enabling = {"plane.express_max_subs": 2, "plane.mesh_devices": 2}
     for path, _enabled, _off, item in UNPORTED:
         section, leaf = path.split(".")
         cfg = make_config(_free_port())
@@ -271,6 +341,13 @@ def test_unported_subsystems_raise_config_error():
         with pytest.raises(ConfigError, match=item.split(" ")[0]) as err:
             create_server(cfg, device="cpu")
         assert path in str(err.value)
+    # The media relay stays refused; the UDP/TCP media ports are ported
+    # and their defaults (7882, 7881) build.
+    assert "relay.enabled" in [u[0] for u in UNPORTED]
+    assert "rtc.udp_port" not in [u[0] for u in UNPORTED]
+    cfg = make_config(_free_port())
+    cfg.rtc.udp_port, cfg.rtc.tcp_port = 7882, 7881
+    assert create_server(cfg, device="cpu").room_manager.udp is None  # opens at start
     # A shared bus is not ported: only the single-node router and store.
     for kind in ("tcp", "redis"):
         cfg = make_config(_free_port())
@@ -311,7 +388,8 @@ def test_serve_dev_cpu_answers_health():
     env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
     proc = subprocess.Popen(
         [sys.executable, "-m", "livekit_server_tpu_torch", "serve", "--dev", "--device", "cpu",
-         "--port", str(port), "--plane.rooms", "4", "--plane.subs-per-room", "4"],
+         "--port", str(port), "--plane.rooms", "4", "--plane.subs-per-room", "4",
+         "--rtc.udp-port", "0", "--rtc.tcp-port", "0"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
     try:
         deadline, status = time.monotonic() + 120, None

@@ -34,7 +34,7 @@ async def _wait(cond, what: str, timeout: float = 30.0) -> None:
 
 
 def _audio_runtime(dims=DIMS, **kw) -> PlaneRuntime:
-    rt = PlaneRuntime(dims, tick_ms=10, device="cpu", **kw)
+    rt = PlaneRuntime(dims, tick_ms=10, egress_shards=1, device="cpu", **kw)
     rt.set_track(0, 0, published=True, is_video=False)
     rt.set_subscription(0, 0, 1, subscribed=True)
     return rt
@@ -45,7 +45,7 @@ def _sns(batches) -> list[int]:
 
 
 async def test_step_once_raises_while_loop_running():
-    rt = PlaneRuntime(DIMS, tick_ms=10, device="cpu")
+    rt = PlaneRuntime(DIMS, tick_ms=10, egress_shards=1, device="cpu")
     rt.start()
     try:
         await _wait(lambda: rt.stats["ticks"] >= 1, "first tick never completed")
@@ -121,7 +121,7 @@ async def test_device_stall_degrades_to_sequential_bounded_depth():
 
 async def test_full_grid_burst_forwards_without_caps():
     dims = plane.PlaneDims(rooms=1, tracks=2, pkts=4, subs=8)
-    rt = PlaneRuntime(dims, tick_ms=10, device="cpu")
+    rt = PlaneRuntime(dims, tick_ms=10, egress_shards=1, device="cpu")
 
     def burst():
         for t in range(2):

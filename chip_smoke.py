@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--profile]
 
-Phases (any failure exits non-zero; a few minutes on an H100):
+Phases (any failure exits non-zero; about ten minutes on an H100):
 
   1. build    — compile every CUDA kernel with nvcc (one process per
                 source, in parallel); print each kernel's registers and
@@ -113,10 +113,37 @@ Phases (any failure exits non-zero; a few minutes on an H100):
                 captured from a real tick, replayed between a CUDA event
                 pair, so the wrapper's host work (checks, allocation, the
                 ctypes call) is not in it; `call_ms` is one wrapper call
-                between an event pair, host work included.
+                between an event pair, host work included;
+  7. failure  — the failure and overload plane: `integrity.audit_plane`
+                on the card held to the same function on a CPU copy
+                (mask, counts and new mirror equal) on the north-star
+                state (clean, then one room corrupted per rule: nonfinite,
+                range, cursor regression beside a legitimate reset, ctrl,
+                bounds), on the cfg4 drill state, and on a paged pool at
+                PAGED_RUNTIME_DIMS with `map_audit_mask` and a corrupted
+                page-table row (BIT_TABLE, the row repaired); the audit's
+                device time at the north star, cfg4 and the 65536-page pool
+                beside its byte bound and the device step it rides on; a
+                checkpoint round (snapshot, encode, decode, restore) at
+                cfg4 and the north star, the restore bit-equal to the
+                snapshot; the bitflip drill (exactly the flipped room
+                quarantined and repaired, 0 escalations, the next audit
+                clean) and the stall drill (restarts = stalls, cause
+                `stall`, ticks advancing, the abandoned steps committing
+                nothing) on a cfg4 RoomManager's loop; and the WS cfg4 (≥
+                DEFAULT_CFG4_TICKS) and paged (≥ DEFAULT_PAGED_TICKS, or
+                until the supervisor gives up, DEFAULT_LOOP_CAP_S at most)
+                loops under the reference's default config (supervisor,
+                integrity and governor on), every subscriber sending a
+                receiver estimate each tick, reporting restarts and
+                causes, `gave_up`, integrity escalations, the governor's
+                level and transitions, audits and their share of the
+                wall, and checkpoint ms. The serving and UDP
+                phases above keep those three subsystems off, so their
+                numbers compare with earlier runs.
 
 Output: JSON lines per phase (the serving phase's under "serving", the
-UDP phase's under "udp"), a
+UDP phase's under "udp", the failure phase's under "failure"), a
 `{"kernels": [...]}` JSON line (each kernel's numbers on its own path,
 `launches_by_path` its launches on every path, the serving loop's
 included, its ptxas registers and spill bytes,
@@ -152,11 +179,11 @@ import torch
 from livekit_server_tpu_torch import native
 from livekit_server_tpu_torch.config.config import Config, load_config, port_overlay
 from livekit_server_tpu_torch.models import paged, plane, synth
-from livekit_server_tpu_torch.ops import allocation, cuda, pacer, paged_kernel, selector
+from livekit_server_tpu_torch.ops import allocation, bwe, cuda, pacer, paged_kernel, selector
 from livekit_server_tpu_torch.ops.mix import MIX_TOP_K
 from livekit_server_tpu_torch.protocol import packer
 from livekit_server_tpu_torch.routing import LocalNode, LocalRouter, MessageChannel
-from livekit_server_tpu_torch.runtime import PlaneRuntime, dd
+from livekit_server_tpu_torch.runtime import PlaneRuntime, dd, integrity
 from livekit_server_tpu_torch.runtime import crypto as crypto_mod, udp as udp_mod
 from livekit_server_tpu_torch.runtime.paged_runtime import PagedPlaneRuntime
 from livekit_server_tpu_torch.runtime.pager import RoomPager
@@ -562,7 +589,7 @@ def north_star_setup(dev):
     return state, wires
 
 
-def timing_phase(dev, profile: bool) -> tuple[dict, dict]:
+def timing_phase(dev, profile: bool) -> tuple[dict, dict, plane.PlaneState]:
     dims = NORTH_STAR
     state, wires = north_star_setup(dev)
     for i in range(WARMUP_TICKS):
@@ -592,7 +619,7 @@ def timing_phase(dev, profile: bool) -> tuple[dict, dict]:
     al["shape"] = list(a2[1].shape)
     if profile:
         profile_ticks(state, wires, dims)
-    return tick, {"decide_rooms": dec, "allocate_budget_rooms": al}
+    return tick, {"decide_rooms": dec, "allocate_budget_rooms": al}, state
 
 
 def time_kernel(kernel, plain, a, kw, bytes_moved: int) -> dict:
@@ -919,12 +946,17 @@ async def paged_runtime_phase(dev) -> dict:
 
 
 def serving_config(paged_dims: paged.PagedDims | None = None,
-                   dense_dims: plane.PlaneDims = RUNTIME_DIMS) -> Config:
+                   dense_dims: plane.PlaneDims = RUNTIME_DIMS,
+                   failure_plane: bool = False) -> Config:
     """The reference's default Config with the port overlay (every
     subsystem the port does not carry turned off), built in Python (no
     YAML parser: PyYAML need not be installed): the dense plane at `dense_dims`,
     or the paged plane at `paged_dims` (live-extent tick, kernel on), 20 ms
-    ticks, a trace ring that holds every tick of the run."""
+    ticks, a trace ring that holds every tick of the run. The supervisor,
+    the integrity audit and the governor are on by default in the
+    reference and in `serve`; they stay on with `failure_plane`, and are
+    turned off otherwise, so that the serving and UDP phases measure the
+    loop as earlier runs did."""
     p = {"tick_ms": RUNTIME_SPEC.tick_ms}
     if paged_dims is None:
         p.update(rooms=dense_dims.rooms, tracks_per_room=dense_dims.tracks,
@@ -938,6 +970,9 @@ def serving_config(paged_dims: paged.PagedDims | None = None,
     base = port_overlay()
     base["plane"].update(p)
     base.update(development=True, trace={"ring_ticks": SERVING_TRACE_TICKS})
+    if not failure_plane:
+        base.update(supervisor={"enabled": False}, integrity={"enabled": False},
+                    limits={"governor_enabled": False})
     return load_config(base=base, env={})
 
 
@@ -998,18 +1033,38 @@ def quantiles(xs) -> dict:
 
 
 async def serve_rooms(dev, sizes, pubs, spec: synth.TrafficSpec, cfg: Config,
-                      seconds: float | None, min_ticks: int) -> dict:
+                      seconds: float | None, min_ticks: int,
+                      cap_s: float | None = None, estimates: bool = False) -> dict:
     """Join `sizes` (participants per room; `pubs` of them publish) into a
     RoomManager on `dev`,
     run its serving loop (RoomManager.start → PlaneRuntime._run) with a
     feeder task that pushes one seeded synth tick into runtime.ingest per
     runtime tick, for `seconds` (or until `min_ticks` loop ticks), then
     stop. Checks the launches and the audio delivery of the first
-    SAMPLE_ROOMS rooms; returns the report."""
+    SAMPLE_ROOMS rooms; returns the report. With `estimates` the feeder
+    also pushes every subscriber's synth receiver estimate each tick,
+    through the call a receiver report over UDP makes.
+
+    With `cap_s` (the default-config runs: supervisor, integrity and
+    governor on) the run also ends when the supervisor gives up or after
+    `cap_s` seconds of loop, without failing, and otherwise goes on until
+    the sampled audio was delivered after the last restart; the report
+    adds what the failure and overload plane did. A restart rewinds tick
+    indices and munger lanes, so the checks then read each run of the
+    loop between restarts (a generation) on its own: launches equal
+    completed ticks plus the steps whose tick a restart dropped, and every
+    generation completes its ticks in order. Delivery is read in the last
+    generation: exactly once and in sn order when the plane neither
+    restarted nor flagged a room; otherwise (an integrity quarantine
+    mutes a room's media on purpose) every delivered frame must be a
+    packet pushed on its track, delivered at most once, in the order
+    pushed, with rising sn, and some must arrive."""
     store = LocalStore()
     rm = RoomManager(cfg, LocalRouter(LocalNode()), store,
                      telemetry=TelemetryService(cfg), device=dev)
     rt = rm.runtime
+    sup, integ, gov = rm.supervisor, rm.integrity, rm.governor
+    gen = lambda: sup.restarts if sup is not None else 0  # noqa: E731
     sessions, tracks, join_s = await join_rooms(rm, sizes, pubs, spec)
     log(f"serving: {sum(sizes)} participants in {len(sizes)} rooms joined in "
         f"{join_s:.2f} s")
@@ -1018,16 +1073,27 @@ async def serve_rooms(dev, sizes, pubs, spec: synth.TrafficSpec, cfg: Config,
     room_pubs[:len(pubs)] = pubs
     n_sample = min(SAMPLE_ROOMS, len(sizes))
     audio = [(r, t) for r in range(n_sample) for t in range(spec.video_tracks, pubs[r])]
-    pushed: dict[tuple[int, int], list[tuple[int, bytes]]] = {rt_: [] for rt_ in audio}
-    got: dict[tuple[int, str], list[dict]] = {}
-    done_ticks: list[int] = []
+    # (generation, tick, payload) of every pushed packet of the sampled audio
+    pushed: dict[tuple[int, int], list[tuple[int, int, bytes]]] = {rt_: [] for rt_ in audio}
+    got: dict[tuple[int, str], list[tuple[int, dict]]] = {}
+    done: list[tuple[int, int]] = []       # (generation, tick index) completed
+    audio_sids = {tracks[r][t][1] for r, t in audio}
+    heard: dict[int, int] = {}             # generation → sampled audio frames
     frame_keys = {"track_sid", "sn", "ts", "pid", "tl0", "keyidx", "payload"}
     bad_frames = []
+    # (room, sub) of the synth estimate → (plane row, sub column) it feeds
+    feedback = []
+    if estimates:
+        for r, size in enumerate(sizes):
+            room = rm.rooms[f"room{r}"]
+            feedback += [(r, s, room.slots.row, room.participants[f"p{s}"].sub_col)
+                         for s in range(size)]
 
     def drain(res) -> None:
         # The WS pump's seat: empty every media queue each tick; decode
         # the sampled rooms' frames with the port's codec.
-        done_ticks.append(res.tick_index)
+        g = gen()
+        done.append((g, res.tick_index))
         for (r, ident), _ in sessions.items():
             q = rm.rooms[f"room{r}"].participants[ident].media_queue
             while not q.empty():
@@ -1036,7 +1102,9 @@ async def serve_rooms(dev, sizes, pubs, spec: synth.TrafficSpec, cfg: Config,
                     frame = packer.unpackb(data)
                     if set(frame) != frame_keys:
                         bad_frames.append(sorted(frame))
-                    got.setdefault((r, ident), []).append(frame)
+                    got.setdefault((r, ident), []).append((g, frame))
+                    if frame.get("track_sid") in audio_sids:
+                        heard[g] = heard.get(g, 0) + 1
 
     rt.on_tick(drain)
     logical = plane.PlaneDims(R, T, rt.dims.pkts, rt.dims.subs)
@@ -1050,14 +1118,18 @@ async def serve_rooms(dev, sizes, pubs, spec: synth.TrafficSpec, cfg: Config,
         while not stop.is_set():
             traffic, inp = synth.next_tick(traffic, logical, spec, i, seed=SEED)
             batch = synth_packets(mask_to_rooms(inp, room_pubs), rng)
-            k = rt.tick_index          # the tick whose drain takes this batch
+            k, g = rt.tick_index, gen()      # the tick whose drain takes this batch
             for j in np.nonzero(batch["room"] < n_sample)[0]:
                 key = (int(batch["room"][j]), int(batch["track"][j]))
                 if key in pushed:
                     s = int(batch["pay_start"][j])
-                    pushed[key].append((k, batch["blob"][s:s + int(batch["pay_length"][j])]
+                    pushed[key].append((g, k, batch["blob"][s:s + int(batch["pay_length"][j])]
                                         .tobytes()))
             rt.ingest.push_batch(**batch)
+            if feedback:
+                est = np.asarray(inp.estimate)
+                for r, s, row, col in feedback:
+                    rt.ingest.push_feedback(row, col, estimate=float(est[r, s]))
             i += 1
             while rt.tick_index == k and not stop.is_set():
                 await asyncio.sleep(0.001)
@@ -1067,7 +1139,8 @@ async def serve_rooms(dev, sizes, pubs, spec: synth.TrafficSpec, cfg: Config,
     rt.mark_warm()
     base_ticks, base_fwd = rt.stats["ticks"], rt.stats["fwd_packets"]
     base_late, base_stalls = rt.stats["late_ticks"], rt.stats["pipeline_stalls"]
-    done_ticks.clear()
+    base_dropped = rt.stats["dropped_steps"]
+    done.clear()
     for q in got.values():
         q.clear()
     # Count the dead-page computations (misses of the cache in front of
@@ -1083,6 +1156,7 @@ async def serve_rooms(dev, sizes, pubs, spec: synth.TrafficSpec, cfg: Config,
     paged.dead_page_outputs_cached.cache_clear()
     cuda.reset_launches()
     feed = asyncio.ensure_future(feeder())
+    capped = False
     t0 = time.perf_counter()
     try:
         rm.start()
@@ -1091,56 +1165,99 @@ async def serve_rooms(dev, sizes, pubs, spec: synth.TrafficSpec, cfg: Config,
             n = rt.stats["ticks"] - base_ticks
             if feed.done():
                 feed.result()
-            if (seconds is None or time.perf_counter() - t0 >= seconds) and n >= min_ticks:
+            settled = heard.get(gen(), 0) > 0
+            if ((seconds is None or time.perf_counter() - t0 >= seconds) and n >= min_ticks
+                    and (cap_s is None or settled)):
+                break
+            if cap_s is not None and (time.perf_counter() - t0 > cap_s
+                                      or (sup is not None and sup.gave_up)):
+                capped = not (sup is not None and sup.gave_up)
                 break
             if time.perf_counter() - t0 > SERVING_WALL_CAP_S:
                 raise AssertionError(f"serving loop ran {n} ticks in "
                                      f"{SERVING_WALL_CAP_S} s")
         stop.set()
         await feed
+        if sup is not None:
+            await sup.stop()      # no restart may race the stop below
         await rt.stop()
     finally:
         paged.dead_page_outputs = fresh
     wall_s = time.perf_counter() - t0
-    launches = dict(cuda.launches)
     ticks = rt.stats["ticks"] - base_ticks
-    records = [rec for rec in rt.trace.snapshot() if rec["tick"] >= done_ticks[0]]
+    restarts = gen()
+    if not done:
+        raise AssertionError(f"serving loop completed no tick in {wall_s:.1f} s")
+    first_tick = done[0][1]
+    records = [rec for rec in rt.trace.snapshot() if rec["tick"] >= first_tick]
 
-    # Launches: once per loop tick (the paged dead-page key adds one 1-page
-    # stock tick per key the card computed).
+    # Launches: once per loop tick, plus once per step whose tick a restart
+    # dropped (the paged dead-page key adds one 1-page stock tick per key
+    # the card computed). A step a restart left behind reports when its
+    # thread returns: give it a moment.
     keys = len(dead_keys)
-    if isinstance(rt, PagedPlaneRuntime):
-        expected = {"paged_kernel": ticks, "decide_rooms": keys,
-                    "allocate_budget_rooms": ticks + keys}
-    else:
-        expected = {"decide_rooms": ticks, "allocate_budget_rooms": ticks, "paged_kernel": 0}
+
+    def expected_launches() -> dict:
+        steps = ticks + rt.stats["dropped_steps"] - base_dropped
+        if isinstance(rt, PagedPlaneRuntime):
+            return {"paged_kernel": steps, "decide_rooms": keys,
+                    "allocate_budget_rooms": steps + keys}
+        return {"decide_rooms": steps, "allocate_budget_rooms": steps, "paged_kernel": 0}
+
+    t_wait = time.perf_counter()
+    while dict(cuda.launches) != expected_launches() and restarts \
+            and time.perf_counter() - t_wait < DRILL_WAIT_S:
+        await asyncio.sleep(0.05)
+    launches, expected = dict(cuda.launches), expected_launches()
     if launches != expected:
         raise AssertionError(f"serving loop launches {launches}, expected {expected} "
-                             f"over {ticks} ticks")
-    if len(records) != ticks or sorted(done_ticks) != done_ticks or len(done_ticks) != ticks:
-        raise AssertionError(f"serving loop completed {len(done_ticks)} ticks out of "
-                             f"order or lost records ({len(records)} of {ticks})")
+                             f"over {ticks} ticks and {restarts} restarts")
+    by_gen: dict[int, list[int]] = {}
+    for g, k in done:
+        by_gen.setdefault(g, []).append(k)
+    if len(done) != ticks or any(ks != sorted(ks) for ks in by_gen.values()):
+        raise AssertionError(f"serving loop completed {len(done)} ticks of {ticks} "
+                             f"or out of order")
+    if not restarts and len(records) != ticks:
+        raise AssertionError(f"serving loop lost records ({len(records)} of {ticks})")
 
-    # Audio delivery on the sampled rooms: every pushed Opus packet whose
-    # tick completed reaches every other participant exactly once, in sn
-    # order; none reaches its publisher.
+    # Audio delivery on the sampled rooms, in the last generation: without
+    # restarts or flagged rooms, every pushed Opus packet whose tick
+    # completed reaches every other participant exactly once, in sn order;
+    # none reaches its publisher.
     if bad_frames:
         raise AssertionError(f"media frames with fields {bad_frames[:3]}")
-    completed = set(done_ticks)
+    exact = not restarts and (integ is None or integ.violations_total == 0)
+    last = by_gen.get(restarts, [])
+    completed = set(last)
     checked = 0
     for (r, t) in audio:
         _col, sid = tracks[r][t]
-        want = [p for k, p in pushed[(r, t)] if k in completed]
-        if not want:
-            continue     # no packet of this track arrived in a completed tick
+        want = [p for g, k, p in pushed[(r, t)] if g == restarts and k in completed]
+        every = {p for _g, _k, p in pushed[(r, t)]}
         for s in range(sizes[r]):
-            frames = [f for f in got.get((r, f"p{s}"), []) if f["track_sid"] == sid]
+            frames = [f for g, f in got.get((r, f"p{s}"), [])
+                      if g == restarts and f["track_sid"] == sid]
             if s == t:
                 if frames:
                     raise AssertionError(f"room{r}: publisher p{t} got its own track")
                 continue
             payloads = [f["payload"] for f in frames]
             sns = [f["sn"] for f in frames]
+            if not exact:
+                # After a restart the first ticks may also carry packets
+                # pushed before it; a quarantine leaves gaps.
+                wanted = set(want)
+                kept = [p for p in payloads if p in wanted]
+                it = iter(want)
+                if (any(p not in every for p in payloads)
+                        or len(set(payloads)) != len(payloads)
+                        or not all(p in it for p in kept)
+                        or any(not 0 < (b - a) & 0xFFFF < 0x8000 for a, b in zip(sns, sns[1:]))):
+                    raise AssertionError(f"room{r} track {t} → p{s}: {len(payloads)} frames "
+                                         f"not a rising, once-only subsequence of the pushed")
+                checked += len(payloads)
+                continue
             if payloads != want:
                 raise AssertionError(
                     f"room{r} track {t} → p{s}: {len(payloads)} frames, "
@@ -1148,9 +1265,9 @@ async def serve_rooms(dev, sizes, pubs, spec: synth.TrafficSpec, cfg: Config,
                     f"{next((i for i, (a, b) in enumerate(zip(payloads, want)) if a != b), min(len(payloads), len(want)))}")
             if any((b - a) & 0xFFFF != 1 for a, b in zip(sns, sns[1:])):
                 raise AssertionError(f"room{r} track {t} → p{s}: sn not consecutive")
-            checked += len(frames)
+            checked += len(payloads)
 
-    if not checked:
+    if not checked and (exact or heard.get(restarts, 0)):
         raise AssertionError("no audio frame of the sampled rooms was delivered")
     for req, _task in sessions.values():
         req.close()
@@ -1158,7 +1275,36 @@ async def serve_rooms(dev, sizes, pubs, spec: synth.TrafficSpec, cfg: Config,
     await asyncio.wait_for(asyncio.gather(*(task for _, task in sessions.values())), 30)
 
     ms = lambda key: quantiles([rec[key] * 1e3 for rec in records])  # noqa: E731
+    plane_report = {}
+    if cap_s is not None:
+        plane_report = {"failure_plane": {
+            "capped": capped, "restarts": restarts,
+            "restart_causes": dict(sup.restart_causes) if sup else None,
+            "gave_up": sup.gave_up if sup else None,
+            "abandoned_steps": rt.stats["abandoned_steps"],
+            "dropped_steps": rt.stats["dropped_steps"] - base_dropped,
+            "ticks_after_last_restart": len(last), "receiver_estimates": estimates,
+            "delivery_check": "exact" if exact else "subsequence",
+            "integrity_escalations": integ.escalations if integ else 0,
+            "rows_quarantined": integ.rows_quarantined if integ else 0,
+            "rows_repaired": integ.rows_repaired if integ else 0,
+            "checkpoints": sup.checkpoints if sup else 0,
+            "checkpoint_fetch_ms_mean": (sup.checkpoint_fetch_s / sup.checkpoints * 1e3
+                                         if sup and sup.checkpoints else None),
+            "checkpoint_encode_ms_mean": (sup.checkpoint_encode_s / sup.checkpoints * 1e3
+                                          if sup and sup.checkpoints else None),
+            "governor_level": gov.level if gov else None,
+            "governor_transitions": list(gov.transitions) if gov else None,
+            "governor_rejected": dict(gov.rejected) if gov else None,
+            "audits": integ.audits if integ else 0,
+            "audit_s": integ.audit_s if integ else 0.0,
+            "audit_share_of_wall": integ.audit_s / wall_s if integ else 0.0,
+            "integrity_violations": integ.violations_total if integ else 0,
+            "ingest_dropped_policed": rt.ingest.dropped_policed,
+            "ingest_dropped_capacity": rt.ingest.dropped_capacity,
+        }}
     return {
+        **plane_report,
         "rooms": len(sizes), "participants": int(sum(sizes)), "join_s": join_s,
         "ticks": ticks, "wall_s": wall_s, "ticks_per_s": ticks / wall_s,
         "late_ticks": rt.stats["late_ticks"] - base_late,
@@ -1948,7 +2094,7 @@ def time_decide_pages(seen, where: str) -> dict:
     return out
 
 
-def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict]:
+def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict, plane.PlaneState]:
     """The live-extent device step at PAGED_TIMING_DIMS filled from the
     size mix, at full occupancy and after releasing half the rooms; the
     phase-0 kernel's own time on operands captured from a live step at
@@ -2005,7 +2151,387 @@ def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict]:
     del seen
     tick = {"dims": list(dims), "ticks": PAGED_TIMED_TICKS, "full": full, "half": half,
             "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
-    return tick, {"paged_kernel": kernel, "allocate_budget_rooms": alloc, "decide_rooms": dead}
+    return (tick, {"paged_kernel": kernel, "allocate_budget_rooms": alloc,
+                   "decide_rooms": dead}, state)
+
+
+# ---------------------------------------------------------------------------
+# The failure and overload plane: audit parity and time, checkpoint cost,
+# drills, and the reference's default config on the serving loops
+# ---------------------------------------------------------------------------
+
+DRILL_STALL_S = 2.5            # an injected stall, longer than the 1 s tick deadline
+DRILL_STALL_EVERY = 8          # device steps between injected stalls
+DRILL_STALLS = 2
+DRILL_BITFLIP = dict(bitflip_room=5, bitflip_leaf="ctrl.max_temporal", bitflip_bit=30,
+                     bitflip_count=2)
+DRILL_WAIT_S = 60.0
+DEFAULT_CFG4_TICKS = 45        # past L1 of the ladder (20 pressured ticks a rung)
+DEFAULT_PAGED_TICKS = 8
+DEFAULT_LOOP_CAP_S = 90.0
+
+
+def on_cpu(tree):
+    return plane.tree_map(lambda x: x.cpu(), tree)
+
+
+def audit_pair(state, mirror, where: str) -> tuple[np.ndarray, np.ndarray]:
+    """`integrity.audit_plane` on the card and on a CPU copy of the same
+    state and mirror: mask, counts and new mirror must be equal. Returns
+    the mask and counts."""
+    m, c, nm = integrity.audit_plane(state, mirror)
+    cm, cc, cnm = integrity.audit_plane(on_cpu(state), on_cpu(mirror))
+    if not (torch.equal(m.cpu(), cm) and torch.equal(c.cpu(), cc)
+            and all(torch.equal(a.cpu(), b) for a, b in zip(nm, cnm))):
+        raise AssertionError(f"audit_plane on the card != on the CPU: {where}")
+    return cm.numpy(), cc.numpy()
+
+
+def poison_rules(state, mirror, base: np.ndarray):
+    """A clone of `state` and `mirror` with one room corrupted per audit
+    rule (rooms 0..5) and one legitimate stream reset (room 6, not a
+    violation); returns them with the expected mask: `base` (the clean
+    state's mask) with each corrupted room's rule bit added."""
+    st = plane.tree_map(torch.clone, state)
+    mi = integrity.AuditMirror(*[x.clone() for x in mirror])
+    st.audio_state.smoothed_level[0, 0] = float("nan")           # nonfinite
+    st.temporal_bytes[1].view(-1)[0] = 1e35                      # range
+    st.ctrl.max_spatial[3, 0, 0] = 7                             # ctrl
+    st.sel.current_spatial[4, 0, 0] = 99                         # bounds
+    st.bwe_state.ring_pos[5, 0] = -3                             # bounds
+    s = st.stats
+    for room, same_stream in ((2, True), (6, False)):            # cursor / reset
+        s.started[room, 0], s.first_sn[room, 0] = True, 17
+        s.highest_sn[room, 0], s.sn_cycles[room, 0] = 100, 0
+        mi.started[room, 0], mi.ext_sn[room, 0] = True, 200       # the SN went back
+        mi.first_sn[room, 0] = 17 if same_stream else 18
+    want = base.copy()
+    want[:6] |= (integrity.BIT_NONFINITE, integrity.BIT_RANGE, integrity.BIT_CURSOR,
+                 integrity.BIT_CTRL, integrity.BIT_BOUNDS, integrity.BIT_BOUNDS)
+    return st, mi, want
+
+
+def rule_counts(mask: np.ndarray) -> list[int]:
+    """Rooms flagged by each audit rule in a per-room mask."""
+    return [int(((mask >> b) & 1).sum()) for b in range(integrity.NUM_RULES)]
+
+
+def ring_cursor_rooms(state) -> np.ndarray:
+    """[R] bool: rooms with a subscriber whose BWE ring write cursor has
+    reached bwe.WINDOW. The BWE reads the cursor modulo WINDOW and never
+    wraps it, while the audit's bounds rule holds it below WINDOW — the
+    reference's audit flags these rooms on a clean state."""
+    ring = state.bwe_state.ring_pos.cpu().numpy()
+    return (ring >= bwe.WINDOW).reshape(ring.shape[0], -1).any(axis=1)
+
+
+def audit_bytes(state) -> int:
+    """Bytes one audit must move: the leaves it reads (every float leaf,
+    the stream cursors, the ctrl caps, the selector layers, the BWE ring
+    cursor) and the mirror in; the mask, counts and new mirror out."""
+    s = state.stats
+    read = [x for x in plane.tree_leaves(state) if x.is_floating_point()]
+    read += [s.started, s.first_sn, s.highest_sn, s.sn_cycles, s.received,
+             state.ctrl.max_spatial, state.ctrl.max_temporal, *state.sel,
+             state.bwe_state.ring_pos]
+    mirror = (s.started, s.first_sn, s.highest_sn, s.received)
+    rooms = s.started.shape[0]
+    return (sum(x.numel() * x.element_size() for x in read)
+            + 2 * sum(x.numel() * x.element_size() for x in mirror)
+            + rooms * 4 + integrity.NUM_RULES * 4)
+
+
+def audit_time(state, tick_ms: float, where: str) -> dict:
+    """The audit's device time (`graph_ms`) and call time on `state` with
+    a mirror from a previous audit, beside its byte bound and the device
+    step it rides on, after holding it equal to the CPU audit there."""
+    _, _, mirror = integrity.audit_plane(state, integrity.init_mirror(state))
+    mask, counts = audit_pair(state, mirror, where)
+    b = audit_bytes(state)
+    ms = graph_ms(lambda: integrity.audit_plane(state, mirror), KERNEL_REPS)
+    return {"ms": ms, "call_ms": event_ms(lambda: integrity.audit_plane(state, mirror),
+                                          KERNEL_REPS),
+            "bound_ms": b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": b,
+            "state_bytes": nbytes(state), "rooms": int(state.meta.is_video.shape[0]),
+            "clean_state_counts": counts.tolist(),
+            "tick_ms": tick_ms, "share_of_tick": ms / tick_ms,
+            "share_amortized": ms / (tick_ms * Config().integrity.audit_every_ticks)}
+
+
+def checkpoint_time(rt: PlaneRuntime) -> dict:
+    """One checkpoint round of the supervisor's design on `rt`: snapshot
+    (device → host), encode (npz + LKCK frame), decode, restore (host →
+    fresh device tensors); the restored state must equal the snapshot
+    leaf for leaf, bit for bit."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = rt.snapshot()
+    t1 = time.perf_counter()
+    blob = rt.encode_snapshot(snap)
+    t2 = time.perf_counter()
+    back = rt.decode_snapshot(blob)
+    t3 = time.perf_counter()
+    rt.restore(back)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    for i, (a, b) in enumerate(zip(snap["arrays"], plane.state_to_numpy(rt.state))):
+        if a.shape != b.shape or a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"restore: leaf {i} differs from the snapshot")
+    return {"snapshot_ms": (t1 - t0) * 1e3, "encode_ms": (t2 - t1) * 1e3,
+            "decode_ms": (t3 - t2) * 1e3, "restore_ms": (t4 - t3) * 1e3,
+            "state_bytes": nbytes(rt.state), "frame_bytes": len(blob),
+            "munger_bytes": sum(a.nbytes for a in snap["munger"])}
+
+
+async def wait_for(cond, what: str, timeout: float = DRILL_WAIT_S) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"drill: timed out waiting for {what}")
+        await asyncio.sleep(0.01)
+
+
+async def drills(dev, dims: plane.PlaneDims = RUNTIME_DIMS) -> tuple[dict, PlaneRuntime]:
+    """The bitflip and stall drills on a cfg4 RoomManager's runtime through
+    its serving loop, supervisor and integrity on (the reference's
+    defaults), the governor off, fault injection on (FaultSpec knobs set
+    per drill). Rooms are set up on the runtime directly and nothing is
+    delivered (the drills read the plane, not the wire). The traffic is
+    media without receiver estimates, as in the serving loops: with
+    estimates, every room's BWE ring cursor passes bwe.WINDOW within eight
+    ticks and the audit flags all of them (`ring_cursor_rooms`), so the
+    ladder could not be drilled on one room. Returns the report and the
+    runtime (stopped)."""
+    cfg = serving_config(dense_dims=dims, failure_plane=True)
+    cfg.limits.governor_enabled = False
+    cfg.faults.enabled = True
+    rm = RoomManager(cfg, LocalRouter(LocalNode()), LocalStore(),
+                     telemetry=TelemetryService(cfg), device=dev)
+    rt, sup, mon, fault = rm.runtime, rm.supervisor, rm.integrity, rm.fault
+    rt._on_tick.clear()
+    setup_rooms(rt, RUNTIME_SPEC)
+    traffic = synth.init_traffic(dims, RUNTIME_SPEC, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    stop = asyncio.Event()
+
+    async def feeder() -> None:
+        nonlocal traffic
+        i = 0
+        while not stop.is_set():
+            traffic, inp = synth.next_tick(traffic, dims, RUNTIME_SPEC, i, seed=SEED)
+            k = rt.tick_index
+            rt.ingest.push_batch(**synth_packets(inp, rng))
+            i += 1
+            while rt.tick_index == k and not stop.is_set():
+                await asyncio.sleep(0.001)
+
+    await rt.step_once()
+    rt.mark_warm()
+    feed = asyncio.ensure_future(feeder())
+    rm.start()
+    report: dict = {}
+    try:
+        await sup.checkpoint_now()            # a clean repair seed
+        # Bitflip: corrupt one room's row a few ticks ahead; the audit on
+        # its cadence must flag exactly that room, quarantine it, repair it
+        # from the last checkpoint, and audit clean after.
+        for k, v in DRILL_BITFLIP.items():
+            setattr(fault.spec, k, v)
+        fault.spec.bitflip_tick = rt.tick_index + 3
+        flagged: set[int] = set()
+        detected: list[int] = []
+
+        def seen() -> bool:
+            if mon.violations_total and not detected:
+                detected.append(mon.last_audit_tick)
+                flagged.update(int(r) for r in np.nonzero(mon.last_mask)[0])
+            return mon.rows_repaired >= 1
+
+        await wait_for(seen, "the bitflipped row's repair")
+        audits_at_repair = mon.audits
+        await wait_for(lambda: mon.audits > audits_at_repair, "the audit after the repair")
+        report["bitflip"] = {
+            "tick": fault.spec.bitflip_tick, "room": DRILL_BITFLIP["bitflip_room"],
+            "leaf": DRILL_BITFLIP["bitflip_leaf"], "bitflips": fault.stats.bitflips,
+            "flagged_rooms": sorted(flagged), "detected_at_tick": detected[0],
+            "audit_every_ticks": mon.audit_every,
+            "rows_quarantined": mon.rows_quarantined, "rows_repaired": mon.rows_repaired,
+            "escalations": mon.escalations, "violations_by_rule": dict(mon.rule_violations),
+            "next_audit_clean": not any(mon.last_mask), "quarantined_now": sorted(mon.quarantined),
+        }
+        fault.spec.bitflip_tick = -1
+        b = report["bitflip"]
+        if not (b["bitflips"] == DRILL_BITFLIP["bitflip_count"]
+                and b["flagged_rooms"] == [DRILL_BITFLIP["bitflip_room"]]
+                and b["rows_quarantined"] == 1 and b["rows_repaired"] == 1
+                and b["escalations"] == 0 and b["next_audit_clean"]
+                and not b["quarantined_now"]):
+            raise AssertionError(f"bitflip drill: {b}")
+
+        # Stall: every DRILL_STALL_EVERY-th device step sleeps DRILL_STALL_S
+        # on the worker thread; each stall must cost one restart (cause
+        # stall) whose loop advances, and the abandoned step commits nothing.
+        restarts0, ticks_after = sup.restarts, []
+        abandoned0 = rt.stats["abandoned_steps"]
+        fault.spec.stall_s = DRILL_STALL_S
+        fault.spec.stall_every = DRILL_STALL_EVERY
+        fault._step_count = 0
+        for i in range(DRILL_STALLS):
+            await wait_for(lambda: sup.restarts >= restarts0 + i + 1, f"restart {i + 1}")
+            if i + 1 == DRILL_STALLS:
+                fault.spec.stall_every = 0
+            at = rt.stats["ticks"]
+            await wait_for(lambda: rt.stats["ticks"] >= at + 2, f"ticks after restart {i + 1}")
+            ticks_after.append(rt.stats["ticks"] - at)
+        await wait_for(lambda: rt.stats["abandoned_steps"] >= abandoned0 + DRILL_STALLS,
+                       "the stalled steps' return", DRILL_STALL_S * 2 + 5)
+        report["stall"] = {
+            "stall_s": DRILL_STALL_S, "stalls": fault.stats.stalls,
+            "restarts": sup.restarts - restarts0, "restart_causes": dict(sup.restart_causes),
+            "ticks_advanced_after_each": ticks_after,
+            "abandoned_steps": rt.stats["abandoned_steps"] - abandoned0,
+            "gave_up": sup.gave_up, "checkpoints": sup.checkpoints,
+        }
+        st = report["stall"]
+        if not (st["stalls"] == DRILL_STALLS == st["restarts"]
+                and st["restart_causes"] == {"stall": DRILL_STALLS, "integrity": 0}
+                and st["abandoned_steps"] == DRILL_STALLS and not st["gave_up"]):
+            raise AssertionError(f"stall drill: {st}")
+    finally:
+        stop.set()
+        await feed
+        await rm.stop()
+    return report, rt
+
+
+async def paged_audit_check(dev, dims: paged.PagedDims = PAGED_RUNTIME_DIMS) -> dict:
+    """Audit parity on a PagedPlaneRuntime at PAGED_RUNTIME_DIMS (rooms
+    from the size mix, two ticks of traffic): the pooled audit on the card
+    against the CPU; then one page's state and one page-table row
+    corrupted: `map_audit_mask` must flag the page's room, and BIT_TABLE on
+    the table row's true and phantom owners, and repair the row."""
+    spec = PAGED_SPEC
+    rt = PagedPlaneRuntime(dims, tick_ms=spec.tick_ms, device=dev, paged_kernel="on")
+    sizes = admit_rooms(rt.pager)
+    for r, size in enumerate(sizes):
+        setup_paged_room(rt, r, size)
+    room_sizes = np.zeros(dims.rooms, np.int64)
+    room_sizes[:len(sizes)] = sizes
+    logical = plane.PlaneDims(dims.rooms, dims.tracks, dims.pkts, dims.subs)
+    traffic = synth.init_traffic(logical, spec, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    for i in range(2):
+        traffic, inp = synth.next_tick(traffic, logical, spec, i, seed=SEED)
+        push_paged(rt, synth_packets(mask_to_rooms(inp, room_sizes), rng),
+                   np.asarray(inp.estimate), sizes)
+        await rt.step_once()
+    _, _, mirror = integrity.audit_plane(rt.state, integrity.init_mirror(rt.state))
+    clean, _ = audit_pair(rt.state, mirror, "the paged pool")
+    base = rt.map_audit_mask(clean)
+    pages = rt.pager.pages_of_room(0)
+    victim, table_page = int(pages[0]), int(rt.pager.pages_of_room(1)[0])
+    rt.state.audio_state.smoothed_level[victim, 0] = float("inf")
+    phantom = 2
+    rt.table.pg_room[table_page] = phantom
+    mask, counts = audit_pair(rt.state, mirror, "the corrupted paged pool")
+    with rt._on_stream():
+        room_mask = rt.map_audit_mask(mask)
+    want = base.copy()
+    want[0] |= integrity.BIT_NONFINITE | integrity.BIT_RANGE
+    want[[1, phantom]] |= integrity.BIT_TABLE
+    repaired = int(rt.table.pg_room[table_page]) == 1
+    if not np.array_equal(room_mask, want) or not repaired or rt.table_repairs != 1:
+        raise AssertionError(f"paged audit: rooms {np.nonzero(room_mask)[0].tolist()} "
+                             f"mask {room_mask[room_mask != 0].tolist()}, table row "
+                             f"repaired {repaired}")
+    return {"pool_pages": dims.pool_pages, "rooms": len(sizes),
+            "live_pages": int(rt.pager.pages_mapped), "clean_rooms_flagged": int(base.astype(bool).sum()),
+            "flagged_rooms": [0, 1, phantom], "page_counts": counts.tolist(),
+            "table_repairs": rt.table_repairs}
+
+
+async def failure_phase(dev, ns_state, ns_tick: dict, pool_state, pool_tick: dict,
+                        ns_dims: plane.PlaneDims = NORTH_STAR,
+                        dense_dims: plane.PlaneDims = RUNTIME_DIMS,
+                        paged_dims: paged.PagedDims = PAGED_RUNTIME_DIMS) -> dict:
+    """The failure and overload plane on the card: `audit_plane` held to
+    the CPU on the north-star state (clean, and with one room corrupted
+    per rule), on the cfg4 drill runtime's state, and on the paged pool
+    with `map_audit_mask` and a corrupted page-table row; the audit's
+    device time at the north star, cfg4 and the 65536-page pool beside its
+    byte bound and the step it rides on; a checkpoint round's cost at cfg4
+    and at the north star; the bitflip and stall drills; and the WS cfg4
+    and paged serving loops under the reference's default config
+    (supervisor, integrity and governor on, faults off), every subscriber
+    sending receiver estimates."""
+    t_phase = time.perf_counter()
+    out: dict = {"card": card_line()}
+    _, _, mirror = integrity.audit_plane(ns_state, integrity.init_mirror(ns_state))
+    base, base_counts = audit_pair(ns_state, mirror, "the north-star state")
+    ring = ring_cursor_rooms(ns_state)
+    if not np.array_equal(base.astype(bool), ring) or base_counts[:4].any():
+        raise AssertionError(f"the north-star state flags {base_counts.tolist()}, beyond "
+                             f"the {int(ring.sum())} rooms of the ring-cursor rule")
+    st, mi, want = poison_rules(ns_state, mirror, base)
+    mask, counts = audit_pair(st, mi, "the north-star state, one room per rule")
+    if not np.array_equal(mask, want) or counts.tolist() != rule_counts(want):
+        raise AssertionError(f"audit rules: mask {mask[:8].tolist()} counts {counts.tolist()}")
+    del st, mi
+    out["audit_parity"] = {
+        "clean_north_star": {"counts": base_counts.tolist(),
+                             "rooms_ring_cursor_past_window": int(ring.sum())},
+        "poisoned_north_star": dict(zip(integrity.AUDIT_RULES, counts.tolist()))}
+    out["audit_parity"]["paged"] = await paged_audit_check(dev, paged_dims)
+    torch.cuda.empty_cache()
+
+    out["drills"], drill_rt = await drills(dev, dense_dims)
+    # The drill plane audits clean (no receiver estimates): each rule
+    # flags exactly its room there.
+    _, _, mirror = integrity.audit_plane(drill_rt.state, integrity.init_mirror(drill_rt.state))
+    base, _ = audit_pair(drill_rt.state, mirror, "the cfg4 drill state")
+    st, mi, want = poison_rules(drill_rt.state, mirror, base)
+    mask, counts = audit_pair(st, mi, "the cfg4 drill state, one room per rule")
+    if base.any() or not np.array_equal(mask, want) or counts.tolist() != [1, 1, 1, 1, 2]:
+        raise AssertionError(f"audit rules on cfg4: mask {mask[:8].tolist()} "
+                             f"counts {counts.tolist()}")
+    out["audit_parity"]["poisoned_cfg4"] = dict(zip(integrity.AUDIT_RULES, counts.tolist()))
+    del st, mi
+    cfg4_tick_ms = statistics.median(r["device_ms"] for r in drill_rt.recent_ticks)
+    out["audit_ms"] = {
+        "north_star": audit_time(ns_state, ns_tick["median_ms"], "the north-star state"),
+        "cfg4": audit_time(drill_rt.state, cfg4_tick_ms, "the cfg4 drill state"),
+        "paged_pool": audit_time(pool_state, pool_tick["half"]["median_ms"],
+                                 "the 65536-page pool"),
+    }
+    out["checkpoint"] = {"cfg4": checkpoint_time(drill_rt)}
+    ns_rt = PlaneRuntime(ns_dims, tick_ms=NORTH_STAR_SPEC.tick_ms, device=dev)
+    ns_rt.state = ns_state
+    out["checkpoint"]["north_star"] = checkpoint_time(ns_rt)
+    del ns_rt, drill_rt
+    torch.cuda.empty_cache()
+    log(f"failure: audit parity exact, drills ok, audit ms {json.dumps(out['audit_ms'])}")
+
+    n_pub = RUNTIME_SPEC.video_tracks + RUNTIME_SPEC.audio_tracks
+    dense = await serve_rooms(
+        dev, [dense_dims.subs] * dense_dims.rooms, [n_pub] * dense_dims.rooms,
+        RUNTIME_SPEC, serving_config(dense_dims=dense_dims, failure_plane=True), None,
+        DEFAULT_CFG4_TICKS, cap_s=DEFAULT_LOOP_CAP_S, estimates=True)
+    log(f"failure: default config, cfg4 loop: {json.dumps(dense['failure_plane'])}")
+    scratch = RoomPager(paged_dims.rooms, paged_dims.tracks, paged_dims.subs,
+                        tpage=paged_dims.tpage, spage=paged_dims.spage,
+                        pool_pages=paged_dims.pool_pages)
+    sizes = admit_rooms(scratch)
+    paged_report = await serve_rooms(
+        dev, sizes, sizes, PAGED_SPEC, serving_config(paged_dims, failure_plane=True), None,
+        DEFAULT_PAGED_TICKS, cap_s=DEFAULT_LOOP_CAP_S, estimates=True)
+    log(f"failure: default config, paged loop: {json.dumps(paged_report['failure_plane'])}")
+    keep = ("ticks", "wall_s", "wall_ms_per_tick", "fwd_packets", "late_ticks",
+            "failure_plane", "join_s", "launches", "tick_ms", "stage_ms", "device_ms",
+            "fanout_ms", "send_ms")
+    out["default_config"] = {"dense": {k: dense[k] for k in keep},
+                             "paged": {k: paged_report[k] for k in keep}}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def main() -> int:
@@ -2040,8 +2566,10 @@ def main() -> int:
     print(json.dumps({"serving": serving}), flush=True)
     udp = asyncio.run(udp_phase(dev))
     print(json.dumps({"udp": udp}), flush=True)
-    tick, dense_t = timing_phase(dev, args.profile)
-    paged_tick, paged_t = paged_timing_phase(dev, args.profile)
+    tick, dense_t, ns_state = timing_phase(dev, args.profile)
+    paged_tick, paged_t, pool_state = paged_timing_phase(dev, args.profile)
+    failure = asyncio.run(failure_phase(dev, ns_state, tick, pool_state, paged_tick))
+    del ns_state, pool_state
 
     # decide_rooms and allocate_budget_rooms belong to the dense path,
     # paged_kernel to the paged path; each kernel's top-level numbers and
@@ -2076,6 +2604,7 @@ def main() -> int:
     print(json.dumps({"paged_tick": paged_tick, "paged_kernel": paged_t["paged_kernel"],
                       "paged_allocate_budget_rooms": paged_t["allocate_budget_rooms"]}),
           flush=True)
+    print(json.dumps({"failure": failure}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

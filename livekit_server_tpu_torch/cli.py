@@ -17,7 +17,9 @@ Port of the JAX package's cli.py. `serve` runs the media plane on
 PyTorch path) and needs aiohttp for its HTTP/WebSocket front. Every
 config starts from `config.port_overlay()`, which turns off the
 subsystems the port does not carry yet; a YAML file or flag that turns
-one back on is refused with a ConfigError. `--dev` adds the reference's
+one back on is refused with a ConfigError. The plane supervisor, the
+integrity audit and the overload governor are ported and run on by
+default, as in the reference. `--dev` adds the reference's
 `development: true`. The multi-node commands (bus, list-nodes, drain)
 wait for the multi-node bus (ROADMAP A13).
 """

@@ -391,9 +391,10 @@ class IntegrityConfig:
     verified checkpoint, bounded escalation to a supervisor restart."""
 
     enabled: bool = True
-    # Audit every Nth tick. The audit is one fused jitted reduction over
-    # the plane state; 16 keeps its amortized cost well under 1% of tick
-    # time while bounding detection latency to N ticks.
+    # Audit every Nth tick: one reduction over the plane state on the
+    # device, right after the tick commits; N bounds detection latency to
+    # N ticks. Its cost on the card beside the tick it rides on is
+    # measured by chip_smoke.py's failure phase (PERF.md).
     audit_every_ticks: int = 16
     # Row-repair attempts per room before escalating to a full plane
     # restart (attempts reset once the room audits clean).
@@ -780,12 +781,8 @@ def _validate(cfg: Config) -> None:
 # enables it, the value that turns it off, the ROADMAP item that brings
 # it). RoomManager refuses a config that enables any of them.
 UNPORTED: tuple[tuple[str, Callable[[Any], bool], Any, str], ...] = (
-    ("supervisor.enabled", bool, False, "A9 (snapshots, restore, supervisor)"),
-    ("integrity.enabled", bool, False, "A9 (integrity audit)"),
     ("migration.enabled", bool, False, "A13 (migration, fleet plane, TCP bus)"),
     ("fleet.enabled", bool, False, "A13 (migration, fleet plane, TCP bus)"),
-    ("limits.governor_enabled", bool, False, "A14 (governor, fault injection)"),
-    ("faults.enabled", bool, False, "A14 (governor, fault injection)"),
     ("relay.enabled", bool, False, "A12b (media relay, WebRTC gateway)"),
     ("plane.express_max_subs", lambda v: v > 0, 0, "A15 (express lane)"),
     ("plane.mesh_devices", lambda v: v > 1, 1, "A10 (multi-GPU)"),

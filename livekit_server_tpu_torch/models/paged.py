@@ -769,6 +769,14 @@ class LayoutXlate:
             out_tr = np.pad(out_tr, ((0, 0), (0, pad)), constant_values=-1)
         return out_lv, out_tr
 
+    def page_mask_to_rooms(self, mask):
+        """[P] per-page audit mask → [R] per-room mask (OR of the room's
+        pages) — the integrity monitor's map_audit_mask."""
+        mask = np.asarray(mask)
+        room_mask = np.zeros(self.dims.rooms, mask.dtype)
+        np.bitwise_or.at(room_mask, self.pg_room[self.occ], mask[self.occ])
+        return room_mask
+
     def sel_to_logical(self, sel_pooled, sel_fill):
         """Pooled SelectorState (numpy) → logical: each leaf is track_sub."""
         return plane.tree_map(lambda pl, fl: self._leaf_to_logical(_K_TS, pl, fl),

@@ -253,15 +253,24 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def _unflatten(template, it):
-    if isinstance(template, tuple):
-        return type(template)(*[_unflatten(sub, it) for sub in template])
-    return next(it)
+def tree_unflatten(template, leaves):
+    """A tree shaped like `template` holding `leaves` in `tree_leaves`
+    order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, tuple):
+            return type(node)(*[build(sub) for sub in node])
+        return next(it)
+
+    return build(template)
 
 
 def state_to_numpy(state: PlaneState) -> list[np.ndarray]:
-    """PlaneState → flat list of numpy leaves in the reference's order."""
-    return [x.detach().cpu().numpy() for x in tree_leaves(state)]
+    """PlaneState → flat list of numpy leaves in the reference's order
+    (copies: never views of the state's tensors, which the runtime
+    writes in place)."""
+    return [x.detach().to("cpu", copy=True).numpy() for x in tree_leaves(state)]
 
 
 def state_from_numpy(leaves, device="cuda") -> PlaneState:
@@ -281,7 +290,7 @@ def state_from_numpy(leaves, device="cuda") -> PlaneState:
         if a.shape != tuple(ref.shape):
             raise ValueError(f"leaf {i}: shape {a.shape}, expected {tuple(ref.shape)}")
         tensors.append(torch.from_numpy(np.array(a)).to(ref.dtype).to(dev))
-    return _unflatten(template, iter(tensors))
+    return tree_unflatten(template, tensors)
 
 
 def params_to_numpy(params: NamedTuple) -> list:

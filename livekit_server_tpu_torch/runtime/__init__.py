@@ -1,5 +1,6 @@
 """Host runtime of the port: slot allocation, ingest staging, host munging,
-probe control and the dense single-device PlaneRuntime."""
+probe control, the dense single-device PlaneRuntime, and the failure and
+overload plane (supervisor, integrity, governor, faultinject)."""
 
 from livekit_server_tpu_torch.runtime.ingest import IngestBuffer
 from livekit_server_tpu_torch.runtime.plane_runtime import PlaneRuntime

@@ -7,13 +7,15 @@ tick boundary `drain()` hands the filled tensors (plus the valid mask) to
 the device step and resets the cursors. Overflow (more than K packets in
 one tick) drops and counts; payload bytes stay in a host slab.
 
-A copy of the JAX package's runtime/ingest.py, cut to what the dense
-tick's main path needs: push / push_batch / feedback staging, the
-within-tick reorder + dedup, and the double-buffered drain, with the
-numpy payload gather and the arrival stamps (`t_arr`). Migration
-freezes, fault injection, the ingress policer and the arrival hook
-`on_put` (set only by the express lane) are not carried (their runtime
-features are not ported yet).
+A copy of the JAX package's runtime/ingest.py: push / push_batch /
+feedback staging, the within-tick reorder + dedup, and the
+double-buffered drain, with the numpy payload gather and the arrival
+stamps (`t_arr`); drops split by cause (capacity, fault, policed); the
+governor's per-(room, track) ingress policer (scalar and batch paths);
+and the fault injector's seams (drop / delay / duplicate / flood, with
+delayed packets re-entering at drain). Migration freezes (`frozen_rows`,
+ROADMAP A13) and the arrival hook `on_put` (set only by the express lane,
+A15) are not carried.
 """
 
 from __future__ import annotations
@@ -178,7 +180,28 @@ class IngestBuffer:
         self.dims = dims
         self.tick_ms = tick_ms
         R, T, K, S = dims
+        # Drop accounting, split by cause so shedding metrics are
+        # trustworthy: capacity = tick slab overflow (real overload
+        # pressure), fault = chaos-injected loss (faultinject.py),
+        # policed = governor token-bucket shedding (intentional — must
+        # NOT read back as pressure). `dropped` sums them.
         self.dropped_capacity = 0
+        self.dropped_fault = 0
+        self.dropped_policed = 0
+        # Optional FaultInjector (runtime/faultinject.py) consulted by
+        # push()/push_batch(); None on the default config path. Delayed
+        # packets re-enter at the top of drain() for their release tick.
+        self.fault = None
+        self._fault_tick = 0
+        # Ingress policer (governor L2+): per-(room, track) token
+        # buckets, refilled at drain() so admission cost stays O(1) per
+        # packet. rate == 0 disables. `_police_video` holds a LIVE view
+        # of the runtime's is_video mirror when set — audio is exempt by
+        # construction (video sheds first).
+        self._police_rate = 0.0
+        self._police_burst = 0.0
+        self._police_tokens = np.zeros((R, T), np.float64)
+        self._police_video = None
         self._sets = (_StagingSet(dims), _StagingSet(dims))
         self._active = 0
         self._bind(self._sets[0])
@@ -208,8 +231,23 @@ class IngestBuffer:
 
     @property
     def dropped(self) -> int:
-        """Total ingest drops (the port sheds for capacity only)."""
-        return self.dropped_capacity
+        """Total drops across causes (the split counters are the
+        trustworthy signal)."""
+        return self.dropped_capacity + self.dropped_fault + self.dropped_policed
+
+    def set_policer(self, rate_pps: float, burst: float,
+                    is_video: np.ndarray | None = None) -> None:
+        """Arm the per-(room, track) ingress token buckets (governor L2).
+        `is_video` is held by reference — tracks whose flag is False
+        (audio) bypass the policer entirely."""
+        self._police_rate = float(rate_pps)
+        self._police_burst = float(burst)
+        self._police_tokens[:] = burst
+        self._police_video = is_video
+
+    def clear_policer(self) -> None:
+        self._police_rate = 0.0
+        self._police_video = None
 
     def _bind(self, s: _StagingSet) -> None:
         for name in _StagingSet.ARRAYS:
@@ -233,12 +271,36 @@ class IngestBuffer:
         ranks[order] = np.arange(n) - np.repeat(grp_start, sizes)
         return order, sorted_rt, grp_start, sizes, ranks
 
-    def push(self, pkt: PacketIn, t_rx: float = 0.0) -> bool:
+    def push(self, pkt: PacketIn, t_rx: float = 0.0, _fault_ok: bool = False,
+             _count_rx: bool = True) -> bool:
         """Stage one packet (arrival stamp `t_rx`, 0 = none); False (and
-        counted) if the tick is full."""
+        counted by cause) if shed."""
         r, t = pkt.room, pkt.track
-        self.rx_pkts[r, t] += 1
-        self.rx_bytes[r, t] += pkt.size
+        # Receive accounting first: the packet arrived on the wire whatever
+        # verdict follows. drain()'s delayed-release re-entry passes
+        # _count_rx=False — its arrival was counted at the original push.
+        if _count_rx:
+            self.rx_pkts[r, t] += 1
+            self.rx_bytes[r, t] += pkt.size
+        if self.fault is not None and not _fault_ok:
+            verdict = self.fault.on_packet(pkt, self._fault_tick)
+            if verdict == "drop":
+                self.dropped_fault += 1
+                return False
+            if verdict == "delay":
+                return False  # not a drop: re-enters via drain() take_due
+            if verdict == "dup":
+                self.push(pkt, t_rx, _fault_ok=True)
+            # Flood mode: stage seeded extra copies of this packet.
+            for _ in range(self.fault.flood_copies(pkt.room)):
+                self.push(pkt, t_rx, _fault_ok=True)
+        if self._police_rate > 0.0 and (
+            self._police_video is None or self._police_video[r, t]
+        ):
+            if self._police_tokens[r, t] < 1.0:
+                self.dropped_policed += 1
+                return False
+            self._police_tokens[r, t] -= 1.0
         k = self._count[r, t]
         if k >= self.dims.pkts:
             self.dropped_capacity += 1
@@ -282,6 +344,27 @@ class IngestBuffer:
         n = len(room)
         if n == 0:
             return 0
+        if self.fault is not None:
+            # Chaos path: route the batch through the per-packet seam so
+            # the seeded rng sees every packet in arrival order (the
+            # reproducibility contract). Slow is fine — fault runs are
+            # tests and drills, never the default config. DD extension
+            # bytes are not re-staged on this path.
+            staged = 0
+            for i in range(n):
+                ps, pl = int(pay_start[i]), int(pay_length[i])
+                staged += self.push(PacketIn(
+                    room=int(room[i]), track=int(track[i]), sn=int(sn[i]), ts=int(ts[i]),
+                    size=int(size[i]),
+                    payload=bytes(blob[ps:ps + pl]) if ps >= 0 else b"",
+                    marker=bool(marker[i]), layer=int(layer[i]),
+                    temporal=int(temporal[i]), keyframe=bool(keyframe[i]),
+                    layer_sync=bool(layer_sync[i]), begin_pic=bool(begin_pic[i]),
+                    pid=int(pid[i]), tl0=int(tl0[i]), keyidx=int(keyidx[i]),
+                    frame_ms=int(frame_ms[i]), audio_level=int(audio_level[i]),
+                    arrival_rtp=int(arrival_rtp[i]), ts_aligned=bool(ts_aligned[i]),
+                ), t_rx)
+            return staged
         if dd_start is None:
             dd_start = np.full(n, -1, np.int64)
             dd_length = np.zeros(n, np.int32)
@@ -295,6 +378,39 @@ class IngestBuffer:
         np.add.at(self.rx_pkts.reshape(-1), flat_rt, 1)
         np.add.at(self.rx_bytes.reshape(-1), flat_rt, size.astype(np.int64))
         order, sorted_rt, grp_start, sizes, ranks = self._group_ranks(flat_rt, n)
+        if self._police_rate > 0.0:
+            # Vectorized token buckets (same semantics as the scalar
+            # path): each group's first floor(tokens) non-exempt packets
+            # are admitted this batch; the rest are policed. Audio
+            # (is_video False) bypasses entirely.
+            tok = self._police_tokens.reshape(-1)
+            exempt = (np.zeros(n, bool) if self._police_video is None
+                      else ~self._police_video.reshape(-1)[flat_rt])
+            quota = np.floor(tok[flat_rt]).astype(np.int64)
+            pol = ~exempt & (ranks >= quota)
+            adm = ~exempt & ~pol
+            if adm.any():
+                np.subtract.at(tok, flat_rt[adm], 1.0)
+            n_pol = int(pol.sum())
+            if n_pol:
+                self.dropped_policed += n_pol
+                keep1 = ~pol
+                (room, track, layer, sn, ts, ts_aligned, temporal, keyframe,
+                 layer_sync, begin_pic, marker, pid, tl0, keyidx, size,
+                 frame_ms, audio_level, arrival_rtp, pay_start, pay_length,
+                 dd_start, dd_length, dd_version, end_frame) = (
+                    a[keep1] for a in (
+                        room, track, layer, sn, ts, ts_aligned, temporal,
+                        keyframe, layer_sync, begin_pic, marker, pid, tl0,
+                        keyidx, size, frame_ms, audio_level, arrival_rtp,
+                        pay_start, pay_length, dd_start, dd_length,
+                        dd_version, end_frame)
+                )
+                n = len(room)
+                if n == 0:
+                    return 0
+                flat_rt = room.astype(np.int64) * T + track
+                order, sorted_rt, grp_start, sizes, ranks = self._group_ranks(flat_rt, n)
         base = self._count.reshape(-1)[flat_rt]
         k = base + ranks
         keep = k < K
@@ -439,12 +555,26 @@ class IngestBuffer:
             self.valid[dup] = False
             self.dupes += n
 
-    def drain(self, roll_quality: bool = False) -> tuple[plane.TickInputs, PayloadSlab]:
+    def drain(self, roll_quality: bool = False,
+              tick_index: int = 0) -> tuple[plane.TickInputs, PayloadSlab]:
         """Snapshot this tick's arrays as a numpy TickInputs, then flip to
         the other staging set. Fields read after the drain (the munger
         columns, the payload slab) are copied; the pack-only fields are
         views of the retiring set, valid until the next flip (the runtime
-        packs them at once). No probe padding: the runtime schedules it."""
+        packs them at once). No probe padding: the runtime schedules it.
+        `tick_index` is the tick this drain feeds (the fault injector's
+        clock for delayed packets)."""
+        if self._police_rate > 0.0:
+            # Token refill: once per tick, clipped at the burst ceiling.
+            np.minimum(self._police_tokens + self._police_rate * (self.tick_ms / 1000.0),
+                       self._police_burst, out=self._police_tokens)
+        if self.fault is not None:
+            # Release held-back (delayed) packets whose tick has arrived:
+            # they stage now, so they ride THIS tick's tensors. Their
+            # arrival was rx-counted at the original push.
+            for pkt in self.fault.take_due(tick_index):
+                self.push(pkt, _fault_ok=True, _count_rx=False)
+            self._fault_tick = tick_index + 1
         self._reorder_dedup()
         R, T, K, S = self.dims
         inp = plane.TickInputs(

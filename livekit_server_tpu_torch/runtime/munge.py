@@ -293,6 +293,29 @@ class HostMunger:
             self.last_ts[r, t, s] = pad_ts
         return out
 
+    def snapshot_room(self, room: int) -> list[np.ndarray]:
+        return [np.array(getattr(self, name)[room]) for name in self.FIELDS]
+
+    def restore_room(self, room: int, arrays: list[np.ndarray]) -> None:
+        if len(arrays) != len(self.FIELDS):
+            raise ValueError(
+                f"munger snapshot has {len(arrays)} fields, expected "
+                f"{len(self.FIELDS)}"
+            )
+        for name, arr in zip(self.FIELDS, arrays):
+            dst = getattr(self, name)
+            dst[room] = np.asarray(arr, dst.dtype)
+
+    def snapshot(self) -> list[np.ndarray]:
+        return [np.array(getattr(self, name)) for name in self.FIELDS]
+
+    def restore(self, arrays: list[np.ndarray]) -> None:
+        if len(arrays) != len(self.FIELDS):
+            raise ValueError("munger snapshot field count mismatch")
+        for name, arr in zip(self.FIELDS, arrays):
+            dst = getattr(self, name)
+            dst[...] = np.asarray(arr, dst.dtype)
+
     def clear_room(self, room: int) -> None:
         for name in self.FIELDS:
             getattr(self, name)[room] = False if name in (

@@ -30,8 +30,14 @@ bump and the next upload are at most one tick stale: packets for pages
 that moved or were freed land on re-initialized (unsubscribed) pages and
 drop, never misroute.
 
-Not carried yet (see ROADMAP.md): the pool mesh, the page-table
-integrity audit, snapshots / restore / row repair.
+Checkpoints, repairs and restores speak the LOGICAL dense form
+(`_to_logical_state`, `_write_logical_row`), so a paged snapshot frame is
+the same as a dense one and crosses layouts and packages. The integrity
+audit runs over the pooled page rows; `map_audit_mask` folds its mask to
+rooms and adds the page-table check (BIT_TABLE) against the host copy of
+what the last page sync uploaded.
+
+Not carried yet (see ROADMAP.md): the pool mesh.
 """
 
 from __future__ import annotations
@@ -40,8 +46,14 @@ import numpy as np
 import torch
 
 from livekit_server_tpu_torch.models import paged, plane
+from livekit_server_tpu_torch.runtime import integrity
+from livekit_server_tpu_torch.runtime.munge import HostMunger
 from livekit_server_tpu_torch.runtime.pager import RoomPager
-from livekit_server_tpu_torch.runtime.plane_runtime import PlaneRuntime, StagedTick
+from livekit_server_tpu_torch.runtime.plane_runtime import (
+    PlaneRuntime,
+    StagedTick,
+    _to_device,
+)
 from livekit_server_tpu_torch.runtime.slots import PagedSlotAllocator
 
 
@@ -71,7 +83,17 @@ class PagedPlaneRuntime(PlaneRuntime):
         self._xlate: paged.LayoutXlate | None = None
         self._xlate_epoch = -1
         self._lfill = None
+        self._pfill = None
         self._live_n = 0
+        P, MT = dims.pool_pages, dims.max_tpages
+        # What the DEVICE table should hold (the pager's mirrors as of the
+        # last page sync) — the page-table audit's baseline; the live
+        # pager may legitimately be ahead (a queued delta).
+        self._dev_tables = (
+            np.full(P, -1, np.int32), np.full(P, -1, np.int32),
+            np.full(P, -1, np.int32), np.full((P, MT), -1, np.int32),
+        )
+        self.table_repairs = 0
         super().__init__(dims.logical, **kwargs)
         # The base constructor wired a dense SlotAllocator; rooms claim
         # page grids, so admission and occupancy route through the pager.
@@ -130,9 +152,9 @@ class PagedPlaneRuntime(PlaneRuntime):
         return tuple(self._step_xlate.sel_to_logical(_numpy(state.sel),
                                                      self._logical_fill().sel))
 
-    def _device_step(self, st: StagedTick) -> plane.TickOutputs:
+    def _device_step(self, st: StagedTick) -> plane.TickOutputs | None:
         out = super()._device_step(st)
-        if self._pk_enabled:
+        if out is not None and self._pk_enabled:
             st.kernel_s = self._kernel_s_scratch
             st.kernel_steps = self._kernel_steps_scratch
         return out
@@ -170,12 +192,24 @@ class PagedPlaneRuntime(PlaneRuntime):
                 lambda a: np.broadcast_to(a.numpy(), (d.rooms,) + tuple(a.shape[1:])), tpl)
         return self._lfill
 
+    def _pooled_fill(self) -> plane.PlaneState:
+        """Pooled init state (numpy broadcast views of the page template):
+        the value of free pages in logical→pooled translation."""
+        if self._pfill is None:
+            P = self.pdims.pool_pages
+            self._pfill = plane.tree_map(
+                lambda a: np.broadcast_to(a.cpu().numpy(), (P,) + tuple(a.shape[1:])),
+                self._page_template)
+        return self._pfill
+
     def _to_logical_state(self) -> plane.PlaneState:
         """The device pool as a LOGICAL PlaneState of numpy arrays (the
         page lane is flushed first, so the translation matches the device
         table). Caller holds state_lock."""
         self._sync_pages()
-        return self._xlate_cached().state_to_logical(_numpy(self.state), self._logical_fill())
+        with self._on_stream():
+            pooled = _numpy(self.state)
+        return self._xlate_cached().state_to_logical(pooled, self._logical_fill())
 
     # -- page-table delta lane --------------------------------------------
 
@@ -199,6 +233,14 @@ class PagedPlaneRuntime(PlaneRuntime):
             # Rooms whose grid changed re-assert control onto their
             # (possibly fresh or relocated) pages at this same edge.
             self._dirty_rows.update(int(r) for r in delta.rooms)
+            self._dev_tables = (
+                self.pager.pg_room.copy(), self.pager.pg_tp.copy(),
+                self.pager.pg_sp.copy(), self.pager.tmembers.copy(),
+            )
+            if self.integrity is not None:
+                # Page identity changed under the audit mirror's cursors;
+                # re-baseline instead of flagging relocated streams.
+                self.integrity.on_layout_change()
             self.stats["page_delta_uploads"] += 1
             self.stats["page_rows_uploaded"] += len(rows[0])
             self._refresh_live_rows()
@@ -238,6 +280,7 @@ class PagedPlaneRuntime(PlaneRuntime):
         d = self.pdims
         pr = np.sort(np.asarray(page_rows, np.int32))
         rooms, tps, sps = self.pager.pg_room[pr], self.pager.pg_tp[pr], self.pager.pg_sp[pr]
+        ctrl = self._effective_ctrl()
         meta_rows = np.stack([
             np.asarray(m).reshape(d.rooms, d.max_tpages, d.tpage)[rooms, tps].astype(np.int32)
             for m in self.meta
@@ -245,9 +288,160 @@ class PagedPlaneRuntime(PlaneRuntime):
         ctrl_rows = np.stack([
             np.asarray(c).reshape(d.rooms, d.max_tpages, d.tpage, d.max_spages, d.spage)
             [rooms, tps, :, sps].astype(np.int32)
-            for c in self.ctrl
+            for c in ctrl
         ])
         return pr, meta_rows, ctrl_rows
+
+    # -- integrity plane ---------------------------------------------------
+
+    def map_audit_mask(self, mask: np.ndarray) -> np.ndarray:
+        """[P] per-page audit mask → [R] per-room mask, plus the page-table
+        check: the device table is delta-maintained from the pager's
+        mirrors, so any divergence from the last-sync copy is corruption —
+        repair the table rows from the host copy at once and flag the
+        touched rooms (their state computed through a corrupt
+        indirection, so it is suspect too). Runs on the worker thread
+        with state_lock held and the runtime's stream current (via
+        maybe_audit)."""
+        room_mask = self._step_xlate.page_mask_to_rooms(mask).astype(np.int32)
+        bad_rooms = self._audit_page_table()
+        if bad_rooms is not None:
+            room_mask[bad_rooms] |= np.int32(integrity.BIT_TABLE)
+        return room_mask
+
+    def _audit_page_table(self) -> np.ndarray | None:
+        """[R] bool of the rooms a diverged device table row touches (the
+        true owner and the phantom one), after re-writing those rows from
+        the host copy; None when the table matches."""
+        mr, mt, ms, mtm = self._dev_tables
+        t = self.table
+        dr, dt, ds, dtm = (x.to("cpu", copy=True).numpy()
+                           for x in (t.pg_room, t.pg_tp, t.pg_sp, t.tmembers))
+        bad = (dr != mr) | (dt != mt) | (ds != ms) | (dtm != mtm).any(axis=1)
+        if not bad.any():
+            return None
+        R = self.dims.rooms
+        bad_rooms = np.zeros(R, bool)
+        for owner in (mr[bad], dr[bad]):  # true owner + phantom pointee
+            valid = (owner >= 0) & (owner < R)
+            bad_rooms[owner[valid]] = True
+        rows = np.nonzero(bad)[0].astype(np.int32)
+        # The host copy is authoritative: re-scatter the diverged rows.
+        paged.apply_table_delta(
+            self.table, rows, mtm[rows], mr[rows], mt[rows], ms[rows],
+            np.empty(0, np.int32),
+            np.empty((0, self.pager.rooms_pages.shape[1]), np.int32),
+        )
+        self.table_repairs += len(rows)
+        return bad_rooms
+
+    # -- checkpoint / repair / restore (LOGICAL form) ----------------------
+
+    def _write_logical_row(self, row: int, leaves: list) -> None:
+        """Scatter one LOGICAL room row into every page of the room's grid
+        (re-establishing the duplicate-everywhere invariant), in place on
+        the runtime's stream. Page ids are read after a page-lane flush,
+        under the lock."""
+        self._sync_pages()
+        pages = self.pager.pages_of_room(row)
+        if len(pages) == 0:
+            return
+        d = self.pdims
+        tps = self.pager.pg_tp[pages].astype(np.int64)
+        sps = self.pager.pg_sp[pages].astype(np.int64)
+        row_tree = plane.tree_unflatten(self.state, [np.asarray(a) for a in leaves])
+
+        def rowfun(kind, lrow, pooled_leaf):
+            a = np.ascontiguousarray(lrow)
+            if kind == paged._K_TRACK:
+                w = a.size // d.tracks
+                v = a.reshape(d.max_tpages, d.tpage, w)[tps]
+            elif kind == paged._K_SUB:
+                w = a.size // d.subs
+                v = a.reshape(d.max_spages, d.spage, w)[sps]
+            else:
+                w = a.size // (d.tracks * d.subs)
+                v = a.reshape(d.max_tpages, d.tpage, d.max_spages, d.spage, w)[tps, :, sps]
+            return v.reshape((len(pages),) + tuple(pooled_leaf.shape[1:]))
+
+        rows_tree = plane.tree_map(rowfun, paged._kind_tree(row_tree), row_tree, self.state)
+        with self._on_stream():
+            idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+            for leaf, rws in zip(plane.tree_leaves(self.state), plane.tree_leaves(rows_tree)):
+                leaf[idx] = _to_device(rws, leaf)
+
+    def snapshot(self) -> dict:
+        return {"tick_index": self.tick_index,
+                "arrays": plane.tree_leaves(self._to_logical_state()),
+                "munger": self.munger.snapshot()}
+
+    def snapshot_room(self, row: int) -> dict:
+        tree = plane.tree_map(lambda a: np.array(a[row]), self._to_logical_state())
+        tree = tree._replace(
+            meta=plane.TrackMeta(*[np.array(m[row]) for m in self.meta]),
+            ctrl=plane.SubControl(*[np.array(c[row]) for c in self.ctrl]),
+        )
+        return {"arrays": plane.tree_leaves(tree) + self.munger.snapshot_room(row)}
+
+    def repair_room_row(self, row: int, snap: dict) -> None:
+        lflat = plane.tree_leaves(self._logical_fill())
+        self._check_leaves(lflat, snap["arrays"], row=True)
+        self.munger.restore_room(row, snap["arrays"][len(lflat):])
+        self._write_logical_row(row, snap["arrays"][:len(lflat)])
+        # Same post-repair hygiene as the dense path: the replay ring
+        # references pre-repair SN spaces; host mirrors stay
+        # authoritative and re-assert at the next edge.
+        self.host_seq.clear_room(row)
+        self._dirty_rows.add(row)
+
+    def restore_room(self, row: int, snap: dict) -> None:
+        self.host_seq.clear_room(row)
+        lfill = self._logical_fill()
+        lflat = plane.tree_leaves(lfill)
+        self._check_leaves(lflat, snap["arrays"], row=True)
+        dev_arrays = snap["arrays"][:len(lflat)]
+        snap_tree = plane.tree_unflatten(lfill, [np.asarray(a) for a in dev_arrays])
+        # The incoming room's live tracks may exceed this row's current
+        # page extent (the adopter allocated minimally): grow the grid to
+        # cover every published track column BEFORE writing the row, so
+        # the publisher state lands instead of truncating.
+        live = np.nonzero(np.asarray(snap_tree.meta.published))[0]
+        need_t = int(live[-1]) + 1 if len(live) else 1
+        if len(self.pager.pages_of_room(row)) == 0:
+            self.pager.alloc_room(row, tracks=need_t)
+        else:
+            self.pager.grow_room(row, tracks=need_t)
+        self.munger.restore_room(row, snap["arrays"][len(lflat):])
+        self._write_logical_row(row, dev_arrays)
+        for host_arr, snap_arr in zip(self.meta, snap_tree.meta):
+            host_arr[row] = snap_arr
+        # Subscription masks are not carried (see the dense docstring):
+        # destination sub columns are allocated fresh.
+        self._reset_restored_ctrl(row)
+
+    def restore(self, snap: dict) -> None:
+        """Restore from a LOGICAL snapshot onto freshly allocated pool
+        tensors. Rooms resident in this node's pager take their rows;
+        logical rows without pages drop — the checkpoint stays
+        layout-independent, placement is the restoring node's business."""
+        self._sync_pages()
+        self._check_leaves(plane.tree_leaves(self._logical_fill()), snap.get("arrays"),
+                           row=False)
+        logical = plane.tree_unflatten(self._logical_fill(),
+                                       [np.asarray(a) for a in snap["arrays"]])
+        pooled = self._xlate_cached().state_to_pooled(logical, self._pooled_fill())
+        with self._on_stream():
+            self.state = plane.tree_unflatten(self.state, [
+                _to_device(a, leaf) for leaf, a in
+                zip(plane.tree_leaves(self.state), plane.tree_leaves(pooled))])
+        if "munger" in snap:
+            self.munger.restore(snap["munger"])
+        else:
+            self.munger = HostMunger(self.dims)
+        self.tick_index = snap["tick_index"]
+        self._ctrl_dirty = True
+        if self.integrity is not None:
+            self.integrity.on_full_restore()
 
     # -- admin -------------------------------------------------------------
 
@@ -259,6 +453,7 @@ class PagedPlaneRuntime(PlaneRuntime):
 
     def pager_stats(self) -> dict:
         st = self.pager.stats()
+        st["table_repairs"] = self.table_repairs
         st["paged_kernel"] = self._pk_mode if self._pk_enabled else "off"
         st["page_live_fraction"] = round(self._live_n / self.pdims.pool_pages, 4)
         return st

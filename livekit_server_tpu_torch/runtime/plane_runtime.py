@@ -28,10 +28,23 @@ The runtime owns the sharded egress plane (runtime/egress_plane.py): its
 room plan shards the native munge walk here, and the UDP transport
 routes each tick's sends through it.
 
+The failure and overload plane hooks in here as in the reference: the
+governor's shed overlay (`set_shed`, `_effective_ctrl`, which the ctrl
+upload ships in place of the raw mirrors) and its per-tick sensor feed
+(`_complete`); the integrity audit after the commit in `_device_step`,
+the quarantine mask at fan-out and the row repairs at the window edge;
+the fault injector's stall and bitflip seams; the supervisor's
+`run_epoch` guard; and checkpoint/resume — `snapshot`/`restore` and the
+room-row forms — carrying state in the reference's leaf order, so frames
+cross between the two packages.
+
+State is written in place (the ctrl upload, the paged tick's scatters),
+so a device step works on the state it found when it started, and every
+full restore binds freshly allocated tensors: a step a supervisor
+restart abandoned cannot reach what the restarted loop uses.
+
 Not carried yet (see ROADMAP.md): pinned host buffers and graph capture
-of the tick, the device mesh, the express lane, the overload governor,
-the integrity audit, fault injection, the compile ledger and
-snapshots/restore.
+of the tick, the device mesh, the express lane and the compile ledger.
 """
 
 from __future__ import annotations
@@ -39,6 +52,8 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import functools
+import io
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -57,6 +72,7 @@ from livekit_server_tpu_torch.runtime.ingest import IngestBuffer
 from livekit_server_tpu_torch.runtime.munge import HostMunger
 from livekit_server_tpu_torch.runtime.probe import PAD_BYTES, ProbeController
 from livekit_server_tpu_torch.runtime.slots import SlotAllocator
+from livekit_server_tpu_torch.utils import checksum
 
 
 @dataclass
@@ -292,10 +308,35 @@ class PlaneRuntime:
         self._ctrl_dirty = True          # full upload needed
         self._dirty_rows: set[int] = set()
         self.ctrl_delta_max_rows = max(1, dims.rooms // 8)
-        # Subscriptions exempt from an overload pause (screen shares,
-        # active-speaker pins); recorded for the governor, which the port
-        # does not carry yet.
+        # Governor shed overlay (runtime/governor.py): applied to the
+        # EFFECTIVE control tensors at upload time, never written into
+        # the authoritative `self.ctrl` mirrors — snapshots, restores and
+        # recovery all keep every subscriber's true desired caps, and
+        # un-shedding is just a re-upload.
+        self.shed_spatial_cap = plane.MAX_LAYERS - 1   # no clamp
+        self.shed_pause_video = False
+        # Subscriptions exempt from the L3 video pause (screen shares,
+        # active-speaker pins via update_track_settings).
         self.pinned = np.zeros((R, T, S), bool)
+        # Optional OverloadGovernor; None unless RoomManager attaches
+        # one. _complete feeds it each finished tick's verdict.
+        self.governor = None
+        # Bumped by PlaneSupervisor on restart (`bump_epoch`): a device step
+        # that started before the bump must not commit its result over
+        # restored state (the stale step ran — or is still wedged — on the
+        # abandoned executor thread), and the loop's cancel path leaves it
+        # there. The step's epoch check and its commit hold _commit_lock,
+        # as the bump does, so no step commits after a bump returned.
+        self.run_epoch = 0
+        self._commit_lock = threading.Lock()
+        # Optional FaultInjector (runtime/faultinject.py); None on the
+        # default config path.
+        self.fault = None
+        # Optional IntegrityMonitor (runtime/integrity.py); None unless
+        # RoomManager attaches one. _device_step runs its audit on the
+        # cadence; the loop drains its row-repair queue; quarantined rows
+        # are masked at fan-out and muted in the effective ctrl.
+        self.integrity = None
 
         self.state = self._init_device_state()
         self._init_step()
@@ -325,6 +366,13 @@ class PlaneRuntime:
             "pipeline_stalls": 0,
             "ctrl_full_uploads": 0, "ctrl_delta_uploads": 0,
             "ctrl_delta_rows": 0, "ctrl_upload_bytes": 0,
+            # Device steps a supervisor restart abandoned (they returned
+            # without committing their state).
+            "abandoned_steps": 0,
+            # Device steps that ran their tick on the card but whose tick
+            # never completes: abandoned after the tick ran, or committed
+            # just before a restart whose loop dropped their outputs.
+            "dropped_steps": 0,
         }
         self.recent_tick_s: deque = deque(maxlen=120)  # /debug/ticks window
         # Per-tick stage records (idx/depth/stage_ms/device_ms/fanout_ms/
@@ -419,11 +467,60 @@ class PlaneRuntime:
         self.ctrl.max_temporal[room, track, sub] = max_temporal
         self._dirty_rows.add(room)
 
+    def bump_epoch(self) -> None:
+        """Invalidate the device step in flight (a supervisor restart):
+        once this returns, no step that started before it commits."""
+        with self._commit_lock:
+            self.run_epoch += 1
+
     def set_pinned(self, room: int, track: int, sub: int, pinned: bool) -> None:
-        """Exempt one subscription from an overload video pause (screen
-        shares, active speakers). Recorded only: the governor that reads
-        the pin (ROADMAP A14) is not ported, so nothing is uploaded."""
+        """Exempt one subscription from the governor's L3 video pause
+        (screen shares, active speakers). Dirty-row like any ctrl edit:
+        the pin participates in the effective upload."""
         self.pinned[room, track, sub] = pinned
+        self._dirty_rows.add(room)
+
+    def set_shed(self, *, spatial_cap: int | None = None,
+                 pause_video: bool | None = None) -> None:
+        """Governor actuator: set the shed overlay. A change forces a
+        full ctrl upload at the next tick edge — transitions are rare
+        (ladder moves), so the O(R·T·S) copy is fine; the authoritative
+        mirrors stay untouched."""
+        changed = False
+        if spatial_cap is not None and spatial_cap != self.shed_spatial_cap:
+            self.shed_spatial_cap = int(spatial_cap)
+            changed = True
+        if pause_video is not None and pause_video != self.shed_pause_video:
+            self.shed_pause_video = bool(pause_video)
+            changed = True
+        if changed:
+            self._ctrl_dirty = True
+
+    def _effective_ctrl(self) -> plane.SubControl:
+        """The SubControl actually uploaded: desired caps with the shed
+        overlay applied (spatial clamp; L3 mutes non-pinned video subs)
+        and integrity-quarantined rooms fully muted. Reads only host
+        mirrors — callable without the state lock."""
+        cap = self.shed_spatial_cap
+        quarantined = self.integrity.quarantined if self.integrity is not None else None
+        if cap >= plane.MAX_LAYERS - 1 and not self.shed_pause_video and not quarantined:
+            return self.ctrl
+        sub_muted = self.ctrl.sub_muted
+        if self.shed_pause_video:
+            vid = (self.meta.is_video & self.meta.published)[:, :, None]
+            sub_muted = sub_muted | (vid & ~self.pinned)
+        if quarantined:
+            # Quarantine mutes the WHOLE flagged room row (its state is
+            # suspect end to end); other rooms keep full audio + video.
+            qmask = np.zeros_like(self.ctrl.sub_muted)
+            qmask[sorted(quarantined)] = True
+            sub_muted = sub_muted | qmask
+        return plane.SubControl(
+            subscribed=self.ctrl.subscribed,
+            sub_muted=sub_muted,
+            max_spatial=np.minimum(self.ctrl.max_spatial, cap),
+            max_temporal=self.ctrl.max_temporal,
+        )
 
     def clear_room(self, room: int) -> None:
         self.meta.published[room, :] = False
@@ -443,19 +540,21 @@ class PlaneRuntime:
     def _upload_ctrl(self) -> None:
         """Ship pending host-mirror control mutations to the device: the
         dirtied room rows (O(dirty rows) bytes), or the full mirrors when
-        the full flag is set or too many rows are dirty. Writes into the
+        the full flag is set or too many rows are dirty, with the shed and
+        quarantine overlay applied (`_effective_ctrl`). Writes into the
         state's tensors in place. Caller holds state_lock; reached through
         `_upload`."""
         rows = self._dirty_rows
         if not self._ctrl_dirty and not rows:
             return
+        ctrl = self._effective_ctrl()
         if self._ctrl_dirty or len(rows) > self.ctrl_delta_max_rows:
             for dst, src in zip((*self.state.meta, *self.state.ctrl),
-                                (*self.meta, *self.ctrl)):
+                                (*self.meta, *ctrl)):
                 dst.copy_(torch.from_numpy(src))
             self.stats["ctrl_full_uploads"] += 1
         else:
-            r, meta_rows, ctrl_rows = plane.pack_ctrl_rows(self.meta, self.ctrl, rows)
+            r, meta_rows, ctrl_rows = plane.pack_ctrl_rows(self.meta, ctrl, rows)
             plane.apply_ctrl_delta(self.state, r, meta_rows, ctrl_rows)
             self.stats["ctrl_delta_uploads"] += 1
             self.stats["ctrl_delta_rows"] += len(rows)
@@ -471,16 +570,48 @@ class PlaneRuntime:
             self._upload_ctrl()
         st.upload_s = time.perf_counter() - st.upload_t0
 
-    def _device_step(self, st: StagedTick) -> plane.TickOutputs:
+    def _device_step(self, st: StagedTick) -> plane.TickOutputs | None:
         """The device round trip: one upload of the packed inputs, the
         tick, one fetch of the flat output buffer (the fetch waits for the
-        device). Caller holds state_lock; runs on the executor's thread.
-        The upload reads `st.wire`, which no staging set aliases."""
+        device), then the integrity audit of the committed state on its
+        cadence. Caller holds state_lock; runs on the executor's thread.
+        The upload reads `st.wire`, which no staging set aliases.
+
+        Returns None (instead of outputs) when a supervisor restart
+        abandoned this step mid-flight: the epoch check straddles the
+        injected stall, and the step works on the state it found at its
+        start, so a woken stale thread never touches — or commits over, or
+        audits — the state the restart restored."""
+        epoch = self.run_epoch
+        state = self.state
         t0 = time.perf_counter()
         st.device_t0 = t0
+        if self.fault is not None:
+            self.fault.maybe_stall()
+        if epoch != self.run_epoch:
+            self.stats["abandoned_steps"] += 1
+            return None
         with self._on_stream():
-            self.state, buf = self._step(self.state, st.wire)
-        out = self._unpack_outputs(buf)
+            if self.fault is not None:
+                self.fault.maybe_bitflip(state, st.idx)
+            state, buf = self._step(state, st.wire)
+            with self._commit_lock:
+                if epoch != self.run_epoch:
+                    self.stats["abandoned_steps"] += 1
+                    self.stats["dropped_steps"] += 1
+                    return None  # restarted mid-step: the result belongs to a dead run
+                self.state = state
+            out = self._unpack_outputs(buf)
+            if self.integrity is not None:
+                # Audit the committed state on the cadence; the fetched
+                # mask is a few dozen bytes. Under the commit lock, and
+                # only while this step's run is current: a restart's bump
+                # waits for an audit in progress, and a step it left
+                # behind never audits (its quarantines would land on the
+                # restored plane).
+                with self._commit_lock:
+                    if epoch == self.run_epoch:
+                        self.integrity.maybe_audit(st.idx)
         st.device_s = time.perf_counter() - t0
         return out
 
@@ -496,7 +627,7 @@ class PlaneRuntime:
         # Close the quality/stats window about once per second.
         q_ticks = max(1, 1000 // self.tick_ms)
         roll = (idx + 1) % q_ticks == 0
-        inp, payloads = self.ingest.drain(roll_quality=roll)
+        inp, payloads = self.ingest.drain(roll_quality=roll, tick_index=idx)
         self._slab_history[idx % plane.SLAB_WINDOW] = payloads
         wire = self._pack_inputs(inp)
         st = StagedTick(inp=inp, payloads=payloads, idx=idx, roll=roll, wire=wire)
@@ -596,6 +727,9 @@ class PlaneRuntime:
                     )
         self.stats["sleep_bias_us"] = round(max(self._sleep_bias, 0.0) * 1e6, 1)
         self.stats["edge_overshoot_us"] = round(self._edge_overshoot_us, 1)
+        if self.governor is not None:
+            # Close the overload loop on the finished tick's verdict.
+            self.governor.on_tick(tick_rec)
         return result
 
     def mark_warm(self) -> None:
@@ -627,9 +761,15 @@ class PlaneRuntime:
         async with self.state_lock:
             self._upload(st)
             out = await loop.run_in_executor(self._executor, self._device_step, st)
+        if out is None:
+            raise asyncio.CancelledError("device step abandoned by restart")
         self._mirror_probe_inputs(out)
         self.ingest.scrub_retired()
-        return await self._complete(out, st)
+        result = await self._complete(out, st)
+        if self.integrity is not None:
+            # Sequential path: repair right after the tick that audited.
+            await self.integrity.process()
+        return result
 
     def resolve_nacks(self, room: int, sub: int, track: int, sns) -> list[EgressPacket]:
         """NACKed munged SNs → replay EgressPackets, at RTCP time (the
@@ -702,9 +842,23 @@ class PlaneRuntime:
         """Bit-packed egress masks → host munge (the native walker, sharded
         by the egress plane's room plan) → column arrays, plus the speaker
         / keyframe / congestion / quality views of the tick's outputs."""
+        send_bits, drop_bits, switch_bits = out.send_bits, out.drop_bits, out.switch_bits
+        if self.integrity is not None and self.integrity.quarantined:
+            # Same-tick quarantine: a room flagged by THIS tick's audit
+            # must not fan out its (suspect) sends even once — the ctrl
+            # mute only lands at the next upload edge. Zeroing the row's
+            # egress bits also freezes its munger lanes at their last
+            # good values.
+            rows = [r for r in self.integrity.quarantined if r < send_bits.shape[0]]
+            if rows:
+                send_bits, drop_bits, switch_bits = (
+                    np.array(send_bits), np.array(drop_bits), np.array(switch_bits))
+                send_bits[rows] = 0
+                drop_bits[rows] = 0
+                switch_bits[rows] = 0
         rr, tt, kk, ss, b_sn, b_ts, b_pid, b_tl0, b_ki = self.munger.apply_columns(
             inp.sn, inp.ts, inp.ts_jump, inp.pid, inp.tl0, inp.keyidx,
-            inp.begin_pic, inp.valid, out.send_bits, out.drop_bits, out.switch_bits,
+            inp.begin_pic, inp.valid, send_bits, drop_bits, switch_bits,
             shard_plan=self._munge_shard_plan,
         )
         if len(self.munger.last_shard_ns):
@@ -834,6 +988,12 @@ class PlaneRuntime:
                     # the mirrors _schedule_probe reads cannot change.
                     self._edge(staged, next_at, depth, period)
                 await self._sleep_until(next_at)
+                if self.integrity is not None and self.integrity._pending_repair:
+                    # Drain the row-repair queue filled by the last audit,
+                    # at the window edge and OUTSIDE the lock region below:
+                    # each repair takes state_lock itself, and the
+                    # repaired row's dirtied ctrl re-uploads in this tick.
+                    await self.integrity.process()
                 if pending_task is not None:
                     # Backpressure: the previous fan-out is still running.
                     if not pending_task.done():
@@ -848,6 +1008,7 @@ class PlaneRuntime:
                 cur, staged = staged, None
                 cur.edge_over_us = self._edge_overshoot_us
                 stopping = False
+                epoch = self.run_epoch
                 await self.state_lock.acquire()
                 try:
                     self._upload(cur)
@@ -864,6 +1025,13 @@ class PlaneRuntime:
                     try:
                         out = await asyncio.shield(fut)
                     except asyncio.CancelledError:
+                        if self.run_epoch != epoch:
+                            # A supervisor restart: abandon the step (its
+                            # thread may be wedged); it commits nothing,
+                            # or committed before the bump and its outputs
+                            # go with this loop.
+                            fut.add_done_callback(self._count_dropped)
+                            raise
                         # Stopping: the step runs on in the worker thread
                         # regardless. Let it finish (under the lock) so its
                         # tick completes in the drain below instead of
@@ -872,6 +1040,10 @@ class PlaneRuntime:
                         out = await fut
                 finally:
                     self.state_lock.release()
+                if out is None:
+                    # Abandoned by a supervisor restart that raced the
+                    # step's completion: bail to the drain handler.
+                    raise asyncio.CancelledError("device step abandoned by restart")
                 self._mirror_probe_inputs(out)
                 self.ingest.scrub_retired()
                 pending = (out, cur)
@@ -898,18 +1070,249 @@ class PlaneRuntime:
                 await self._complete(pending[0], pending[1])
             raise
 
+    def _count_dropped(self, fut: asyncio.Future) -> None:
+        """Done callback of a step the restart left behind: a step that
+        returned outputs committed before the epoch bump, and its tick
+        goes with the cancelled loop (one that returned None counted
+        itself)."""
+        if not fut.cancelled() and fut.exception() is None and fut.result() is not None:
+            self.stats["dropped_steps"] += 1
+
     async def stop(self) -> None:
+        """Cancel the loop and wait for its drain. A cancellation of the
+        caller itself (a supervisor stopped in the middle of a restart's
+        stop) propagates: taking it for the loop's own would let the
+        restart run on after its supervisor was told to stop."""
         if self._task is not None:
             self._task.cancel()
             try:
                 await self._task
             except asyncio.CancelledError:
-                pass
+                if _cancelling():
+                    raise
             self._task = None
         if self._complete_task is not None:
             self._complete_task.cancel()
             try:
                 await self._complete_task
             except asyncio.CancelledError:
-                pass
+                if _cancelling():
+                    raise
             self._complete_task = None
+
+    # -- checkpoint / resume ---------------------------------------------
+    # Snapshots hold numpy leaves in the reference's `jax.tree.flatten`
+    # order (plane.tree_leaves), so a frame encoded by either package
+    # decodes and restores in the other. Device reads and writes run on the
+    # runtime's stream; callers hold state_lock.
+
+    def snapshot(self) -> dict[str, Any]:
+        """Serializable plane snapshot: device decision state + the
+        host-side munger offsets (migration seeding analog)."""
+        with self._on_stream():
+            arrays = plane.state_to_numpy(self.state)
+        return {"tick_index": self.tick_index, "arrays": arrays,
+                "munger": self.munger.snapshot()}
+
+    def snapshot_room(self, row: int) -> dict[str, Any]:
+        """One room row's slice of the plane state — the room handoff
+        payload (participant.go:823 MaybeStartMigration seeds the same
+        per-forwarder state on the destination node). Control tensors come
+        from the HOST mirrors (authoritative: they may hold un-uploaded
+        mutations newer than the device copy); everything else is sliced
+        on the device so only one row crosses to the host. The host
+        munger's row rides along after the device leaves."""
+        with self._on_stream():
+            tree = plane.tree_map(lambda x: x[row].to("cpu", copy=True).numpy(), self.state)
+        tree = tree._replace(
+            meta=plane.TrackMeta(*[np.array(m[row]) for m in self.meta]),
+            ctrl=plane.SubControl(*[np.array(c[row]) for c in self.ctrl]),
+        )
+        return {"arrays": plane.tree_leaves(tree) + self.munger.snapshot_room(row)}
+
+    @staticmethod
+    def encode_room_snapshot(snap: dict[str, Any]) -> str:
+        """Room snapshot → checksummed npz frame, base64 (the form a room
+        checkpoint travels in). The frame lets every restore path verify
+        the bytes before any scatter."""
+        buf = io.BytesIO()
+        np.savez_compressed(buf, *snap["arrays"])
+        return checksum.encode_frame_b64(buf.getvalue())
+
+    @staticmethod
+    def decode_room_snapshot(payload: str) -> dict[str, Any]:
+        """Verify + decode a room checkpoint; raises ChecksumError on a
+        corrupt frame BEFORE np.load touches the bytes."""
+        z = np.load(io.BytesIO(checksum.decode_frame_b64(payload)))
+        # savez names leaves arr_0..arr_N; z.files sorts lexically (arr_10
+        # before arr_2), so index numerically.
+        return {"arrays": [z[f"arr_{i}"] for i in range(len(z.files))]}
+
+    @staticmethod
+    def encode_snapshot(snap: dict[str, Any]) -> bytes:
+        """Full-plane snapshot → checksummed npz frame (the supervisor's
+        checkpoint-generation format)."""
+        arrays = list(snap["arrays"]) + list(snap.get("munger", []))
+        buf = io.BytesIO()
+        np.savez_compressed(buf, *arrays, tick_index=np.int64(snap["tick_index"]),
+                            n_state=np.int64(len(snap["arrays"])))
+        return checksum.encode_frame(buf.getvalue())
+
+    @staticmethod
+    def decode_snapshot(blob: bytes) -> dict[str, Any]:
+        """Verify + decode a full-plane checkpoint into the snapshot()
+        dict shape; ChecksumError on corruption, ValueError/KeyError on a
+        malformed archive."""
+        z = np.load(io.BytesIO(checksum.decode_frame(blob)))
+        n_arrays = sum(1 for f in z.files if f.startswith("arr_"))
+        n_state = int(z["n_state"])
+        arrays = [z[f"arr_{i}"] for i in range(n_arrays)]
+        return {"tick_index": int(z["tick_index"]), "arrays": arrays[:n_state],
+                "munger": arrays[n_state:]}
+
+    @staticmethod
+    def _check_leaves(flat: list, arrays, row: bool) -> None:
+        """Validate a snapshot's leaves against the LIVE plane spec
+        (count, shape, dtype compatibility) before anything is written
+        into device state. `flat` holds the plane's leaves (tensors or
+        numpy arrays); a row snapshot (`row`) holds each leaf's row plus
+        the host munger's fields, a full one the leaves alone."""
+        kind = "snapshot" if row else "full snapshot"
+        extra = len(HostMunger.FIELDS) if row else 0
+        n = 0 if arrays is None else len(arrays)
+        if n != len(flat) + extra:
+            raise ValueError(
+                f"{kind} has {n} leaves, plane has {len(flat)} + {extra} munger "
+                f"fields — source/destination plane versions differ"
+            )
+        where = "row shape" if row else "shape"
+        for i, (leaf, a) in enumerate(zip(flat, arrays)):
+            a = np.asarray(a)
+            want = tuple(leaf.shape[1:] if row else leaf.shape)
+            if tuple(a.shape) != want:
+                raise ValueError(
+                    f"{kind} leaf {i} {where} {tuple(a.shape)} != "
+                    f"plane {where} {want} — dims mismatch"
+                )
+            if not np.can_cast(a.dtype, _np_dtype(leaf), casting="same_kind"):
+                raise ValueError(
+                    f"{kind} leaf {i} dtype {a.dtype} incompatible with "
+                    f"plane dtype {_np_dtype(leaf)}"
+                )
+
+    @staticmethod
+    def row_snapshot_from_full(snap: dict[str, Any], row: int) -> dict[str, Any]:
+        """Slice one room's row out of a FULL snapshot() dict, in the
+        snapshot_room() wire shape (state leaves then munger fields) —
+        how the integrity monitor turns the supervisor's last verified
+        checkpoint into a row-repair payload."""
+        return {
+            "arrays": [np.asarray(a[row]) for a in snap["arrays"]]
+            + [np.asarray(m[row]) for m in snap.get("munger", [])]
+        }
+
+    def _write_row(self, row: int, leaves: list) -> None:
+        """Write one room row of every device leaf from numpy, in place,
+        on the runtime's stream."""
+        with self._on_stream():
+            for leaf, a in zip(plane.tree_leaves(self.state), leaves):
+                leaf[row] = _to_device(a, leaf)
+
+    def repair_room_row(self, row: int, snap: dict[str, Any]) -> None:
+        """Integrity row repair: overwrite ONE corrupt room row from a
+        verified checkpoint without disturbing any other row.
+
+        Unlike restore_room, the HOST mirrors stay authoritative: this
+        node's meta/ctrl were never suspect — only the device row was — so
+        the row's current subscriptions survive and the dirty-row upload
+        re-asserts them over the checkpoint's older device copy at the
+        next tick edge. Callers hold state_lock."""
+        flat = plane.tree_leaves(self.state)
+        self._check_leaves(flat, snap["arrays"], row=True)
+        self.munger.restore_room(row, snap["arrays"][len(flat):])
+        self._write_row(row, snap["arrays"][:len(flat)])
+        # The replay ring references pre-repair munger SN spaces; replaying
+        # across the rewind would emit wrong-SN bytes. Clients re-NACK.
+        self.host_seq.clear_room(row)
+        self._dirty_rows.add(row)
+
+    def restore_room(self, row: int, snap: dict[str, Any]) -> None:
+        """Seed `row` from a room snapshot (taken here or on another
+        node): munger/VP8 offsets continue mid-stream, so subscribers see
+        contiguous SN/TS instead of a stream reset. The host-side replay
+        ring is NOT carried: NACKs of pre-snapshot packets miss until the
+        ring repopulates.
+
+        Subscription masks are NOT carried over: the destination's slot
+        allocator hands out sub columns fresh, and a restored subscribed
+        bit on a column later given to a different participant would leak
+        media to someone who never subscribed. Callers hold state_lock."""
+        self.host_seq.clear_room(row)
+        flat = plane.tree_leaves(self.state)
+        self._check_leaves(flat, snap["arrays"], row=True)
+        dev_arrays = snap["arrays"][:len(flat)]
+        self.munger.restore_room(row, snap["arrays"][len(flat):])
+        self._write_row(row, dev_arrays)
+        # Mirror the row's track metadata back to the host copies (other
+        # rows' possibly-dirty host state stays untouched)…
+        snap_tree = plane.tree_unflatten(self.state, dev_arrays)
+        for host_arr, snap_arr in zip(self.meta, snap_tree.meta):
+            host_arr[row] = snap_arr
+        # …but clear the subscriber-facing control masks (see docstring).
+        self._reset_restored_ctrl(row)
+
+    def _reset_restored_ctrl(self, row: int) -> None:
+        """A restored room row's subscriber-facing control masks start
+        clear (restore_room's docstring says why); the next ctrl upload
+        clears them on device too. The integrity monitor drops the row's
+        quarantine history and re-baselines its audit cursors, which
+        rewound on purpose."""
+        self.ctrl.subscribed[row] = False
+        self.ctrl.sub_muted[row] = False
+        self.ctrl.max_spatial[row] = plane.MAX_LAYERS - 1
+        self.ctrl.max_temporal[row] = 3
+        self._dirty_rows.add(row)
+        if self.integrity is not None:
+            self.integrity.on_row_restore(row)
+
+    def restore(self, snap: dict[str, Any]) -> None:
+        """Restore the whole plane from a snapshot() dict, onto freshly
+        allocated device tensors (never the ones a step in flight holds).
+        Callers hold state_lock."""
+        flat = plane.tree_leaves(self.state)
+        self._check_leaves(flat, snap.get("arrays"), row=False)
+        with self._on_stream():
+            self.state = plane.tree_unflatten(
+                self.state, [_to_device(a, leaf) for leaf, a in zip(flat, snap["arrays"])])
+        if "munger" in snap:
+            self.munger.restore(snap["munger"])
+        else:
+            # A munger-less snapshot must not pair restored device
+            # decisions with STALE SN/TS offsets — every lane would keep
+            # rewriting against the wrong anchor. Reset so lanes anchor
+            # fresh instead (a one-time stream reset, like a new room).
+            self.munger = HostMunger(self.dims)
+        self.tick_index = snap["tick_index"]
+        self._ctrl_dirty = True
+        if self.integrity is not None:
+            self.integrity.on_full_restore()
+
+
+def _cancelling() -> bool:
+    """Whether the running task has a cancellation request of its own."""
+    task = asyncio.current_task()
+    return task is not None and task.cancelling() > 0
+
+
+def _np_dtype(leaf) -> np.dtype:
+    """The numpy dtype of a tensor or array leaf."""
+    if isinstance(leaf, torch.Tensor):
+        return torch.empty(0, dtype=leaf.dtype).numpy().dtype
+    return np.asarray(leaf).dtype
+
+
+def _to_device(a, like: torch.Tensor) -> torch.Tensor:
+    """A new tensor (never a view of `a`) holding numpy `a` with `like`'s
+    dtype, on its device."""
+    a = np.require(np.asarray(a), requirements=("C", "W"))
+    return torch.from_numpy(a).to(device=like.device, dtype=like.dtype, copy=True)

@@ -11,11 +11,15 @@ Port of the JAX package's service/roommanager.py. It builds the port's
 PlaneRuntime or PagedPlaneRuntime on an explicit `device` ("cuda" by
 default). The server attaches the UDP media transport (`udp`), through
 which each tick's egress leaves in one native batch; entries without a
-UDP/TCP destination go out as WebSocket frames. The subsystems the port
-does not carry yet (config.UNPORTED: supervisor, integrity, migration,
-fleet, governor, fault injection, the relay, the express lane, a device
-mesh) are refused at construction with a ConfigError naming the ROADMAP
-item that brings each; none is skipped in silence.
+UDP/TCP destination go out as WebSocket frames. The failure and overload
+plane is wired as in the reference: the plane supervisor (tick watchdog,
+checkpoint generations, restart-from-snapshot), the fault injector (off
+by default), the overload governor (its L4 gate in `_admission_denied`)
+and the integrity monitor (row repair from the supervisor's checkpoints,
+escalation to a supervisor restart). The subsystems the port does not
+carry yet (config.UNPORTED: migration, fleet, the relay, the express
+lane, a device mesh) are refused at construction with a ConfigError
+naming the ROADMAP item that brings each; none is skipped in silence.
 """
 
 from __future__ import annotations
@@ -43,7 +47,12 @@ from livekit_server_tpu_torch.routing.messagechannel import (
 from livekit_server_tpu_torch.routing.router import Router
 from livekit_server_tpu_torch.rtc import Participant, Room, handle_participant_signal
 from livekit_server_tpu_torch.runtime import CapacityError, PlaneRuntime, trace
+from livekit_server_tpu_torch.runtime.faultinject import FaultInjector
+from livekit_server_tpu_torch.runtime.governor import OverloadGovernor
+from livekit_server_tpu_torch.runtime.integrity import IntegrityMonitor
 from livekit_server_tpu_torch.runtime.plane_runtime import TickResult
+from livekit_server_tpu_torch.runtime.supervisor import PlaneSupervisor
+from livekit_server_tpu_torch.utils.backoff import BackoffPolicy
 from livekit_server_tpu_torch.service.store import ObjectStore
 from livekit_server_tpu_torch.utils.logger import Logger
 
@@ -54,6 +63,7 @@ from livekit_server_tpu_torch.utils.logger import Logger
 # without string-matching prose.
 DENIAL_REASON_LABELS = {
     "no plane capacity for a new room": "no_capacity",
+    "node overloaded": "overload",
     "max rooms on node": "no_capacity",
     "max tracks on node": "no_capacity",
     "node ingress packet rate exceeded": "overload",
@@ -140,9 +150,65 @@ class RoomManager:
         self.runtime.blackbox.log = self.log
         self.runtime.on_tick(self._dispatch_tick)
         self._reaper_task: asyncio.Task | None = None
+        # Plane supervision: tick watchdog + restart-from-snapshot, with
+        # the per-room checkpoint publisher as its cadence callback.
+        self.supervisor = None
+        sup = config.supervisor
+        if sup.enabled:
+            self.supervisor = PlaneSupervisor(
+                self.runtime,
+                tick_deadline_s=sup.tick_deadline_ms / 1000.0,
+                warmup_deadline_s=sup.warmup_deadline_s,
+                check_interval_s=sup.check_interval_ms / 1000.0,
+                checkpoint_interval_s=sup.checkpoint_interval_s,
+                max_restarts=sup.max_restarts,
+                overload_grace=sup.overload_grace,
+                ckpt_generations=config.integrity.checkpoint_generations,
+                backoff=BackoffPolicy(
+                    base=sup.restart_backoff_base_s, max_delay=sup.restart_backoff_max_s
+                ),
+                telemetry=telemetry,
+                log=self.log,
+            )
+            # room_checkpoint_cb stays unset: room checkpoints travel on the
+            # bus, which comes with the multi-node plane (ROADMAP A13).
+        # Deterministic fault injection (chaos harness) — default-off; the
+        # injector only exists when config.faults.enabled is set.
+        self.fault = None
+        if config.faults.enabled:
+            self.fault = FaultInjector.from_config(config.faults)
+            self.runtime.fault = self.fault
+            self.runtime.ingest.fault = self.fault
+        # Overload governor (runtime/governor.py): closes the loop from
+        # tick telemetry to the degradation ladder. Attached to the
+        # runtime (per-tick sensor feed) and consulted by admission; the
+        # supervisor reads runtime.governor for its stall grace.
+        self.governor = None
         self.admission_rejected: dict[str, int] = {}
         # Same refusals keyed by canonical cause (no_capacity | overload).
         self.admission_denied_reasons: dict[str, int] = {}
+        if config.limits.governor_enabled:
+            self.governor = OverloadGovernor.from_config(self.runtime, config.limits,
+                                                         log=self.log)
+            self.runtime.governor = self.governor
+        # State-integrity plane (runtime/integrity.py): audits on the tick
+        # cadence, row quarantine + repair from the supervisor's last
+        # verified checkpoint, storm/repair-failure escalation to a
+        # supervisor restart (cause `integrity`).
+        self.integrity = None
+        integ = config.integrity
+        if integ.enabled:
+            self.integrity = IntegrityMonitor(
+                self.runtime,
+                audit_every_ticks=integ.audit_every_ticks,
+                max_row_repairs=integ.max_row_repairs,
+                storm_threshold=integ.storm_threshold,
+                log=self.log,
+            )
+            self.runtime.integrity = self.integrity
+            if self.supervisor is not None:
+                self.integrity.snapshot_provider = self.supervisor.last_good_snapshot
+                self.integrity.escalate_cb = self.supervisor.request_restart
         router.on_new_session(self.start_session)
         self._update_node_stats()
 
@@ -339,17 +405,21 @@ class RoomManager:
     def _admission_denied(self, kind: str) -> str:
         """Non-empty rejection reason when the node must refuse new work
         of `kind` ('room' / 'join' / 'publish') — the config.go
-        LimitConfig seat. Every refusal is explicit (signal response) and
-        counted; existing sessions are never evicted by any of these
-        gates. (The reference's fence, drain and governor gates belong to
-        subsystems the port does not carry yet.)"""
+        LimitConfig seat plus the governor's L4. Every refusal is explicit
+        (signal response) and counted; existing sessions are never
+        evicted by any of these gates. (The reference's fence and drain
+        gates belong to the fleet and migration planes, which the port
+        does not carry yet.)"""
         lim = self.config.limits
         st = self.router.local_node.stats
         reason = ""
         if kind == "room" and self.runtime.occupancy().get("admittable_rooms", 1) <= 0:
             # Real plane headroom (paged: free pages / min room footprint;
-            # dense: free rows).
+            # dense: free rows) — checked before the governor so page-pool
+            # exhaustion reports its own reason rather than "overloaded".
             reason = "no plane capacity for a new room"
+        elif self.governor is not None and not self.governor.should_admit(kind):
+            reason = "node overloaded"
         elif kind == "room" and lim.max_rooms and len(self.rooms) >= lim.max_rooms:
             reason = "max rooms on node"
         elif kind == "publish" and lim.num_tracks and (
@@ -370,6 +440,8 @@ class RoomManager:
             self.admission_denied_reasons[label] = (
                 self.admission_denied_reasons.get(label, 0) + 1
             )
+            if self.governor is not None:
+                self.governor.note_rejection(kind)
             self.log.warn("admission refused", kind=kind, reason=reason)
         return reason
 
@@ -513,6 +585,13 @@ class RoomManager:
             self.telemetry.observe_tick_latency(res.tick_s)
             if self.udp is not None:
                 self.telemetry.observe_transport(self.udp.stats)
+            if self.governor is not None:
+                self.telemetry.observe_overload({
+                    **self.governor.stats_dict(),
+                    "denied_reasons": dict(self.admission_denied_reasons),
+                })
+            if self.integrity is not None:
+                self.telemetry.observe_integrity(self.integrity_stats())
             pager_stats = getattr(self.runtime, "pager_stats", None)
             if pager_stats is not None:
                 self.telemetry.observe_pager(pager_stats())
@@ -588,9 +667,34 @@ class RoomManager:
             self.tcp_media.close()
             self.tcp_media = None
 
+    # -- supervision ------------------------------------------------------
+    async def checkpoint_rooms(self) -> None:
+        """Publish every live room's row snapshot — the seed a surviving
+        node restores from if this node dies; the reference runs it on the
+        supervisor's checkpoint cadence. Room checkpoints travel over the
+        shared bus, which a single node does not have (the multi-node
+        plane is ROADMAP A13), so the supervisor does not call it yet and
+        it returns at once, as the reference's does without a bus."""
+        if getattr(self.router, "bus", None) is None:
+            return
+
+    def integrity_stats(self) -> dict:
+        """IntegrityMonitor stats + the supervisor's checkpoint-generation
+        fallbacks and restart causes — the /debug/integrity payload. (The
+        reference adds the room checkpoints' fallbacks, which need the
+        bus, ROADMAP A13.)"""
+        snap = self.integrity.stats_dict() if self.integrity is not None else {}
+        snap["generation_fallbacks"] = 0
+        if self.supervisor is not None:
+            snap["generation_fallbacks"] = self.supervisor.ckpt_fallbacks
+            snap["restart_causes"] = dict(self.supervisor.restart_causes)
+        return snap
+
     # -- periodic reaping (server.go backgroundWorker) --------------------
     def start(self) -> None:
         self.runtime.start()
+        if self.supervisor is not None:
+            self.supervisor.start()
         if self._reaper_task is None:
             self._reaper_task = asyncio.ensure_future(self._reaper())
 
@@ -607,6 +711,8 @@ class RoomManager:
                     p.reap_stale_publications()
 
     async def stop(self) -> None:
+        if self.supervisor is not None:
+            await self.supervisor.stop()
         if self._reaper_task is not None:
             self._reaper_task.cancel()
             self._reaper_task = None

@@ -4,15 +4,16 @@ Reference parity: pkg/service/server.go (LivekitServer :46-61, Start
 :170-293, Stop :295-316, health :351-364) and the Wire DI graph
 (wire_gen.go:38-138) — here plain constructor wiring in create_server().
 Endpoints: /rtc (WS signal+media), /twirp/livekit.RoomService/* (admin),
-/ (health), /metrics (prometheus text format), /debug/rooms.
+/ (health), /metrics (prometheus text format), /debug/rooms,
+/debug/overload (the governor) and /debug/integrity (the audit, the
+repair ladder, the checkpoint codec, restart causes).
 
 Port of the JAX package's service/server.py. `create_server(cfg,
 device=...)` builds the port's RoomManager on `device` ("cuda" by
 default). Routes whose subsystem the port does not carry yet are left
 out (ROADMAP A): the agents, egress, ingress and SIP services, ioinfo,
-/debug/overload, /debug/integrity, /debug/compiles,
-/debug/migration, /debug/fleet and /debug/trace; so is the relay, which
-RoomManager refuses to configure. The UDP media transport and the TCP
+/debug/compiles, /debug/migration, /debug/fleet and /debug/trace; so is
+the relay, which RoomManager refuses to configure. The UDP media transport and the TCP
 fallback open at start (RoomManager.start_transports) on rtc.udp_port
 and rtc.tcp_port.
 """
@@ -68,7 +69,9 @@ class LivekitServer:
         self.app.router.add_get("/debug/analytics", self.debug_analytics)
         self.app.router.add_get("/debug/tasks", self.debug_tasks)
         self.app.router.add_get("/debug/ticks", self.debug_ticks)
+        self.app.router.add_get("/debug/overload", self.debug_overload)
         self.app.router.add_get("/debug/pager", self.debug_pager)
+        self.app.router.add_get("/debug/integrity", self.debug_integrity)
         self.app.router.add_get("/debug/egress", self.debug_egress)
         self.app.router.add_get("/debug/blackbox/{room}", self.debug_blackbox)
         self._runner: web.AppRunner | None = None
@@ -228,6 +231,58 @@ class LivekitServer:
         return web.Response(
             text=self.telemetry.prometheus_text(), content_type="text/plain"
         )
+
+    async def debug_overload(self, request: web.Request) -> web.Response:
+        """Overload-governor state: ladder level, recent transitions,
+        split ingest drop counters, admission rejections, signal
+        back-pressure drops, and the active limits."""
+        from dataclasses import asdict
+
+        from livekit_server_tpu_torch.routing.messagechannel import MessageChannel
+
+        rm = self.room_manager
+        gov = rm.governor
+        ing = rm.runtime.ingest
+        return web.json_response({
+            "governor": gov.snapshot() if gov is not None else None,
+            "ingest": {
+                "dropped_capacity": ing.dropped_capacity,
+                "dropped_fault": ing.dropped_fault,
+                "dropped_policed": ing.dropped_policed,
+            },
+            "admission_rejected": dict(rm.admission_rejected),
+            "admission_denied_reasons": dict(rm.admission_denied_reasons),
+            "queue_drops": {"signal_channel": MessageChannel.total_dropped},
+            "supervisor_restarts": rm.supervisor.restarts if rm.supervisor is not None else 0,
+            "limits": asdict(self.config.limits),
+        })
+
+    async def debug_integrity(self, request: web.Request) -> web.Response:
+        """State-integrity plane: audits run, violations by rule, the
+        quarantine/repair ladder's outcomes, checkpoint checksum failures
+        + generation fallbacks, and supervisor restart causes."""
+        from livekit_server_tpu_torch.utils.checksum import CodecStats
+
+        rm = self.room_manager
+        sup = rm.supervisor
+        integ = self.config.integrity
+        return web.json_response({
+            "integrity": rm.integrity_stats() if rm.integrity is not None else None,
+            "checksum": {
+                "frames_encoded": CodecStats.frames_encoded,
+                "frames_verified": CodecStats.frames_verified,
+                "verify_failures": CodecStats.verify_failures,
+            },
+            "restart_causes": dict(sup.restart_causes) if sup is not None else {},
+            "supervisor_ckpt_fallbacks": sup.ckpt_fallbacks if sup is not None else 0,
+            "config": {
+                "enabled": integ.enabled,
+                "audit_every_ticks": integ.audit_every_ticks,
+                "max_row_repairs": integ.max_row_repairs,
+                "storm_threshold": integ.storm_threshold,
+                "checkpoint_generations": integ.checkpoint_generations,
+            },
+        })
 
     async def debug_egress(self, request: web.Request) -> web.Response:
         """Sharded egress plane: host_egress_pps, shard plan, canonical

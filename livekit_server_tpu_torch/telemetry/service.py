@@ -156,6 +156,38 @@ class TelemetryService:
             stats.get("edge_overshoot_us", 0.0),
         )
 
+    def observe_overload(self, snap: dict[str, Any]) -> None:
+        """Overload-governor state (runtime/governor.py stats_dict):
+        ladder level, transition counts, the split ingest drop counters,
+        and admission rejections by kind and by canonical cause."""
+        self.set_gauge("livekit_governor_level", snap.get("level", 0))
+        self.set_gauge("livekit_governor_escalations_total", snap.get("escalations", 0))
+        self.set_gauge("livekit_governor_transitions_total", snap.get("transitions_total", 0))
+        for k in ("dropped_capacity", "dropped_fault", "dropped_policed"):
+            self.set_gauge(f"livekit_ingest_{k}_total", snap.get(k, 0))
+        for kind, n in snap.get("rejected", {}).items():
+            self.set_gauge("livekit_admission_rejected_total", n, kind=str(kind))
+        for reason, n in snap.get("denied_reasons", {}).items():
+            self.set_gauge("livekit_admission_denied_total", n, reason=str(reason))
+
+    def observe_integrity(self, snap: dict[str, Any]) -> None:
+        """State-integrity plane (runtime/integrity.py stats_dict +
+        checkpoint codec counters): audits run, violations by rule, the
+        repair ladder's outcomes, and checksum verification failures."""
+        from livekit_server_tpu_torch.utils.checksum import CodecStats
+
+        self.set_gauge("livekit_integrity_audits_total", snap.get("audits", 0))
+        self.set_gauge("livekit_integrity_violations_total", snap.get("violations_total", 0))
+        for rule, n in snap.get("violations_by_rule", {}).items():
+            self.set_gauge("livekit_integrity_rule_violations_total", n, rule=str(rule))
+        for k in ("rows_quarantined", "rows_repaired", "repair_failures", "escalations"):
+            self.set_gauge(f"livekit_integrity_{k}_total", snap.get(k, 0))
+        self.set_gauge("livekit_integrity_quarantined_rows",
+                       len(snap.get("quarantined_rows", [])))
+        self.set_gauge("livekit_ckpt_checksum_failures_total", CodecStats.verify_failures)
+        self.set_gauge("livekit_ckpt_generation_fallbacks_total",
+                       snap.get("generation_fallbacks", 0))
+
     def observe_pager(self, snap: dict[str, Any]) -> None:
         """Paged room-state plane (runtime/pager.py stats()): device page
         pool occupancy, fragmentation, and churn counters. Only emitted

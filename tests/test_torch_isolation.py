@@ -131,6 +131,10 @@ async def main():
     assert lock["datagrams_compared"] > 0 and cs.REQUIRE_ENCRYPTION
     for rig in rigs:
         await rig.close()
+    # The failure and overload plane (supervisor, integrity audit, fault
+    # injection, checkpoint frames): chip_smoke's drills on a small plane.
+    report, _ = await cs.drills("cpu", plane.PlaneDims(8, 10, 8, 10))
+    assert report["bitflip"]["rows_repaired"] == 1 and report["stall"]["restarts"] == 2
 
 asyncio.run(main())
 after = {m.split(".")[0] for m in sys.modules}
@@ -140,11 +144,12 @@ print(json.dumps(sorted(after - before)))
 
 def test_serving_path_needs_only_torch_numpy_and_stdlib():
     """What chip_smoke's serving phases load (config, RoomManager, rtc,
-    routing, telemetry, the codec, the runtime loop, and the UDP media
-    wire: transport, native libraries, sealed frames through libcrypto)
-    runs with aiohttp, msgpack, PyYAML and cryptography absent, as they
-    may be on a card's host, and adds no module outside the port, torch,
-    numpy and the standard library."""
+    routing, telemetry, the codec, the runtime loop, the UDP media wire:
+    transport, native libraries, sealed frames through libcrypto; and the
+    failure and overload plane: supervisor, integrity audit, governor,
+    fault injection, checkpoint frames) runs with aiohttp, msgpack, PyYAML
+    and cryptography absent, as they may be on a card's host, and adds no
+    module outside the port, torch, numpy and the standard library."""
     import json
     import os
     import subprocess

@@ -1,9 +1,13 @@
 """The whole slice against the reference: the JAX package's server and the
 port's server (device="cpu"), built from the same config (the port
-overlay: supervisor, integrity, migration, fleet, governor, faults, relay
-and the express lane off, rtc.udp_port 0), each driven over real
-WebSockets by the same three-party audio script. Every subscriber must
-receive the same (publisher, sn, payload) sequence from both.
+overlay: migration, fleet, relay and the express lane off; the
+supervisor and the integrity audit on, as the reference's defaults have
+them; rtc.udp_port 0), each driven over real WebSockets by the same
+three-party audio script. Every subscriber must receive the same
+(publisher, sn, payload) sequence from both. The overload governor is
+off in both: its ladder reads each host's wall-clock lateness, which the
+two servers do not share (tests/test_torch_overload*.py hold the ladder
+itself against the reference).
 
 One test in its own file: it pays the JAX tick's compile."""
 
@@ -39,6 +43,7 @@ def _config_dict() -> dict:
     port = s.getsockname()[1]
     s.close()
     base = port_overlay()
+    base["limits"] = {"governor_enabled": False}
     base["plane"].update(rooms=2, tracks_per_room=4, pkts_per_track=4, subs_per_room=4,
                          tick_ms=10)
     base.update(keys={KEY: SECRET}, port=port, bind_addresses=["127.0.0.1"],

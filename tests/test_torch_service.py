@@ -3,7 +3,8 @@ HTTP + WebSocket with device="cpu": health and validate, token checks,
 join/publish/subscribe media over the WS, the RoomService API, /metrics
 and /debug, the ConfigError of every subsystem the port does not carry,
 `serve` (refused without a card, or without aiohttp; answering GET /
-with --device cpu), and the UDP media wire through the server (sealed RTP
+with --device cpu, with the supervisor, the integrity audit and the
+governor on and /debug/overload and /debug/integrity answering), and the UDP media wire through the server (sealed RTP
 from a publisher's socket to a punched subscriber's). The test client
 speaks the reference's wire: JSON signal frames and media frames packed
 and read with `msgpack`."""
@@ -52,8 +53,13 @@ def _free_port() -> int:
 
 
 def make_config(port: int, **extra):
-    """The reference test config's shape, on the port overlay."""
+    """The reference test config's shape, on the port overlay. The
+    overload governor is off: its ladder reads wall-clock lateness, and on
+    a loaded test host 80 late ticks in a row (under a second at 10 ms)
+    would refuse these tests' joins at L4. The tests of the governor turn
+    it on (`running_server(governor=True)`)."""
     base = port_overlay()
+    base["limits"] = {"governor_enabled": False}
     base["plane"].update(rooms=4, tracks_per_room=4, pkts_per_track=4, subs_per_room=4,
                          tick_ms=10)
     # No fixed media ports (parallel test workers would contend for them)
@@ -124,8 +130,9 @@ class SignalClient:
 
 
 @contextlib.asynccontextmanager
-async def running_server():
+async def running_server(governor: bool = False):
     cfg = make_config(_free_port())
+    cfg.limits.governor_enabled = governor
     srv = create_server(cfg, device="cpu")
     await srv.start()
     try:
@@ -374,14 +381,17 @@ def test_serve_refuses_without_a_card_or_aiohttp(monkeypatch, capsys):
     assert "aiohttp" in capsys.readouterr().err
     # An explicit YAML/flag enabling an unported subsystem is refused too.
     monkeypatch.setattr(cli.importlib.util, "find_spec", real)
-    with pytest.raises(ConfigError, match="supervisor.enabled"):
+    with pytest.raises(ConfigError, match="migration.enabled"):
         cli.main(["serve", "--dev", "--device", "cpu", "--port", port,
-                  "--supervisor.enabled", "true"])
+                  "--migration.enabled", "true"])
 
 
-def test_serve_dev_cpu_answers_health():
-    """`python -m livekit_server_tpu_torch serve --dev --device cpu`
-    prints the overlay, then answers GET / with 200."""
+@contextlib.contextmanager
+def _serve_dev_cpu():
+    """`python -m livekit_server_tpu_torch serve --dev --device cpu` on a
+    free port, answering GET / with 200; yields (base URL, the process's
+    stdout lines read so far, as a list the caller may extend after
+    exit)."""
     port = _free_port()
     # One intra-op thread, as in this process: the suite runs beside
     # timing-sensitive tests in other workers.
@@ -391,6 +401,7 @@ def test_serve_dev_cpu_answers_health():
          "--port", str(port), "--plane.rooms", "4", "--plane.subs-per-room", "4",
          "--rtc.udp-port", "0", "--rtc.tcp-port", "0"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    out: list[str] = []
     try:
         deadline, status = time.monotonic() + 120, None
         while status != 200:
@@ -401,7 +412,43 @@ def test_serve_dev_cpu_answers_health():
                     status = r.status
             except OSError:
                 time.sleep(0.2)
+        yield f"http://127.0.0.1:{port}", out
     finally:
         proc.terminate()
-        out, _ = proc.communicate(timeout=30)
-    assert "port overlay" in out and '"supervisor": {"enabled": false}' in out
+        out.append(proc.communicate(timeout=30)[0])
+
+
+def test_serve_dev_cpu_answers_health():
+    """`python -m livekit_server_tpu_torch serve --dev --device cpu`
+    prints the overlay, then answers GET / with 200."""
+    with _serve_dev_cpu() as (_base, out):
+        pass
+    text = "".join(out)
+    assert "port overlay" in text and '"migration": {"enabled": false}' in text
+    assert '"supervisor"' not in text and '"integrity"' not in text
+
+
+def test_serve_dev_cpu_runs_the_failure_and_overload_plane():
+    """`serve --dev --device cpu` runs with the supervisor, the integrity
+    audit and the governor on, as the reference's defaults have them, and
+    /debug/overload and /debug/integrity answer."""
+    def get(url):
+        with urllib.request.urlopen(url, timeout=10) as r:
+            assert r.status == 200
+            return json.loads(r.read())
+
+    with _serve_dev_cpu() as (base, _out):
+        deadline = time.monotonic() + 60
+        while (integ := get(f"{base}/debug/integrity"))["integrity"]["audits"] < 1:
+            assert time.monotonic() < deadline, "no integrity audit ran"
+            time.sleep(0.2)
+        overload = get(f"{base}/debug/overload")
+    assert integ["config"]["enabled"]
+    assert set(integ["restart_causes"]) == {"stall", "integrity"}
+    assert integ["integrity"]["audit_every_ticks"] == 16
+    assert integ["checksum"]["frames_encoded"] >= 0
+    gov = overload["governor"]
+    assert gov is not None and 0 <= gov["level"] <= 4
+    assert gov["thresholds"]["escalate_ticks"] == 20
+    assert overload["limits"]["governor_enabled"] is True
+    assert isinstance(overload["supervisor_restarts"], int)

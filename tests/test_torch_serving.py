@@ -4,8 +4,9 @@ on the CPU: the invariants of the JAX package's tests/test_pipeline.py
 device step degrading to sequential at bounded depth) and
 tests/test_rtc_runtime.py (full-grid burst, the low-latency loop
 delivering and stopping clean), plus the port's own: staging never
-aliases the wire a device step reads, and stop() completes the tick
-whose device step is in flight."""
+aliases the wire a device step reads, stop() completes the tick whose
+device step is in flight, and a supervisor stopped in the middle of a
+restart's stop() stops (its cancellation is not taken for the loop's)."""
 
 import asyncio
 import time
@@ -21,6 +22,8 @@ torch.set_num_threads(1)
 from livekit_server_tpu_torch.models import plane  # noqa: E402
 from livekit_server_tpu_torch.runtime import PlaneRuntime  # noqa: E402
 from livekit_server_tpu_torch.runtime.ingest import PacketIn  # noqa: E402
+from livekit_server_tpu_torch.runtime.supervisor import PlaneSupervisor  # noqa: E402
+from livekit_server_tpu_torch.utils.backoff import BackoffPolicy  # noqa: E402
 
 DIMS = plane.PlaneDims(rooms=2, tracks=2, pkts=4, subs=4)
 
@@ -206,3 +209,36 @@ async def test_stop_completes_the_tick_in_flight():
     assert steps[0] == 3 == rt.stats["ticks"]
     assert done == [0, 1, 2]
     assert not rt.state_lock.locked()
+
+
+async def test_supervisor_stop_during_a_restart_ends_it():
+    """The supervisor is stopped while its restart waits in
+    `PlaneRuntime.stop()` for the loop's drain (a slow tick callback):
+    the cancellation ends the restart there, so the plane is neither
+    restored nor started again and no watchdog runs on."""
+    rt = _audio_runtime()
+    sup = PlaneSupervisor(rt, tick_deadline_s=5.0, check_interval_s=0.02,
+                          checkpoint_interval_s=60.0,
+                          backoff=BackoffPolicy(base=0.01, max_delay=0.05))
+    slow = asyncio.Event()
+
+    async def slow_fan_out(res) -> None:
+        # The third tick asks for the restart and holds its fan-out, so
+        # the restart's stop waits for it in the loop's drain.
+        if res.tick_index == 2:
+            sup.request_restart("test")
+            slow.set()
+            await asyncio.sleep(1.0)
+
+    rt.on_tick(slow_fan_out)
+    await sup.checkpoint_now()
+    rt.start()
+    sup.start()
+    await asyncio.wait_for(slow.wait(), 30)
+    await _wait(lambda: rt.run_epoch > 0, "the restart's bump")
+    await asyncio.wait_for(sup.stop(), 5)
+    assert sup._watch_task is None and sup.restarts == 0
+    await rt.stop()
+    ticks = rt.stats["ticks"]
+    await asyncio.sleep(0.2)
+    assert rt._task is None and rt.stats["ticks"] == ticks

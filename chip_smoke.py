@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--profile]
 
-Phases (any failure exits non-zero; about ten minutes on an H100):
+Phases (any failure exits non-zero; about fifteen minutes on an H100):
 
   1. build    — compile every CUDA kernel with nvcc (one process per
                 source, in parallel); print each kernel's registers and
@@ -135,15 +135,46 @@ Phases (any failure exits non-zero; about ten minutes on an H100):
                 until the supervisor gives up, DEFAULT_LOOP_CAP_S at most)
                 loops under the reference's default config (supervisor,
                 integrity and governor on), every subscriber sending a
-                receiver estimate each tick, reporting restarts and
-                causes, `gave_up`, integrity escalations, the governor's
-                level and transitions, audits and their share of the
-                wall, and checkpoint ms. The serving and UDP
+                receiver estimate each tick (a clean state: no
+                `integrity` restart and no violation may occur), reporting
+                restarts and causes, `gave_up`, integrity escalations, the
+                governor's level and transitions, audits and their share of
+                the wall, and checkpoint ms. The serving and UDP
                 phases above keep those three subsystems off, so their
-                numbers compare with earlier runs.
+                numbers compare with earlier runs;
+  8. migration — the multi-node plane (`migration_phase`): a port
+                BusServer on loopback and three nodes, each its own
+                process on the card, a KVRouter on a TCPBusClient and a
+                cfg4 RoomManager under the reference's default config
+                (supervisor, integrity, migration and fleet on, kv.kind
+                tcp; the governor off, see `migration_config`), joined
+                through start_session, fed one seeded synth tick and
+                every subscriber's receiver estimate per loop tick. Node A
+                hosts 512 rooms, B 256. Live migration of 8 rooms A → B
+                one at a time (each moved row on B bit-equal to A's freeze
+                snapshot, every leaf and the munger lanes; every Opus
+                packet of those rooms delivered once to every other
+                participant with consecutive munged SNs across the
+                cutover; A's rows released); B SIGKILLed and its 264 rooms
+                restored on A from its KV checkpoints (every room once,
+                each row equal to the checkpoint generation it decoded;
+                rooms that came back without state are counted); node C
+                joins, runs the reference's default governor on its loop
+                for a while (its ladder, and whether a PREPARE is NACKed),
+                and A is drained into it (every room moves, A refuses
+                admissions meanwhile and ends with no room and no row).
+                Reports PREPARE→COMMIT and freeze-window ms, bridged
+                packets, timeouts, retries, rollbacks, the time to recover
+                beside kv.lease_ttl_s + kv.failover_interval_s, the
+                drain's time and rooms per second, and per node the
+                checkpoint rounds (ms, bytes, rounds past the interval),
+                lease refresh lateness, event-loop lag, self-fencing,
+                restarts by cause and the loop's wall ms per tick. B1 and
+                B2 launch on every node.
 
 Output: JSON lines per phase (the serving phase's under "serving", the
-UDP phase's under "udp", the failure phase's under "failure"), a
+UDP phase's under "udp", the failure phase's under "failure", the
+multi-node plane's under "migration"), a
 `{"kernels": [...]}` JSON line (each kernel's numbers on its own path,
 `launches_by_path` its launches on every path, the serving loop's
 included, its ptxas registers and spill bytes,
@@ -185,6 +216,7 @@ from livekit_server_tpu_torch.protocol import packer
 from livekit_server_tpu_torch.routing import LocalNode, LocalRouter, MessageChannel
 from livekit_server_tpu_torch.runtime import PlaneRuntime, dd, integrity
 from livekit_server_tpu_torch.runtime import crypto as crypto_mod, udp as udp_mod
+from livekit_server_tpu_torch.runtime.ingest import PacketIn
 from livekit_server_tpu_torch.runtime.paged_runtime import PagedPlaneRuntime
 from livekit_server_tpu_torch.runtime.pager import RoomPager
 from livekit_server_tpu_torch.runtime.slots import CapacityError
@@ -252,7 +284,7 @@ ROOM_MIX_SEED = 9
 # the paged run's least loop ticks, the rooms whose audio delivery is
 # checked, and a wall-clock cap on either run.
 SERVING_SECONDS = 5.0
-SERVING_PAGED_TICKS = 10
+SERVING_PAGED_TICKS = 6
 SAMPLE_ROOMS = 8
 SERVING_TRACE_TICKS = 4096
 SERVING_WALL_CAP_S = 240.0
@@ -976,9 +1008,10 @@ def serving_config(paged_dims: paged.PagedDims | None = None,
     return load_config(base=base, env={})
 
 
-async def join_rooms(rm: RoomManager, sizes, pubs, spec: synth.TrafficSpec
-                     ) -> tuple[dict, list, float]:
-    """Room r gets sizes[r] participants p0..p{n-1} through
+async def join_rooms(rm: RoomManager, sizes, pubs, spec: synth.TrafficSpec,
+                     names: list[str] | None = None) -> tuple[dict, list, float]:
+    """Room r (named names[r], by default f"room{r}") gets sizes[r]
+    participants p0..p{n-1} through
     RoomManager.start_session with MessageChannel sinks; participants
     t < pubs[r] each announce one track (add_track over the signal
     channel: the first spec.video_tracks VP9-SVC video, the rest Opus) and
@@ -986,14 +1019,15 @@ async def join_rooms(rm: RoomManager, sizes, pubs, spec: synth.TrafficSpec
     auto-subscribes. Returns ({(room, identity): (request channel, session
     task)}, [room][t] → (track col, track sid), the join seconds of all
     participants)."""
+    names = names or [f"room{r}" for r in range(len(sizes))]
     sessions = {}
     t0 = time.perf_counter()
     for r, size in enumerate(sizes):
         for t in range(size):
             req, resp = MessageChannel(), MessageChannel()
             init = {"identity": f"p{t}", "name": f"p{t}", "auto_subscribe": True,
-                    "grants": {"video": {"roomJoin": True, "room": f"room{r}"}}}
-            task = asyncio.ensure_future(rm.start_session(f"room{r}", init, req, resp))
+                    "grants": {"video": {"roomJoin": True, "room": names[r]}}}
+            task = asyncio.ensure_future(rm.start_session(names[r], init, req, resp))
             sessions[(r, f"p{t}")] = (req, task)
     want = sum(sizes)
     while sum(len(room.participants) for room in rm.rooms.values()) < want:
@@ -1008,7 +1042,7 @@ async def join_rooms(rm: RoomManager, sizes, pubs, spec: synth.TrafficSpec
             sessions[(r, f"p{t}")][0].write_message(json.dumps({"add_track": {
                 "cid": f"c{t}", "name": f"c{t}", "type": int(video),
                 "mime_type": "video/vp9" if video else "audio/opus"}}))
-    rooms = [rm.rooms[f"room{r}"] for r in range(len(sizes))]
+    rooms = [rm.rooms[names[r]] for r in range(len(sizes))]
     while any(len(room.participants[f"p{t}"].pending_tracks) < 1
               for room, n_pub in zip(rooms, pubs) for t in range(n_pub)):
         await asyncio.sleep(0.005)
@@ -1356,8 +1390,8 @@ async def serving_phase(dev, dense_dims: plane.PlaneDims = RUNTIME_DIMS,
 
 UDP_LOCK_TICKS = 20
 UDP_NACK_TICK = 10                 # the lockstep tick after which subscribers NACK
-UDP_SECONDS = 10.0
-UDP_PAGED_TICKS = 10
+UDP_SECONDS = 6.0
+UDP_PAGED_TICKS = 6
 UDP_VOID_SINKS = 8                 # sockets shared by the unchecked rooms' subscribers
 UDP_SEND_CHUNK = 256               # datagrams a publisher sends between waits
 UDP_WAIT_S = 60.0                  # bound on every wait for the server's receive side
@@ -2219,8 +2253,8 @@ def rule_counts(mask: np.ndarray) -> list[int]:
 def ring_cursor_rooms(state) -> np.ndarray:
     """[R] bool: rooms with a subscriber whose BWE ring write cursor has
     reached bwe.WINDOW. The BWE reads the cursor modulo WINDOW and never
-    wraps it, while the audit's bounds rule holds it below WINDOW — the
-    reference's audit flags these rooms on a clean state."""
+    wraps it; the reference's audit holds it below WINDOW and flags these
+    rooms on a clean state, the port's does not (ROADMAP C6)."""
     ring = state.bwe_state.ring_pos.cpu().numpy()
     return (ring >= bwe.WINDOW).reshape(ring.shape[0], -1).any(axis=1)
 
@@ -2297,10 +2331,9 @@ async def drills(dev, dims: plane.PlaneDims = RUNTIME_DIMS) -> tuple[dict, Plane
     defaults), the governor off, fault injection on (FaultSpec knobs set
     per drill). Rooms are set up on the runtime directly and nothing is
     delivered (the drills read the plane, not the wire). The traffic is
-    media without receiver estimates, as in the serving loops: with
-    estimates, every room's BWE ring cursor passes bwe.WINDOW within eight
-    ticks and the audit flags all of them (`ring_cursor_rooms`), so the
-    ladder could not be drilled on one room. Returns the report and the
+    media without receiver estimates, as in the serving loops (the
+    reference's audit would flag every room with them, ROADMAP C6; the
+    default-config loops below carry them). Returns the report and the
     runtime (stopped)."""
     cfg = serving_config(dense_dims=dims, failure_plane=True)
     cfg.limits.governor_enabled = False
@@ -2469,9 +2502,8 @@ async def failure_phase(dev, ns_state, ns_tick: dict, pool_state, pool_tick: dic
     _, _, mirror = integrity.audit_plane(ns_state, integrity.init_mirror(ns_state))
     base, base_counts = audit_pair(ns_state, mirror, "the north-star state")
     ring = ring_cursor_rooms(ns_state)
-    if not np.array_equal(base.astype(bool), ring) or base_counts[:4].any():
-        raise AssertionError(f"the north-star state flags {base_counts.tolist()}, beyond "
-                             f"the {int(ring.sum())} rooms of the ring-cursor rule")
+    if base.any():
+        raise AssertionError(f"the clean north-star state flags {base_counts.tolist()}")
     st, mi, want = poison_rules(ns_state, mirror, base)
     mask, counts = audit_pair(st, mi, "the north-star state, one room per rule")
     if not np.array_equal(mask, want) or counts.tolist() != rule_counts(want):
@@ -2525,11 +2557,718 @@ async def failure_phase(dev, ns_state, ns_tick: dict, pool_state, pool_tick: dic
         dev, sizes, sizes, PAGED_SPEC, serving_config(paged_dims, failure_plane=True), None,
         DEFAULT_PAGED_TICKS, cap_s=DEFAULT_LOOP_CAP_S, estimates=True)
     log(f"failure: default config, paged loop: {json.dumps(paged_report['failure_plane'])}")
+    # Every subscriber sends receiver estimates, so every room's BWE ring
+    # cursor passes bwe.WINDOW within a few ticks: a clean state the port's
+    # audit must not flag (ROADMAP C6), so no integrity restart either.
+    for where, rep in (("cfg4", dense), ("paged", paged_report)):
+        fp = rep["failure_plane"]
+        if fp["restart_causes"]["integrity"] or fp["integrity_violations"]:
+            raise AssertionError(f"failure: the default-config {where} loop audited a clean "
+                                 f"state as corrupt: {json.dumps(fp)}")
     keep = ("ticks", "wall_s", "wall_ms_per_tick", "fwd_packets", "late_ticks",
             "failure_plane", "join_s", "launches", "tick_ms", "stage_ms", "device_ms",
             "fanout_ms", "send_ms")
     out["default_config"] = {"dense": {k: dense[k] for k in keep},
                              "paged": {k: paged_report[k] for k in keep}}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The multi-node plane: live migration, failover, drain
+# ---------------------------------------------------------------------------
+
+MIG_DIMS = RUNTIME_DIMS            # the cfg4 plane on every node
+MIG_ROOMS = {"A": 512, "B": 256, "C": 0}
+MIG_SAMPLE_ROOMS = 8               # rooms migrated A → B, one at a time
+MIG_AUDIO_COLS = tuple(range(RUNTIME_SPEC.video_tracks,
+                             RUNTIME_SPEC.video_tracks + RUNTIME_SPEC.audio_tracks))
+MIG_AFTER_TICKS = 10               # target ticks that carry the sampled audio on
+MIG_WAIT_S = 180.0                 # bound on every wait on a node
+MIG_DRAIN_CAP_S = 420.0
+
+
+def migration_config(bus_port: int, dims: plane.PlaneDims = MIG_DIMS) -> Config:
+    """The reference's default Config (supervisor, integrity, migration
+    and fleet on) with the port overlay, kv.kind tcp at the phase's bus,
+    the plane at `dims` (cfg4) and 20 ms ticks; the overload governor off.
+
+    The governor is on in the reference's defaults. The port's cfg4 loop
+    takes longer than a 20 ms tick on the card, so every tick is late, the
+    ladder climbs one level per governor_escalate_ticks (20) late ticks,
+    and from L3 a node NACKs every inbound PREPARE (service/migration.py):
+    with it on, no migration or drain of this phase could land. The phase
+    measures that on node C before the drain (`MigNode.govern`) instead.
+
+    room.empty_timeout_s is an hour: the rooms a node adopts or restores
+    here hold no participants (the re-armed subscriptions stand in for
+    the clients' reconnect), so the idle reaper would close them after
+    the default 300 s, in the middle of the drain."""
+    base = port_overlay()
+    base["plane"].update(rooms=dims.rooms, tracks_per_room=dims.tracks,
+                         pkts_per_track=dims.pkts, subs_per_room=dims.subs,
+                         tick_ms=RUNTIME_SPEC.tick_ms)
+    base.update(development=True, trace={"ring_ticks": SERVING_TRACE_TICKS},
+                kv={"kind": "tcp", "address": f"127.0.0.1:{bus_port}"},
+                limits={"governor_enabled": False}, room={"empty_timeout_s": 3600})
+    return load_config(base=base, env={})
+
+
+def row_digests(leaves) -> list[str]:
+    """A digest of each array (dtype, shape and bytes)."""
+    import hashlib
+
+    out = []
+    for a in leaves:
+        a = np.ascontiguousarray(np.asarray(a))
+        h = hashlib.sha1(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+class MigNode:
+    """One node of the phase's cluster, in its own process: a RoomManager
+    on the card behind a KVRouter on a TCPBusClient, its pipelined loop
+    fed one seeded synth tick per loop tick, driven over a pipe by the
+    phase (`mig_node_main`)."""
+
+    def __init__(self, name: str, conn, bus_port: int, dev: str, dims: plane.PlaneDims):
+        self.name, self.conn, self.bus_port = name, conn, bus_port
+        self.dev, self.dims = dev, dims
+        self.sampled: set[str] = set()
+        self.next_sn: dict[tuple[str, int], int] = {}
+        self.pushed: dict[tuple[str, int], list[int]] = {}
+        self.egress: list[tuple[str, int, int, int]] = []
+        self.name_of_row: dict[int, str] = {}
+        self.frozen: dict[str, list[str]] = {}      # room → leaf digests at freeze
+        self.adopted: dict[str, list[str]] = {}     # room → leaf digests at adoption
+        self.restores: list[dict] = []
+        self.restore_attempts: dict[str, float] = {}   # room → when its create read the bus
+        self.bridge_sn: dict[tuple[str, int], int] = {}
+        self.restored_sn: dict[tuple[str, int], int] = {}
+        self.mig_times: dict[str, dict] = {}
+        self.lease: list[tuple[float, bool]] = []
+        self.quiet: set[str] = set()
+        self.stop = asyncio.Event()
+        self.feed = None
+        self.rm = None
+        self.sessions: dict = {}
+        self.lag: list[float] = []          # event-loop wake lateness, s
+
+    # -- set-up -------------------------------------------------------------
+    async def init(self) -> dict:
+        from livekit_server_tpu_torch.routing import create_router, create_selector
+        from livekit_server_tpu_torch.service.server import connect_bus
+        from livekit_server_tpu_torch.service.store import KVStore
+
+        t0 = time.perf_counter()
+        cfg = migration_config(self.bus_port, self.dims)
+        bus = await connect_bus(cfg)                 # raises when it cannot reach the bus
+        node = LocalNode(region=cfg.region)
+        bus.set_ident(node.node_id)
+        router = create_router(node, bus, lease_ttl=cfg.kv.lease_ttl_s,
+                               stats_interval=cfg.kv.stats_interval_s)
+        rm = RoomManager(cfg, router, KVStore(bus), telemetry=TelemetryService(cfg),
+                         device=self.dev)
+        if rm.migration is None or rm.fleet is None:
+            raise AssertionError("the default config built no migration or fleet plane")
+        rm.migration.selector = create_selector(cfg.node_selector, cfg.region)
+        self.rm, self.rt, self.cfg = rm, rm.runtime, cfg
+        self.t_start, self.ticks0 = time.perf_counter(), 0
+        self._hook()
+        await self.rt.step_once()                     # the warm step of LivekitServer.start
+        self.rt.mark_warm()
+        return {"node_id": node.node_id, "init_s": time.perf_counter() - t0}
+
+    def _hook(self) -> None:
+        rm, rt, mig = self.rm, self.rt, self.rm.migration
+        real_snapshot, real_restore = rt.snapshot_room, rt.restore_room
+
+        def snapshot_room(row):
+            snap = real_snapshot(row)
+            room = rm._row_to_room.get(row)
+            if room is not None:
+                self.frozen[room.name] = row_digests(snap["arrays"])
+                self.mig_times.setdefault(room.name, {})["snapshot_t"] = time.perf_counter()
+            return snap
+
+        def restore_room(row, snap):
+            real_restore(row, snap)
+            # Still under state_lock, before any step: the device row is
+            # what the restore wrote (its ctrl too, until the next upload).
+            got = row_digests(self.device_row(row))
+            self.restores.append({"row": row, "t": time.time(),
+                                  "equal": got == row_digests(snap["arrays"])})
+
+        rt.snapshot_room, rt.restore_room = snapshot_room, restore_room
+        real_maybe_restore = rm._maybe_restore_room
+
+        async def maybe_restore_room(room) -> None:
+            await real_maybe_restore(room)
+            self.restore_attempts[room.name] = time.time()
+
+        rm._maybe_restore_room = maybe_restore_room
+
+        def on_adopt(room) -> None:
+            # Migration adoption: the row as restored, every leaf and the
+            # munger lanes; then the subscribers come back (the clients'
+            # reconnect) with the source's subscription masks.
+            row = room.slots.row
+            leaves = self.device_row(row)
+            self.adopted[room.name] = row_digests(leaves)
+            self.name_of_row[row] = room.name
+            names = plane.leaf_names(rt.state)
+            sub = leaves[names.index("ctrl.subscribed")]
+            for t, s in zip(*np.nonzero(sub)):
+                rt.set_subscription(row, int(t), int(s), subscribed=True)
+            # [tracks, layers]: an Opus track's stream is its layer 0.
+            hsn = leaves[names.index("stats.highest_sn")].reshape(self.dims.tracks, -1)
+            for col in MIG_AUDIO_COLS:
+                self.restored_sn[(room.name, col)] = int(hsn[col, 0]) & 0xFFFF
+
+        mig.on_adopt.append(on_adopt)
+        real_bridge, real_send = mig._handle_bridge, mig._send
+
+        async def handle_bridge(msg):
+            for d in msg.get("packets", []):
+                key = (msg.get("room", ""), int(d.get("track", -1)))
+                self.bridge_sn[key] = max(self.bridge_sn.get(key, -1), int(d.get("sn", -1)))
+            await real_bridge(msg)
+
+        async def send(node_id, msg):
+            kind = msg.get("kind")
+            if kind in ("prepare", "commit"):
+                times = self.mig_times.setdefault(msg.get("room", ""), {})
+                times.setdefault(f"{kind}_t", time.perf_counter())
+                if kind == "prepare":
+                    times["prepares"] = times.get("prepares", 0) + 1
+            return await real_send(node_id, msg)
+
+        mig._handle_bridge, mig._send = handle_bridge, send
+        real_lease = rm.router.on_lease
+
+        async def on_lease(ok: bool) -> None:
+            self.lease.append((time.monotonic(), ok))
+            await real_lease(ok)
+
+        rm.router.on_lease = on_lease
+        rt.on_tick(self._collect)
+
+    def device_row(self, row: int) -> list[np.ndarray]:
+        leaves = [x[row].cpu().numpy() for x in plane.tree_leaves(self.rt.state)]
+        return leaves + self.rt.munger.snapshot_room(row)
+
+    def _collect(self, res) -> None:
+        b = res.egress_batch
+        rows = [r for r, n in self.name_of_row.items() if n in self.sampled]
+        if not rows or not len(b):
+            return
+        keep = np.isin(b.rooms, rows) & np.isin(b.tracks, MIG_AUDIO_COLS)
+        for r, t, s, sn in zip(b.rooms[keep], b.tracks[keep], b.subs[keep], b.sn[keep]):
+            self.egress.append((self.name_of_row[int(r)], int(t), int(s), int(sn)))
+
+    # -- the cluster -------------------------------------------------------
+    async def join(self, names: list[str], sampled: list[str]) -> dict:
+        rm, rt = self.rm, self.rt
+        await rm.router.register_node()
+        await rm.router.remove_dead_nodes()
+        self.sampled = set(sampled)
+        n_pub = RUNTIME_SPEC.video_tracks + RUNTIME_SPEC.audio_tracks
+        # The session tasks stay referenced here: the loop holds tasks only
+        # weakly, and a collected session would end its participant.
+        self.sessions, _tracks, join_s = await join_rooms(
+            rm, [self.dims.subs] * len(names), [n_pub] * len(names), RUNTIME_SPEC, names)
+        for name in names:
+            self.name_of_row[rm.rooms[name].slots.row] = name
+            if name in self.sampled:
+                for col in MIG_AUDIO_COLS:
+                    self.next_sn[(name, col)] = 1000 * (col + 1)
+        cuda.reset_launches()
+        self.t_start, self.ticks0 = time.perf_counter(), rt.stats["ticks"]
+        rm.start()
+        self.feed = asyncio.ensure_future(self.feeder())
+        self.probe = asyncio.ensure_future(self.lag_probe())
+        return {"join_s": join_s, "rooms": len(rm.rooms)}
+
+    async def lag_probe(self) -> None:
+        """How late the event loop wakes a 50 ms sleep: the wait every
+        bus round trip, lease refresh and ACK of this node pays."""
+        while not self.stop.is_set():
+            t = time.perf_counter()
+            await asyncio.sleep(0.05)
+            self.lag.append(time.perf_counter() - t - 0.05)
+
+    async def feeder(self) -> None:
+        rm, rt = self.rm, self.rt
+        dims = self.dims
+        traffic = synth.init_traffic(dims, RUNTIME_SPEC, seed=SEED)
+        rng = np.random.default_rng(SEED)
+        n_pub = RUNTIME_SPEC.video_tracks + RUNTIME_SPEC.audio_tracks
+        i = 0
+        while not self.stop.is_set():
+            k = rt.tick_index
+            traffic, inp = synth.next_tick(traffic, dims, RUNTIME_SPEC, i, seed=SEED)
+            adopting = set(rm.migration._adoptions)
+            pubs = np.zeros(dims.rooms, np.int64)
+            hosted = []
+            for name, room in list(rm.rooms.items()):
+                if name in adopting:
+                    continue
+                pubs[room.slots.row] = n_pub
+                hosted.append((name, room.slots.row))
+            valid = np.array(inp.valid)
+            sampled_rows = [row for name, row in hosted if name in self.sampled]
+            if sampled_rows:
+                valid[np.ix_(sampled_rows, MIG_AUDIO_COLS)] = False
+            batch = synth_packets(mask_to_rooms(inp._replace(valid=valid), pubs), rng)
+            rt.ingest.push_batch(**batch)
+            est = np.asarray(inp.estimate)
+            for _, row in hosted:             # every subscriber's receiver estimate
+                for s in range(dims.subs):
+                    rt.ingest.push_feedback(row, s, estimate=float(est[row, s]))
+            for name, row in hosted:
+                if name not in self.sampled or name in self.quiet:
+                    continue
+                for col in MIG_AUDIO_COLS:
+                    key = (name, col)
+                    if key not in self.next_sn:   # adopted here: carry the source's lane on
+                        self.next_sn[key] = max(self.restored_sn.get(key, -1),
+                                                self.bridge_sn.get(key, -1)) + 1
+                    sn = self.next_sn[key]
+                    rt.ingest.push(PacketIn(room=row, track=col, sn=sn, ts=960 * sn, size=60,
+                                            payload=bytes([col]) * 60, audio_level=30))
+                    self.pushed.setdefault(key, []).append(sn)
+                    self.next_sn[key] = sn + 1
+            i += 1
+            while rt.tick_index == k and not self.stop.is_set():
+                await asyncio.sleep(0.001)
+
+    async def migrate(self, names: list[str], target: str) -> dict:
+        rm = self.rm
+        out = {}
+        for name in names:
+            t0 = time.perf_counter()
+            self.mig_times.setdefault(name, {})["start_t"] = t0
+            ok = await rm.migrate_room(name, target)
+            t1 = time.perf_counter()
+            times = self.mig_times.get(name, {})
+            out[name] = {
+                "ok": ok, "migrate_ms": (t1 - t0) * 1e3,
+                "prepare_to_commit_ms": ((times["commit_t"] - times["prepare_t"]) * 1e3
+                                         if "commit_t" in times and "prepare_t" in times
+                                         else None),
+                # From the freeze (migrate_room freezes the row at once:
+                # the target is given) to the COMMIT; the settle before
+                # the snapshot is part of it.
+                "freeze_ms": ((times["commit_t"] - t0) * 1e3 if "commit_t" in times else None),
+                "settle_ms": ((times["snapshot_t"] - t0) * 1e3
+                              if "snapshot_t" in times else None),
+                "prepares": times.get("prepares", 0),
+            }
+        return {"rooms": out, "stats": dict(rm.migration.stats),
+                "rows_used": self.rt.slots.rooms_used}
+
+    async def quiesce(self, ticks: int) -> dict:
+        """Stop the sampled audio, let `ticks` more loop ticks complete,
+        then return what was pushed and delivered."""
+        self.quiet = set(self.sampled)
+        done = self.rt.stats["ticks"] + ticks
+        t0 = time.perf_counter()
+        while self.rt.stats["ticks"] < done:
+            if time.perf_counter() - t0 > MIG_WAIT_S:
+                raise AssertionError(f"node {self.name}: {ticks} ticks not done")
+            await asyncio.sleep(0.01)
+        return {"pushed": {f"{n}|{c}": v for (n, c), v in self.pushed.items()},
+                "egress": self.egress, "frozen": self.frozen, "adopted": self.adopted}
+
+    async def drain(self) -> dict:
+        """drain_node at the default concurrency; one second in, a join to
+        a new room must be refused."""
+        rm, rt = self.rm, self.rt
+        late0, ticks0 = rt.stats["late_ticks"], rt.stats["ticks"]
+        rooms0 = len(rm.rooms)
+        t0 = time.perf_counter()
+        task = asyncio.ensure_future(rm.migration.drain_node())
+        await asyncio.sleep(1.0)
+        denied = rm._admission_denied("room")
+        req, resp = MessageChannel(), MessageChannel()
+        await rm.start_session("late-join", {"identity": "late", "name": "late"}, req, resp)
+        summary = await asyncio.wait_for(task, MIG_DRAIN_CAP_S)
+        drain_s = time.perf_counter() - t0
+        return {"summary": {**summary, "failed": len(summary.get("failed", []))},
+                "failed_rooms": summary.get("failed", [])[:8],
+                "rooms": rooms0, "drain_s": drain_s,
+                "rooms_per_s": rooms0 / drain_s if drain_s else None,
+                "denied_while_draining": denied, "late_join_refused": "late-join" not in rm.rooms,
+                "late_ticks": rt.stats["late_ticks"] - late0,
+                "ticks": rt.stats["ticks"] - ticks0,
+                "rooms_left": len(rm.rooms), "rows_used": rt.slots.rooms_used,
+                "admission_rejected": dict(rm.admission_rejected),
+                "stats": dict(rm.migration.stats)}
+
+    async def govern(self, cap_s: float) -> dict:
+        """Attach the reference's default overload governor to this node's
+        running loop; report its ladder and whether an inbound PREPARE is
+        NACKed once it reaches L3 (the migration plane's governed
+        admission); then set it back to L0 (its actuators off) and detach
+        it."""
+        from livekit_server_tpu_torch.runtime.governor import L_PAUSE, OverloadGovernor
+
+        rm, rt = self.rm, self.rt
+        limits = Config().limits
+        gov = OverloadGovernor.from_config(rt, limits, log=rm.log)
+        rm.governor = rt.governor = gov
+        ticks0, t0 = rt.stats["ticks"], time.perf_counter()
+        while gov.level < L_PAUSE and time.perf_counter() - t0 < cap_s:
+            await asyncio.sleep(0.05)
+        ticks = rt.stats["ticks"] - ticks0
+        nacks = rm.migration.stats["nacks_sent"]
+        await rm.migration._handle_prepare({"room": "governed-probe", "epoch": 1,
+                                            "source": "governed-probe", "snapshot": ""})
+        out = {"ticks": ticks, "seconds": time.perf_counter() - t0, "level": gov.level,
+               "transitions": list(gov.transitions),
+               "prepare_nacked_at_level": (gov.level if rm.migration.stats["nacks_sent"] > nacks
+                                           else None),
+               "escalate_ticks": limits.governor_escalate_ticks}
+        gov._set_level(0, "probe over")
+        rm.governor = rt.governor = None
+        return out
+
+    def report(self) -> dict:
+        rm, rt = self.rm, self.rt
+        sup, gov, integ = rm.supervisor, rm.governor, rm.integrity
+        ok_t = [t for t, ok in self.lease if ok]
+        gaps = [b - a - self.cfg.kv.stats_interval_s for a, b in zip(ok_t, ok_t[1:])]
+        ticks = rt.stats["ticks"] - self.ticks0
+        wall = time.perf_counter() - self.t_start
+        ck = dict(rm.ckpt_stats)
+        return {
+            "node": self.name, "rooms": len(rm.rooms), "rows_used": rt.slots.rooms_used,
+            "ticks": ticks, "wall_s": wall,
+            "wall_ms_per_tick": wall / ticks * 1e3 if ticks else None,
+            "late_ticks": rt.stats["late_ticks"], "launches": dict(cuda.launches),
+            "checkpoint_rounds": {
+                **ck, "ms_per_round": (ck["gather_s"] + ck["encode_s"] + ck["publish_s"])
+                / ck["rounds"] * 1e3 if ck["rounds"] else None,
+                "bytes_per_round": ck["bytes"] / ck["rounds"] if ck["rounds"] else None,
+                "interval_s": self.cfg.supervisor.checkpoint_interval_s},
+            "lease_refresh_late_s": {"n": len(gaps), **quantiles(gaps),
+                                     "max": max(gaps) if gaps else None},
+            "lease_failures": sum(1 for _, ok in self.lease if not ok),
+            "event_loop_lag_ms": {k: v * 1e3 if v is not None else None
+                                  for k, v in {**quantiles(self.lag),
+                                               "max": max(self.lag, default=None)}.items()},
+            "self_fenced": rm.fleet.stats["fences"], "fleet": dict(rm.fleet.stats),
+            "restarts": dict(sup.restart_causes) if sup else None,
+            "governor_level": gov.level if gov else None,
+            "governor_max_level": max([gov.level] + [t["to"] for t in gov.transitions])
+            if gov else None,
+            "integrity_violations": integ.violations_total if integ else None,
+            "failover": dict(rm.fleet.orchestrator.stats),
+            "ckpt_fallbacks": rm.ckpt_fallbacks,
+            "ingest_dropped_capacity": rt.ingest.dropped_capacity,
+        }
+
+    def restored(self) -> dict:
+        """The rooms this node hosts, and for each room a restore wrote
+        into (checkpoint or snapshot), how often, when, and whether the
+        row equals what was decoded."""
+        rooms = {}
+        for rec in self.restores:
+            room = self.rm._row_to_room.get(rec["row"])
+            if room is not None:
+                rooms.setdefault(room.name, []).append(rec)
+        return {"rooms": {n: {"count": len(v), "t": max(r["t"] for r in v),
+                              "equal": all(r["equal"] for r in v)} for n, v in rooms.items()},
+                "hosted": sorted(self.rm.rooms),
+                "attempts": dict(self.restore_attempts),
+                "ckpt_fallbacks": self.rm.ckpt_fallbacks,
+                "failover": dict(self.rm.fleet.orchestrator.stats)}
+
+    # -- the pipe ----------------------------------------------------------
+    async def serve(self) -> None:
+        loop = asyncio.get_running_loop()
+        inbox: asyncio.Queue = asyncio.Queue()
+        loop.add_reader(self.conn.fileno(), lambda: inbox.put_nowait(self.conn.recv()))
+        while True:
+            cmd, *args = await inbox.get()
+            if cmd == "exit":
+                self.conn.send({"ok": True})
+                return
+            try:
+                if cmd == "report":
+                    reply = self.report()
+                elif cmd == "restored":
+                    reply = self.restored()
+                else:
+                    reply = await getattr(self, cmd)(*args)
+            except Exception as e:  # noqa: BLE001 — the phase reads it and fails
+                import traceback
+
+                reply = {"error": f"{type(e).__name__}: {e}", "trace": traceback.format_exc()}
+            self.conn.send(reply)
+
+
+def mig_node_main(name: str, conn, bus_port: int, dev: str, dims: tuple) -> None:
+    """A node process: serve the phase's commands until "exit", then leave
+    without tearing the rooms down (the phase is over; a graceful stop
+    would migrate or delete every room over the bus)."""
+    import os
+
+    configure("warn")
+    node = MigNode(name, conn, bus_port, dev, plane.PlaneDims(*dims))
+    asyncio.run(node.serve())
+    conn.close()
+    os._exit(0)
+
+
+async def mig_fail(nodes: dict, reports: dict, msg: str) -> None:
+    """Log every live node's report, then fail the phase with `msg`."""
+    for n, h in nodes.items():
+        if h.proc.is_alive():
+            try:
+                reports[n] = await h.call("report", timeout=60)
+            except (AssertionError, OSError, EOFError) as e:
+                reports[n] = {"error": str(e)}
+    log(f"migration: node reports at the failure: {json.dumps(reports)}")
+    raise AssertionError(msg)
+
+
+class NodeHandle:
+    def __init__(self, ctx, name: str, bus_port: int, dev: str, dims: plane.PlaneDims):
+        self.name = name
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=mig_node_main,
+                                args=(name, child, bus_port, dev, tuple(dims)), daemon=True)
+        self.proc.start()
+        child.close()
+
+    async def call(self, cmd: str, *args, timeout: float = MIG_WAIT_S):
+        self.conn.send((cmd, *args))
+        loop = asyncio.get_running_loop()
+        if not await loop.run_in_executor(None, self.conn.poll, timeout):
+            raise AssertionError(f"node {self.name}: no reply to {cmd!r} in {timeout} s")
+        reply = self.conn.recv()
+        if isinstance(reply, dict) and "error" in reply:
+            raise AssertionError(f"node {self.name}: {cmd} failed: {reply['error']}\n"
+                                 f"{reply.get('trace', '')}")
+        return reply
+
+    def kill(self) -> None:
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join(30)
+
+
+def check_continuity(sampled: list[str], parts: list[dict], subs: int) -> dict:
+    """Every Opus packet of the sampled rooms, pushed on either node,
+    reaches every other participant exactly once, with consecutive munged
+    SNs across the cutover; none reaches its publisher (participant p{t}
+    publishes track column t from subscriber column t)."""
+    pushed: dict[tuple[str, int], list[int]] = {}
+    got: dict[tuple[str, int, int], list[int]] = {}
+    for part in parts:
+        for key, sns in part["pushed"].items():
+            name, col = key.split("|")
+            pushed.setdefault((name, int(col)), []).extend(sns)
+        for name, t, s, sn in part["egress"]:
+            got.setdefault((name, t, s), []).append(sn)
+    checked = 0
+    for name in sampled:
+        for col in MIG_AUDIO_COLS:
+            sent = sorted(pushed.get((name, col), []))
+            if not sent or sent != list(range(sent[0], sent[0] + len(sent))):
+                gaps = [(a, b) for a, b in zip(sent, sent[1:]) if b != a + 1]
+                raise AssertionError(f"{name} track {col}: pushed SNs not consecutive "
+                                     f"({len(sent)} pushed, gaps {gaps[:4]})")
+            for s in range(subs):
+                sns = got.get((name, col, s), [])
+                if s == col:
+                    if sns:
+                        raise AssertionError(f"{name}: publisher of track {col} got it")
+                    continue
+                if len(sns) != len(sent):
+                    raise AssertionError(f"{name} track {col} → sub {s}: {len(sns)} delivered, "
+                                         f"{len(sent)} pushed")
+                if len(set(sns)) != len(sns) or any((b - a) & 0xFFFF != 1
+                                                    for a, b in zip(sns, sns[1:])):
+                    raise AssertionError(f"{name} track {col} → sub {s}: munged SNs not "
+                                         f"consecutive once-only across the cutover")
+                checked += len(sns)
+    return {"packets_checked": checked}
+
+
+async def migration_phase(dev, dims: plane.PlaneDims = MIG_DIMS, rooms: dict = MIG_ROOMS,
+                          sample: int = MIG_SAMPLE_ROOMS,
+                          after_ticks: int = MIG_AFTER_TICKS) -> dict:
+    """The multi-node plane on the card: a port BusServer on loopback and
+    nodes A, B and C, each its own process on the one card (a KVRouter on
+    a TCPBusClient, a RoomManager on the card under the reference's
+    default config: supervisor, integrity, governor, migration and fleet
+    on, kv.kind tcp), joined through start_session with MessageChannel
+    sinks, a feeder pushing one seeded synth tick (and every subscriber's
+    receiver estimate) per loop tick. A hosts rooms["A"] rooms, B
+    rooms["B"]. Steps: `sample` rooms migrated A → B one at a time with
+    migrate_room (each moved row on B bit-equal to A's freeze snapshot,
+    every Opus packet of those rooms delivered once with consecutive
+    munged SNs across the cutover, A's rows released); B SIGKILLed and
+    its rooms restored on A from its KV checkpoints (every room once,
+    each row equal to the checkpoint it decoded); C started and A
+    drained into it (every room moves, A refuses admissions meanwhile
+    and ends with no room and no row). Returns the numbers."""
+    from livekit_server_tpu_torch.routing.tcpbus import BusServer
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card_line(), "dims": list(dims), "rooms": dict(rooms)}
+    srv = BusServer()
+    await srv.start("127.0.0.1", 0)
+    ctx = multiprocessing.get_context("spawn")
+    nodes = {n: NodeHandle(ctx, n, srv.port, str(dev), dims) for n in ("A", "B", "C")}
+    reports: dict = {}
+    try:
+        ids = {}
+        for n, h in nodes.items():
+            ids[n] = (await h.call("init"))["node_id"]
+        names_a = [f"a{r}" for r in range(rooms["A"])]
+        names_b = [f"b{r}" for r in range(rooms["B"])]
+        sampled = names_a[:sample]
+        joins = await asyncio.gather(nodes["A"].call("join", names_a, sampled),
+                                     nodes["B"].call("join", names_b, sampled))
+        out["join_s"] = {"A": joins[0]["join_s"], "B": joins[1]["join_s"]}
+        log(f"migration: A {rooms['A']} rooms, B {rooms['B']} rooms joined "
+            f"({out['join_s']})")
+        await asyncio.sleep(3.0)                  # a checkpoint round on each node
+
+        # 1. Live migration, one room at a time, under load.
+        mig = await nodes["A"].call("migrate", sampled, ids["B"])
+        failed = [n for n, r in mig["rooms"].items() if not r["ok"]]
+        if failed:
+            raise AssertionError(f"migration: {failed} did not move")
+        ms = [r["prepare_to_commit_ms"] for r in mig["rooms"].values()]
+        freeze = [r["freeze_ms"] for r in mig["rooms"].values()]
+        st = mig["stats"]
+        rep_a = await nodes["A"].call("quiesce", 0)
+        rep_b = await nodes["B"].call("quiesce", after_ticks)
+        for name in sampled:
+            if rep_a["frozen"].get(name) is None or rep_a["frozen"][name] != rep_b["adopted"].get(name):
+                leaves = plane.leaf_names(plane.init_state(plane.PlaneDims(1, 1, 1, 1),
+                                                           device="cpu"))
+                bad = [i for i, (x, y) in enumerate(zip(rep_a["frozen"].get(name, []),
+                                                        rep_b["adopted"].get(name, [])))
+                       if x != y]
+                raise AssertionError(f"migration: {name} on B differs from A's freeze "
+                                     f"snapshot at leaves "
+                                     f"{[leaves[i] if i < len(leaves) else f'munger {i}' for i in bad][:6]}")
+        cont = check_continuity(sampled, [rep_a, rep_b], dims.subs)
+        out["live_migration"] = {
+            "rooms": len(sampled), "prepare_to_commit_ms": quantiles(ms),
+            "freeze_ms": quantiles(freeze),
+            "settle_ms": quantiles([r["settle_ms"] for r in mig["rooms"].values()]),
+            "migrate_ms": quantiles([r["migrate_ms"] for r in mig["rooms"].values()]),
+            "bridged_packets": st["bridged_out"], "bridge_evicted": st["bridge_dropped"],
+            "ack_timeouts": st["timeouts"],
+            "retries": sum(r["prepares"] - 1 for r in mig["rooms"].values()),
+            "rollbacks": st["rollbacks"], "a_rows_used_after": mig["rows_used"],
+            "rows_bit_equal": len(sampled), **cont,
+        }
+        if mig["rows_used"] != rooms["A"] - sample:
+            raise AssertionError(f"migration: A holds {mig['rows_used']} rows")
+        log(f"migration: live {json.dumps(out['live_migration'])}")
+
+        # 2. Failover: B dies; A restores its rooms from B's checkpoints.
+        # Two more of B's checkpoint rounds first: the second starts after
+        # the adoptions, so every room B hosts has a checkpoint of its own.
+        rounds0 = (await nodes["B"].call("report"))["checkpoint_rounds"]["rounds"]
+        t0 = time.perf_counter()
+        while (await nodes["B"].call("report"))["checkpoint_rounds"]["rounds"] < rounds0 + 2:
+            if time.perf_counter() - t0 > MIG_WAIT_S:
+                await mig_fail(nodes, reports, "failover: B wrote no checkpoint round")
+            await asyncio.sleep(0.5)
+        reports["B"] = await nodes["B"].call("report")
+        b_rooms = set(names_b) | set(sampled)
+        t_kill = time.time()
+        nodes["B"].kill()
+        ttl = migration_config(srv.port, dims).kv
+        t0 = time.perf_counter()
+        while True:
+            res = await nodes["A"].call("restored")
+            if b_rooms <= set(res["hosted"]) or time.perf_counter() - t0 > MIG_WAIT_S:
+                break
+            await asyncio.sleep(1.0)
+        got = {n: r for n, r in res["rooms"].items() if n in b_rooms}
+        # Hosted without a restore: no checkpoint generation of the room
+        # was left to decode (they live CHECKPOINT_TTL_S after their
+        # write), so it came back empty — a stream reset, as the
+        # reference's restore does then; its state is lost.
+        fresh = sorted(b_rooms & set(res["hosted"]) - set(got))
+        lost = sorted(b_rooms - set(res["hosted"]))
+        twice = sorted(n for n, r in got.items() if r["count"] != 1)
+        unequal = sorted(n for n, r in got.items() if not r["equal"])
+        times = sorted(r["t"] - t_kill for r in got.values())
+        tried = sorted(t - t_kill for n, t in res["attempts"].items() if n in b_rooms)
+        out["failover"] = {
+            "rooms": len(b_rooms), "rooms_restored": len(tried),
+            "restored_from_checkpoint": len(got), "rooms_not_restored": len(lost),
+            "rooms_state_lost": len(fresh), "state_lost_sample": fresh[:8],
+            "restored_twice": len(twice), "rows_unequal_to_checkpoint": len(unequal),
+            # From the kill to the last room hosted again, and to the first.
+            "recover_s": tried[-1] if tried else None,
+            "first_room_s": tried[0] if tried else None,
+            "last_checkpoint_restore_s": times[-1] if times else None,
+            "lease_ttl_plus_failover_interval_s": ttl.lease_ttl_s + ttl.failover_interval_s,
+            "checkpoint_fallbacks": res["ckpt_fallbacks"],
+            "generations_used": {"newest": len(got)} if res["ckpt_fallbacks"] == 0
+            else {"fallbacks": res["ckpt_fallbacks"]},
+            "orchestrator": res["failover"],
+        }
+        log(f"migration: failover {json.dumps(out['failover'])}")
+        if lost or twice or unequal:
+            await mig_fail(nodes, reports, f"failover: not restored {lost[:5]}, twice "
+                                          f"{twice[:5]}, unequal to the checkpoint {unequal[:5]}")
+
+        # 3. Drain A into a fresh node C (its heartbeat in the registry
+        # first). B's entry stays there, and may still be offered as a
+        # target: a node judges a peer's heartbeat stamp stale only
+        # STATS_MAX_AGE after it first saw the stamp stop advancing; a
+        # PREPARE to B finds no listener and the room rolls back and
+        # moves on to the next candidate (counted in the drain's stats).
+        await nodes["C"].call("join", [], [])
+        # The reference's default governor on C's running loop, empty yet
+        # (see migration_config); it is detached again before the drain.
+        out["governed"] = await nodes["C"].call("govern", 60.0, timeout=120)
+        log(f"migration: governed {json.dumps(out['governed'])}")
+        drain = await nodes["A"].call("drain", timeout=MIG_DRAIN_CAP_S + 60)
+        rep_c = await nodes["C"].call("report")
+        out["drain"] = {**drain, "c_rooms": rep_c["rooms"]}
+        log(f"migration: drain {json.dumps(out['drain'])}")
+        if (drain["summary"]["failed"] or drain["rooms_left"] or drain["rows_used"]
+                or drain["denied_while_draining"] != "node draining"
+                or not drain["late_join_refused"] or rep_c["rooms"] != drain["rooms"]):
+            await mig_fail(nodes, reports, f"drain: {json.dumps(drain)}; C holds {rep_c['rooms']}")
+
+        reports["A"] = await nodes["A"].call("report")
+        reports["C"] = await nodes["C"].call("report")
+        out["nodes"] = reports
+        for n, rep in reports.items():
+            if rep["restarts"] and rep["restarts"].get("integrity"):
+                raise AssertionError(f"node {n}: integrity restarts on a clean state")
+        launches = {k: sum(rep["launches"][k] for rep in reports.values())
+                    for k in reports["A"]["launches"]}
+        out["launches"] = launches
+        if not launches["decide_rooms"] or not launches["allocate_budget_rooms"]:
+            raise AssertionError(f"migration: the dense kernels did not launch: {launches}")
+    finally:
+        for n in ("A", "C"):
+            h = nodes[n]
+            if h.proc.is_alive():
+                try:
+                    await h.call("exit", timeout=30)
+                except (AssertionError, OSError, EOFError):
+                    pass
+            h.kill()
+        nodes["B"].kill()
+        srv.close()
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -2570,6 +3309,10 @@ def main() -> int:
     paged_tick, paged_t, pool_state = paged_timing_phase(dev, args.profile)
     failure = asyncio.run(failure_phase(dev, ns_state, tick, pool_state, paged_tick))
     del ns_state, pool_state
+    print(json.dumps({"failure": failure}), flush=True)
+    torch.cuda.empty_cache()
+    migration = asyncio.run(migration_phase(dev))
+    print(json.dumps({"migration": migration}), flush=True)
 
     # decide_rooms and allocate_budget_rooms belong to the dense path,
     # paged_kernel to the paged path; each kernel's top-level numbers and
@@ -2580,7 +3323,8 @@ def main() -> int:
                 "serving_dense": serving["dense"]["launches"],
                 "serving_paged": serving["paged"]["launches"],
                 "udp_dense": udp["dense"]["launches"],
-                "udp_paged": udp["paged"]["launches"]}
+                "udp_paged": udp["paged"]["launches"],
+                "migration": migration["launches"]}
     paged_t["paged_kernel"]["mix"] = mix_t
     timed = {"dense": dense_t, "paged": paged_t}
     own = {"decide_rooms": "dense", "allocate_budget_rooms": "dense", "paged_kernel": "paged"}
@@ -2604,7 +3348,6 @@ def main() -> int:
     print(json.dumps({"paged_tick": paged_tick, "paged_kernel": paged_t["paged_kernel"],
                       "paged_allocate_budget_rooms": paged_t["allocate_budget_rooms"]}),
           flush=True)
-    print(json.dumps({"failure": failure}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

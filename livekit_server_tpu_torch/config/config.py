@@ -271,10 +271,11 @@ class SupervisorConfig:
 
 @dataclass
 class MigrationConfig:
-    """Live room migration plane (the reference's service/migration.py):
-    two-phase PREPARE/ACK/COMMIT handoff over a shared bus with rollback,
-    freeze-window packet bridging, and governed node drain. Not ported
-    (ROADMAP A13): enabling it raises ConfigError."""
+    """Live room migration plane (service/migration.py): two-phase
+    PREPARE/ACK/COMMIT handoff over the bus with rollback, freeze-window
+    packet bridging, and governed node drain. Needs a shared bus
+    (kv.kind=tcp or an injected MemoryBus) — single-node memory mode
+    constructs no orchestrator."""
 
     enabled: bool = True
     # TTL of the `room_snapshot:` key written by the NON-orchestrated
@@ -781,8 +782,6 @@ def _validate(cfg: Config) -> None:
 # enables it, the value that turns it off, the ROADMAP item that brings
 # it). RoomManager refuses a config that enables any of them.
 UNPORTED: tuple[tuple[str, Callable[[Any], bool], Any, str], ...] = (
-    ("migration.enabled", bool, False, "A13 (migration, fleet plane, TCP bus)"),
-    ("fleet.enabled", bool, False, "A13 (migration, fleet plane, TCP bus)"),
     ("relay.enabled", bool, False, "A12b (media relay, WebRTC gateway)"),
     ("plane.express_max_subs", lambda v: v > 0, 0, "A15 (express lane)"),
     ("plane.mesh_devices", lambda v: v > 1, 1, "A10 (multi-GPU)"),

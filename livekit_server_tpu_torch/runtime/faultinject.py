@@ -16,10 +16,16 @@ unit chaos tests and on-card drills (chip_smoke.py's failure phase):
   - checkpoint corruption — corrupt_ckpt damages encoded frames past
     their header (what checksum verification catches)
 
-The migration and bus seams of the reference (`mig_*`, the bus-partition
-drills, `sever_bus`, `kill_node`) belong to the multi-node plane the port
-does not carry yet (ROADMAP A13); `from_config` refuses a config that
-sets any of them.
+  - migration chaos — a target that adopts and goes silent, a late ACK,
+    a corrupted PREPARE snapshot, a commit phase whose bus ops fail
+    (service/migration.py)
+  - bus partitions — sever/heal node groups at the BusServer on the
+    tick clock (routing/tcpbus.py set_partition)
+  - bus severing — abort a TCPBusClient's transport mid-conversation
+    (exercises the retry/backoff/reconnect path in routing/tcpbus.py)
+  - node kill — abrupt, non-graceful teardown of a server's cluster
+    presence: heartbeats stop, the lease expires, the pin is left behind
+    (exactly what a crashed host looks like to the survivors)
 
 Determinism: every probabilistic decision draws from one seeded numpy
 Generator in arrival order, so a given (seed, packet sequence) replays
@@ -37,16 +43,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from livekit_server_tpu_torch.config.config import ConfigError
-
-# FaultInjectConfig knobs of the reference's migration and bus drills, with
-# the value that leaves each off.
-_UNPORTED_KNOBS = {
-    "mig_drop_prepare": False, "mig_ack_delay_s": 0.0,
-    "mig_corrupt_handoff": False, "mig_sever_handoffs": 0,
-    "bus_partition_groups": [], "bus_partition_tick": -1,
-    "bus_heal_at_tick": -1, "bus_asym_pairs": [],
-}
 
 
 @dataclass
@@ -81,6 +77,26 @@ class FaultSpec:
     # past its header (0 = never), so restore paths must catch it via
     # checksum verification, not a deserialize crash.
     corrupt_ckpt_every: int = 0
+    # Migration chaos drills (service/migration.py seams):
+    # target adopts the PREPARE'd room then goes silent — never ACKs.
+    mig_drop_prepare: bool = False
+    # target sleeps this long before ACKing (late-ACK epoch-guard drill).
+    mig_ack_delay_s: float = 0.0
+    # source damages the encoded snapshot inside PREPARE (target NACKs).
+    mig_corrupt_handoff: bool = False
+    # source's first N commit phases fail their bus ops (sever drill).
+    mig_sever_handoffs: int = 0
+    # Bus-partition drills (BusServer.set_partition seam): node-id groups
+    # to sever from each other at bus_partition_tick — group 0 keeps the
+    # bus, later groups lose every KV op and pub/sub push (the minority
+    # side of a split-brain). Healed at bus_heal_at_tick (-1 = never).
+    # bus_asym_pairs lists (src, dst) node-id pairs whose pushes are
+    # HELD and delivered in order on heal — the stale-message-after-heal
+    # drill (e.g. a migration COMMIT landing after its epoch died).
+    bus_partition_groups: tuple = ()
+    bus_partition_tick: int = -1
+    bus_heal_at_tick: int = -1
+    bus_asym_pairs: tuple = ()
 
 
 @dataclass
@@ -92,6 +108,14 @@ class FaultStats:
     flooded: int = 0          # extra packet copies staged by flood mode
     bitflips: int = 0         # state elements corrupted by bitflip mode
     ckpt_corrupted: int = 0   # checkpoint frames damaged after encoding
+    severed: int = 0
+    killed: int = 0
+    mig_prepares_swallowed: int = 0  # adoptions that then went silent
+    mig_acks_delayed: int = 0        # ACKs slept past the source timeout
+    mig_handoffs_corrupted: int = 0  # PREPARE snapshots damaged in flight
+    mig_commits_severed: int = 0     # commit phases failed at the bus seam
+    partitions: int = 0              # bus partitions installed by the tick seam
+    heals: int = 0                   # partitions healed by the tick seam
 
 
 class FaultInjector:
@@ -112,17 +136,11 @@ class FaultInjector:
         self._held: dict[int, list] = {}
         self._step_count = 0
         self._ckpt_count = 0
+        self._mig_severed = 0
+        self._mig_handoff_count = 0
 
     @classmethod
     def from_config(cls, cfg) -> "FaultInjector":
-        for name, off in _UNPORTED_KNOBS.items():
-            value = getattr(cfg, name)
-            if (list(value) if isinstance(off, list) else value) != off:
-                raise ConfigError(
-                    f"faults.{name}={value!r} drives a migration or bus drill, "
-                    "which this port does not carry yet (ROADMAP A13 "
-                    f"(migration, fleet plane, TCP bus)); set it to {off!r}"
-                )
         return cls(FaultSpec(
             seed=cfg.seed, drop_pct=cfg.drop_pct, dup_pct=cfg.dup_pct,
             delay_pct=cfg.delay_pct, delay_ticks=cfg.delay_ticks,
@@ -132,6 +150,14 @@ class FaultInjector:
             bitflip_leaf=cfg.bitflip_leaf, bitflip_bit=cfg.bitflip_bit,
             bitflip_count=cfg.bitflip_count,
             corrupt_ckpt_every=cfg.corrupt_ckpt_every,
+            mig_drop_prepare=cfg.mig_drop_prepare,
+            mig_ack_delay_s=cfg.mig_ack_delay_s,
+            mig_corrupt_handoff=cfg.mig_corrupt_handoff,
+            mig_sever_handoffs=cfg.mig_sever_handoffs,
+            bus_partition_groups=tuple(tuple(g) for g in cfg.bus_partition_groups),
+            bus_partition_tick=cfg.bus_partition_tick,
+            bus_heal_at_tick=cfg.bus_heal_at_tick,
+            bus_asym_pairs=tuple(tuple(p) for p in cfg.bus_asym_pairs),
         ))
 
     # -- ingest-boundary packet faults -----------------------------------
@@ -243,6 +269,114 @@ class FaultInjector:
         out = bytearray(blob)
         out[pos] ^= 0xFF
         return bytes(out)
+
+    # -- migration chaos seams (service/migration.py) ---------------------
+    def mig_swallow_prepare(self) -> bool:
+        """Target seam: True = the PREPARE handler adopted the room but
+        must now go silent (no ACK, ever) — to the source this target
+        died mid-PREPARE. Exercises the source's timeout rollback and
+        the target's adoption reaper (no row leak)."""
+        if not self.spec.mig_drop_prepare:
+            return False
+        self.stats.mig_prepares_swallowed += 1
+        return True
+
+    async def mig_delay_ack(self) -> None:
+        """Target seam: hold the ACK past the source's timeout so the
+        epoch guard gets a genuinely late ACK to ignore."""
+        s = self.spec
+        if s.mig_ack_delay_s > 0:
+            self.stats.mig_acks_delayed += 1
+            import asyncio
+
+            await asyncio.sleep(s.mig_ack_delay_s)
+
+    def corrupt_handoff(self, payload: str) -> str:
+        """Source seam: damage the encoded snapshot riding in PREPARE the
+        same way corrupt_ckpt damages b64 checkpoint frames — header
+        intact, one payload char swapped, so only the target's CRC
+        verification catches it (⇒ NACK)."""
+        if not self.spec.mig_corrupt_handoff:
+            return payload
+        self.stats.mig_handoffs_corrupted += 1
+        self._mig_handoff_count += 1
+        pos = 28 + (self._mig_handoff_count * 7919) % max(1, len(payload) - 30)
+        repl = "A" if payload[pos] != "A" else "B"
+        return payload[:pos] + repl + payload[pos + 1:]
+
+    def mig_sever_commit(self) -> bool:
+        """Source seam: True = this commit phase's bus ops must fail
+        (the orchestrator raises ConnectionError and rolls back).
+        Consumes one of mig_sever_handoffs per handoff attempt."""
+        if self._mig_severed >= self.spec.mig_sever_handoffs:
+            return False
+        self._mig_severed += 1
+        self.stats.mig_commits_severed += 1
+        return True
+
+    # -- bus-partition drills (routing/tcpbus.py BusServer seam) ----------
+    def bus_partition_tick(self, bus_server, tick_index: int) -> None:
+        """Deterministic sever/heal on the tick clock: install the
+        configured partition at bus_partition_tick, heal it at
+        bus_heal_at_tick. Driven by whichever test/bench owns both the
+        BusServer and a tick counter; idempotent across repeat calls for
+        the same tick."""
+        s = self.spec
+        if not s.bus_partition_groups:
+            return
+        if tick_index == s.bus_partition_tick and not bus_server._severed:
+            bus_server.set_partition(
+                [list(g) for g in s.bus_partition_groups],
+                asym_pairs=s.bus_asym_pairs,
+            )
+            self.stats.partitions += 1
+        if (
+            s.bus_heal_at_tick >= 0
+            and tick_index == s.bus_heal_at_tick
+            and (bus_server._severed or bus_server._asym)
+        ):
+            bus_server.heal_partition()
+            self.stats.heals += 1
+
+    # -- infrastructure faults (chaos-test helpers) ----------------------
+    def sever_bus(self, client) -> None:
+        """Hard-drop a TCPBusClient's socket (no FIN handshake): in-flight
+        calls fail, the retry/backoff path re-dials."""
+        self.stats.severed += 1
+        transport = getattr(client._writer, "transport", None)
+        if transport is not None:
+            transport.abort()
+        else:  # non-asyncio writer (tests with fakes)
+            client._writer.close()
+
+    async def kill_node(self, server) -> None:
+        """Crash a server the way a dead host looks to the cluster:
+        heartbeats and the session worker stop, the runtime halts, the
+        bus socket drops — but NOTHING is cleaned up (no hdel, no lease
+        delete, no room unpin). Survivors must detect the expired lease
+        and take the rooms over."""
+        self.stats.killed += 1
+        router = server.router
+        for attr in ("_stats_task", "_session_task"):
+            task = getattr(router, attr, None)
+            if task is not None:
+                task.cancel()
+        if getattr(server, "_stats_task", None) is not None:
+            server._stats_task.cancel()
+        sup = getattr(server.room_manager, "supervisor", None)
+        if sup is not None:
+            await sup.stop()
+        await server.room_manager.runtime.stop()
+        failover = getattr(server.room_manager, "_failover_task", None)
+        if failover is not None:
+            failover.cancel()
+        fleet = getattr(server.room_manager, "fleet", None)
+        if fleet is not None:
+            await fleet.stop()
+        bus = getattr(router, "bus", None)
+        if bus is not None and hasattr(bus, "_writer"):
+            bus.closed = True  # suppress the reconnect loop: the node is dead
+            self.sever_bus(bus)
 
 
 def _replace_leaf(tree, path: str, value):

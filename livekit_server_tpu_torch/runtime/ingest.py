@@ -13,9 +13,10 @@ double-buffered drain, with the numpy payload gather and the arrival
 stamps (`t_arr`); drops split by cause (capacity, fault, policed); the
 governor's per-(room, track) ingress policer (scalar and batch paths);
 and the fault injector's seams (drop / delay / duplicate / flood, with
-delayed packets re-entering at drain). Migration freezes (`frozen_rows`,
-ROADMAP A13) and the arrival hook `on_put` (set only by the express lane,
-A15) are not carried.
+delayed packets re-entering at drain); the migration freeze
+(`frozen_rows`, the `freeze_sinks` bridge taps, `extract_row`). The
+arrival hook `on_put` (set only by the express lane, ROADMAP A15) is not
+carried.
 """
 
 from __future__ import annotations
@@ -188,6 +189,17 @@ class IngestBuffer:
         self.dropped_capacity = 0
         self.dropped_fault = 0
         self.dropped_policed = 0
+        # Rows quiesced for migration: once a room's state snapshot is
+        # taken, admitting more packets would advance munger offsets past
+        # what the destination node restores (duplicate SNs on re-issue).
+        self.frozen_rows: set[int] = set()
+        # Freeze-window bridge taps (service/migration.py): per-row
+        # capture callbacks for packets arriving while their row is
+        # frozen. With a sink attached the packet is buffered and
+        # forwarded to the migration target instead of silently lost —
+        # the zero-audio-gap half of the freeze contract. No sink (the
+        # plain handoff path) drops.
+        self.freeze_sinks: dict = {}
         # Optional FaultInjector (runtime/faultinject.py) consulted by
         # push()/push_batch(); None on the default config path. Delayed
         # packets re-enter at the top of drain() for their release tick.
@@ -275,6 +287,13 @@ class IngestBuffer:
              _count_rx: bool = True) -> bool:
         """Stage one packet (arrival stamp `t_rx`, 0 = none); False (and
         counted by cause) if shed."""
+        if pkt.room in self.frozen_rows:
+            # Mid-migration: the row's state is already shipped. A bridge
+            # sink captures the packet for forwarding; otherwise it drops.
+            sink = self.freeze_sinks.get(pkt.room)
+            if sink is not None:
+                sink(pkt)
+            return False
         r, t = pkt.room, pkt.track
         # Receive accounting first: the packet arrived on the wire whatever
         # verdict follows. drain()'s delayed-release re-entry passes
@@ -331,6 +350,52 @@ class IngestBuffer:
         self.t_arr[r, t, k] = t_rx
         return True
 
+    def extract_row(self, room: int) -> list:
+        """Remove and return one row's staged-but-undrained packets, in
+        arrival order per track. Migration freeze calls this right after
+        freezing the row: drain() has no frozen filter (push-time only),
+        so packets already staged would otherwise enter the device AFTER
+        the snapshot and race the source teardown. Extracted packets ride
+        the freeze bridge instead; their rx accounting is reversed here
+        because the replay path re-counts them on whichever node wins."""
+        out: list = []
+        counts = self._count[room]
+        if not counts.any():
+            return out
+        for t in np.nonzero(counts)[0]:
+            for k in range(int(counts[t])):
+                if not self.valid[room, t, k]:
+                    continue
+                ps = int(self.pay_off[room, t, k])
+                pl = int(self.pay_len[room, t, k])
+                out.append(PacketIn(
+                    room=int(room), track=int(t),
+                    sn=int(self.sn[room, t, k]),
+                    ts=int(self.ts[room, t, k]),
+                    size=int(self.size[room, t, k]),
+                    payload=bytes(self._slab[ps:ps + pl]) if ps >= 0 else b"",
+                    marker=bool(self.end_frame[room, t, k]),
+                    layer=int(self.layer[room, t, k]),
+                    temporal=int(self.temporal[room, t, k]),
+                    keyframe=bool(self.keyframe[room, t, k]),
+                    layer_sync=bool(self.layer_sync[room, t, k]),
+                    begin_pic=bool(self.begin_pic[room, t, k]),
+                    pid=int(self.pid[room, t, k]),
+                    tl0=int(self.tl0[room, t, k]),
+                    keyidx=int(self.keyidx[room, t, k]),
+                    frame_ms=int(self.frame_ms[room, t, k]),
+                    audio_level=int(self.audio_level[room, t, k]),
+                    arrival_rtp=int(self.arrival_rtp[room, t, k]),
+                    ts_aligned=bool(self.ts_jump[room, t, k] == -1),
+                ))
+                self.rx_pkts[room, t] -= 1
+                self.rx_bytes[room, t] -= int(self.size[room, t, k])
+        self._count[room] = 0
+        self.valid[room] = False
+        self.pay_off[room] = -1
+        self.pay_len[room] = 0
+        return out
+
     def push_batch(
         self, room, track, layer, sn, ts, ts_aligned, temporal, keyframe,
         layer_sync, begin_pic, marker, pid, tl0, keyidx, size, frame_ms,
@@ -372,6 +437,42 @@ class IngestBuffer:
             dd_version = np.full(n, -1, np.int32)
         if end_frame is None:
             end_frame = marker
+        if self.frozen_rows:
+            keep0 = ~np.isin(room, list(self.frozen_rows))
+            if not keep0.all():
+                if self.freeze_sinks:
+                    # Feed frozen-row packets to their bridge sink (same
+                    # capture the scalar path does) before filtering.
+                    for i in np.nonzero(~keep0)[0]:
+                        sink = self.freeze_sinks.get(int(room[i]))
+                        if sink is None:
+                            continue
+                        ps, pl = int(pay_start[i]), int(pay_length[i])
+                        sink(PacketIn(
+                            room=int(room[i]), track=int(track[i]),
+                            sn=int(sn[i]), ts=int(ts[i]), size=int(size[i]),
+                            payload=bytes(blob[ps:ps + pl]) if ps >= 0 else b"",
+                            marker=bool(marker[i]), layer=int(layer[i]),
+                            temporal=int(temporal[i]), keyframe=bool(keyframe[i]),
+                            layer_sync=bool(layer_sync[i]), begin_pic=bool(begin_pic[i]),
+                            pid=int(pid[i]), tl0=int(tl0[i]), keyidx=int(keyidx[i]),
+                            frame_ms=int(frame_ms[i]), audio_level=int(audio_level[i]),
+                            arrival_rtp=int(arrival_rtp[i]), ts_aligned=bool(ts_aligned[i]),
+                        ))
+                (room, track, layer, sn, ts, ts_aligned, temporal, keyframe,
+                 layer_sync, begin_pic, marker, pid, tl0, keyidx, size,
+                 frame_ms, audio_level, arrival_rtp, pay_start, pay_length,
+                 dd_start, dd_length, dd_version, end_frame) = (
+                    a[keep0] for a in (
+                        room, track, layer, sn, ts, ts_aligned, temporal,
+                        keyframe, layer_sync, begin_pic, marker, pid, tl0,
+                        keyidx, size, frame_ms, audio_level, arrival_rtp,
+                        pay_start, pay_length, dd_start, dd_length,
+                        dd_version, end_frame)
+                )
+                n = len(room)
+                if n == 0:
+                    return 0
         T, K = self.dims.tracks, self.dims.pkts
         flat_rt = room.astype(np.int64) * T + track
         # Receive accounting includes packets a full tick then drops.

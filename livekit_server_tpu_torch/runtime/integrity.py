@@ -32,7 +32,9 @@ Audit rules (bit per rule, see AUDIT_RULES):
                      identity (started + first_sn) is unchanged, so
                      legitimate stream resets don't trip it
   bit 3  ctrl      — max_spatial/max_temporal outside their valid range
-  bit 4  bounds    — selector layers or BWE ring cursor out of bounds
+  bit 4  bounds    — selector layers out of bounds, or a negative BWE
+                     ring cursor (the reference also flags one past
+                     bwe.WINDOW; see audit_plane)
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 from livekit_server_tpu_torch.models import plane
-from livekit_server_tpu_torch.ops import bwe, selector
+from livekit_server_tpu_torch.ops import selector
 from livekit_server_tpu_torch.runtime import trace
 from livekit_server_tpu_torch.utils.checksum import ChecksumError
 from livekit_server_tpu_torch.utils.logger import Logger
@@ -131,8 +133,11 @@ def audit_plane(
                     (sel.current_temporal, plane.MAX_TEMPORAL),
                     (sel.target_temporal, plane.MAX_TEMPORAL)):
         layer_oob |= _rows_any((arr < selector.INVALID_LAYER) | (arr >= hi), rooms)
-    ring = state.bwe_state.ring_pos
-    layer_oob |= _rows_any((ring < 0) | (ring >= bwe.WINDOW), rooms)
+    # The BWE ring cursor only ever grows and is read modulo bwe.WINDOW,
+    # so only a negative one is out of bounds. The reference also flags
+    # ring_pos >= WINDOW, which every room reaches after WINDOW receiver
+    # estimates on a clean state (a divergence by design: ROADMAP C5).
+    layer_oob |= _rows_any(state.bwe_state.ring_pos < 0, rooms)
 
     rules = torch.stack((bad_finite, bad_range, bad_cursor, bad_ctrl, layer_oob))
     bits = torch.bitwise_left_shift(

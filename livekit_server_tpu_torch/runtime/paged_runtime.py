@@ -394,6 +394,16 @@ class PagedPlaneRuntime(PlaneRuntime):
         self.host_seq.clear_room(row)
         self._dirty_rows.add(row)
 
+    def extract_staged_row(self, row: int) -> None:
+        """Not done on the paged plane (its staged inputs are packed per
+        page): a migration settles the staged tick instead."""
+        return None
+
+    def snapshot_rooms(self, rows: list[int]) -> list[dict]:
+        """`snapshot_room` of each row (the paged row is read through its
+        pages, one room at a time)."""
+        return [self.snapshot_room(row) for row in rows]
+
     def restore_room(self, row: int, snap: dict) -> None:
         self.host_seq.clear_room(row)
         lfill = self._logical_fill()

@@ -68,7 +68,7 @@ from livekit_server_tpu_torch.models import plane
 from livekit_server_tpu_torch.ops import audio as audio_ops, bwe as bwe_ops
 from livekit_server_tpu_torch.runtime import trace as trace_mod
 from livekit_server_tpu_torch.runtime.egress_plane import EgressPlane
-from livekit_server_tpu_torch.runtime.ingest import IngestBuffer
+from livekit_server_tpu_torch.runtime.ingest import IngestBuffer, PacketIn
 from livekit_server_tpu_torch.runtime.munge import HostMunger
 from livekit_server_tpu_torch.runtime.probe import PAD_BYTES, ProbeController
 from livekit_server_tpu_torch.runtime.slots import SlotAllocator
@@ -287,6 +287,12 @@ class PlaneRuntime:
         self.slots = SlotAllocator(dims.rooms, dims.tracks, dims.subs)
         self.ingest = IngestBuffer(dims, tick_ms)
         self.tick_index = 0
+        # Index of the newest tick whose fan-out has run (-1: none yet);
+        # `settle_staged` waits on it.
+        self.completed_tick = -1
+        # The serving loop's staged tick, not yet dispatched (None when
+        # there is none); `extract_staged_row` takes a row's packets out.
+        self._staged: StagedTick | None = None
         self._ap = audio_params or audio_ops.AudioLevelParams()
         self._bp = bwe_params or bwe_ops.BWEParams()
 
@@ -675,6 +681,7 @@ class PlaneRuntime:
         result.quality_window_closed = st.roll
         self.recent_tick_s.append(round(result.tick_s, 5))
         self.stats["ticks"] += 1
+        self.completed_tick = max(self.completed_tick, st.idx)
         self.stats["fwd_packets"] += result.fwd_packets
         self.stats["fwd_bytes"] += result.fwd_bytes
         self.stats["stage_s"] += st.stage_s
@@ -737,6 +744,69 @@ class PlaneRuntime:
         server calls it after its warm step). The port has no compile
         ledger: a CUDA kernel is built once, at its first launch."""
         self.warm = True
+
+    def extract_staged_row(self, row: int) -> list[PacketIn] | None:
+        """Take one row's packets out of the serving loop's staged tick
+        (drained from ingest, not dispatched yet), in (track, slot) order:
+        their valid bits are cleared in the tick's packed device inputs
+        and its host inputs, and their rx accounting is reversed, as
+        `IngestBuffer.extract_row` does. None when this runtime cannot
+        (the caller then settles the staged tick instead). A migration
+        freezing a row takes these with the ingest buffer's, so only the
+        tick in flight must finish before the snapshot (`settle_staged`).
+
+        The packet fields are read from the packed inputs (and the host-
+        only ones from the drain's copies): the staged tick's other field
+        views belong to an ingest staging set that may already be
+        scrubbed for reuse."""
+        st = self._staged
+        if st is None:
+            return []
+        R, T, K, _ = self.dims
+        pkt = st.wire[:len(plane.PKT_FIELDS) * R * T * K].reshape(len(plane.PKT_FIELDS), R, T, K)
+        fields = dict(zip(plane.PKT_FIELDS, pkt[:, row]))
+        tracks, slots = np.nonzero(fields["valid"])
+        if not len(tracks):
+            return []
+        inp, ing = st.inp, self.ingest
+        out = []
+        for t, k in zip(tracks.tolist(), slots.tolist()):
+            f = {name: int(v[t, k]) for name, v in fields.items()}
+            payload, _ = st.payloads.get(row, t, k)
+            out.append(PacketIn(
+                room=row, track=t, sn=f["sn"], ts=f["ts"], size=f["size"], payload=payload,
+                marker=bool(f["end_frame"]), layer=f["layer"], temporal=f["temporal"],
+                keyframe=bool(f["keyframe"]), layer_sync=bool(f["layer_sync"]),
+                begin_pic=bool(f["begin_pic"]), pid=int(inp.pid[row, t, k]),
+                tl0=int(inp.tl0[row, t, k]), keyidx=int(inp.keyidx[row, t, k]),
+                frame_ms=f["frame_ms"], audio_level=f["audio_level"],
+                arrival_rtp=f["arrival_rtp"], ts_aligned=bool(inp.ts_jump[row, t, k] == -1),
+            ))
+            ing.rx_pkts[row, t] -= 1
+            ing.rx_bytes[row, t] -= f["size"]
+        fields["valid"][:] = 0
+        inp.valid[row] = False        # the drain's own copy
+        return out
+
+    async def settle_staged(self, timeout_s: float = 5.0, staged: bool = True) -> bool:
+        """Wait until every tick staged before this call has run its
+        device step and its fan-out (the pipelined loop stages tick N+1
+        while step N runs); with `staged` False, only the tick in flight.
+        A migration freezes a row, then settles before it snapshots:
+        packets the loop had already drained for the row are then in the
+        snapshot and went out from this node, instead of entering a step
+        after the snapshot, or after the handoff closed the row, where
+        they would be lost (it takes the staged tick's packets out with
+        `extract_staged_row` when it can, and need not wait for that
+        tick). False when `timeout_s` passed first (a step a restart
+        abandoned never completes)."""
+        target = self.tick_index - 1 - (0 if staged or self._staged is None else 1)
+        deadline = time.perf_counter() + timeout_s
+        while self.completed_tick < target:
+            if time.perf_counter() >= deadline:
+                return False
+            await asyncio.sleep(self.tick_ms / 4000.0)
+        return True
 
     async def step_once(self) -> TickResult:
         """One sequential tick (tests, warm-up, manual stepping); the
@@ -1006,6 +1076,7 @@ class PlaneRuntime:
                     staged = self._stage_host()
                     self._edge(staged, next_at, depth, period)
                 cur, staged = staged, None
+                self._staged = None
                 cur.edge_over_us = self._edge_overshoot_us
                 stopping = False
                 epoch = self.run_epoch
@@ -1019,7 +1090,7 @@ class PlaneRuntime:
                         pending = None
                     if not self.low_latency:
                         # Stage N+1 while device N runs in the worker.
-                        staged = self._stage_host()
+                        staged = self._staged = self._stage_host()
                     # Fan-out N-1 (the task above) and arriving-packet
                     # handlers run on the event loop during this await.
                     try:
@@ -1063,6 +1134,7 @@ class PlaneRuntime:
             # egress, callbacks and stats must not vanish at shutdown. (A
             # tick staged but not dispatched is dropped, as in the
             # reference.)
+            self._staged = None
             if pending_task is not None:
                 await pending_task
                 self._complete_task = None
@@ -1129,6 +1201,27 @@ class PlaneRuntime:
             ctrl=plane.SubControl(*[np.array(c[row]) for c in self.ctrl]),
         )
         return {"arrays": plane.tree_leaves(tree) + self.munger.snapshot_room(row)}
+
+    def snapshot_rooms(self, rows: list[int]) -> list[dict[str, Any]]:
+        """`snapshot_room` for many rows at one point in time, with one
+        device → host copy per state leaf (the rows gathered on the
+        device) instead of one per leaf and row — the room-checkpoint
+        round's read. Each entry equals `snapshot_room(row)`."""
+        if not rows:
+            return []
+        idx = torch.as_tensor(rows, dtype=torch.long)
+        with self._on_stream():
+            leaves = [x.index_select(0, idx.to(x.device)).to("cpu").numpy()
+                      for x in plane.tree_leaves(self.state)]
+        out = []
+        for i, row in enumerate(rows):
+            tree = plane.tree_unflatten(self.state, [a[i, ...] for a in leaves])
+            tree = tree._replace(
+                meta=plane.TrackMeta(*[np.array(m[row]) for m in self.meta]),
+                ctrl=plane.SubControl(*[np.array(c[row]) for c in self.ctrl]),
+            )
+            out.append({"arrays": plane.tree_leaves(tree) + self.munger.snapshot_room(row)})
+        return out
 
     @staticmethod
     def encode_room_snapshot(snap: dict[str, Any]) -> str:

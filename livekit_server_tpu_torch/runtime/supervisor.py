@@ -19,8 +19,9 @@ supervisor restores the reference's failure story at the plane level:
     — with exponential backoff between attempts and a hard cap, after
     which the supervisor gives up loudly rather than flap forever
   - periodic checkpoints — a full-plane snapshot on a cadence (the
-    restart seed), plus an optional per-room checkpoint callback (the
-    RoomManager's, which publishes nothing until a shared bus exists).
+    restart seed), plus an optional per-room checkpoint callback the
+    RoomManager uses to publish room rows to the KV bus (the failover
+    seed surviving nodes restore from; see service/roommanager.py).
     Checkpoints are kept as K encoded GENERATIONS, each wrapped in the
     utils/checksum frame; restore walks newest→oldest and falls back a
     generation (counter + warn) on a corrupt or shape-mismatched frame
@@ -82,7 +83,7 @@ class PlaneSupervisor:
         self.telemetry = telemetry
         self.log = log or Logger()
         # Awaited on the checkpoint cadence; RoomManager points this at
-        # its per-room checkpoint publisher.
+        # its per-room bus publisher.
         self.room_checkpoint_cb: Callable[[], Awaitable[None]] | None = None
         self.last_snapshot: dict[str, Any] | None = None
         # Encoded (checksummed) checkpoint generations, newest first.
@@ -95,6 +96,15 @@ class PlaneSupervisor:
         self.restarts = 0            # lifetime restart count (telemetry)
         self.restart_causes: dict[str, int] = {"stall": 0, "integrity": 0}
         self.gave_up = False
+        # Node drain (service/migration.py): a draining plane quiesces on
+        # purpose — rooms migrate away and tick progress may legitimately
+        # stop. The watchdog must not read that as a stall and "restore"
+        # rooms the drain just handed off.
+        self.draining = False
+        # Self-fenced (service/fleetplane.py quorum loss): restarts are
+        # quiesced the same way — a restart would restore rooms from KV
+        # checkpoints that may already belong to the takeover winner.
+        self.fenced = False
         # Checkpoint cost on the event loop, summed: the locked snapshot
         # (device → host fetch, lock wait included) and the encode (npz
         # compression + frame).
@@ -231,6 +241,10 @@ class PlaneSupervisor:
     async def _watchdog(self) -> None:
         while True:
             await asyncio.sleep(self.check_interval_s)
+            if self.draining or self.fenced:
+                # Quiescing on purpose: never restart a drain or a
+                # fenced minority that must stay silent.
+                continue
             cause = "stall"
             reason = self._requested_restart
             if reason:

@@ -16,10 +16,15 @@ plane is wired as in the reference: the plane supervisor (tick watchdog,
 checkpoint generations, restart-from-snapshot), the fault injector (off
 by default), the overload governor (its L4 gate in `_admission_denied`)
 and the integrity monitor (row repair from the supervisor's checkpoints,
-escalation to a supervisor restart). The subsystems the port does not
-carry yet (config.UNPORTED: migration, fleet, the relay, the express
-lane, a device mesh) are refused at construction with a ConfigError
-naming the ROADMAP item that brings each; none is skipped in silence.
+escalation to a supervisor restart). With a shared bus the multi-node
+plane is wired as in the reference too: per-room KV checkpoints in a
+generation ring (one device gather per round, `snapshot_rooms`), the live
+migration plane (two-phase handoff, node drain), the fleet plane (epoch
+fences, self-fencing, elected failover) and the dead-node failover
+worker. The subsystems the port does not carry yet (config.UNPORTED: the
+relay, the express lane, a device mesh) are refused at construction with
+a ConfigError naming the ROADMAP item that brings each; none is skipped
+in silence.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from livekit_server_tpu_torch.protocol.signal import (
     decode_signal_request,
     encode_signal_response,
 )
+from livekit_server_tpu_torch.routing.fleet import FencedWriteRejected
 from livekit_server_tpu_torch.routing.messagechannel import (
     ChannelClosed,
     ChannelFull,
@@ -56,12 +62,22 @@ from livekit_server_tpu_torch.utils.backoff import BackoffPolicy
 from livekit_server_tpu_torch.service.store import ObjectStore
 from livekit_server_tpu_torch.utils.logger import Logger
 
+# Failover checkpoints outlive a node crash but not a forgotten room:
+# long enough for survivors to notice the lapsed lease (~lease_ttl) and
+# win the takeover race, short enough that a deliberately deleted room
+# cannot be resurrected much later from a stale row image.
+CHECKPOINT_TTL_S = 30.0
+# Rooms whose checkpoint writes are in flight at once in a round
+# (checkpoint_rooms).
+CHECKPOINT_PUBLISH_CONCURRENCY = 128
+
 # Canonical admission-denial causes for telemetry: every human-readable
-# refusal string from _admission_denied rolls up to no_capacity or
-# overload (the reference's fenced and draining causes come with the
-# fleet and migration planes), so dashboards attribute rejected joins
+# refusal string from _admission_denied rolls up to one of overload |
+# draining | no_capacity | fenced, so dashboards attribute rejected joins
 # without string-matching prose.
 DENIAL_REASON_LABELS = {
+    "node fenced (quorum lost)": "fenced",
+    "node draining": "draining",
     "no plane capacity for a new room": "no_capacity",
     "node overloaded": "overload",
     "max rooms on node": "no_capacity",
@@ -150,6 +166,19 @@ class RoomManager:
         self.runtime.blackbox.log = self.log
         self.runtime.on_tick(self._dispatch_tick)
         self._reaper_task: asyncio.Task | None = None
+        self._failover_task: asyncio.Task | None = None
+        # Serializes snapshot→publish in checkpoint_rooms: without it, a
+        # cadence-driven call that snapshotted, then yielded on the bus
+        # write, can land its STALE row over a fresher concurrent publish.
+        self._ckpt_lock = asyncio.Lock()
+        # Cost of the room-checkpoint rounds (chip_smoke's migration phase
+        # reads it): rounds, rooms written, the locked gather, the encodes
+        # (in a worker thread), the wait for the writes, payload bytes
+        # published, the longest round, and the rounds that outlasted the
+        # checkpoint interval.
+        self.ckpt_stats = {"rounds": 0, "rooms": 0, "gather_s": 0.0,
+                           "encode_s": 0.0, "publish_s": 0.0, "bytes": 0,
+                           "max_round_s": 0.0, "over_interval": 0}
         # Plane supervision: tick watchdog + restart-from-snapshot, with
         # the per-room checkpoint publisher as its cadence callback.
         self.supervisor = None
@@ -170,8 +199,7 @@ class RoomManager:
                 telemetry=telemetry,
                 log=self.log,
             )
-            # room_checkpoint_cb stays unset: room checkpoints travel on the
-            # bus, which comes with the multi-node plane (ROADMAP A13).
+            self.supervisor.room_checkpoint_cb = self.checkpoint_rooms
         # Deterministic fault injection (chaos harness) — default-off; the
         # injector only exists when config.faults.enabled is set.
         self.fault = None
@@ -185,7 +213,9 @@ class RoomManager:
         # supervisor reads runtime.governor for its stall grace.
         self.governor = None
         self.admission_rejected: dict[str, int] = {}
-        # Same refusals keyed by canonical cause (no_capacity | overload).
+        # Same refusals keyed by canonical cause (overload | draining |
+        # no_capacity | fenced) — telemetry attributes rejected joins by
+        # WHY, not just by kind.
         self.admission_denied_reasons: dict[str, int] = {}
         if config.limits.governor_enabled:
             self.governor = OverloadGovernor.from_config(self.runtime, config.limits,
@@ -209,6 +239,33 @@ class RoomManager:
             if self.supervisor is not None:
                 self.integrity.snapshot_provider = self.supervisor.last_good_snapshot
                 self.integrity.escalate_cb = self.supervisor.request_restart
+        # Room-checkpoint generations on the KV bus: base key + :g1..:gK-1,
+        # rotated from this local history (payload strings, newest first).
+        self._ckpt_gens = max(1, integ.checkpoint_generations)
+        self._ckpt_history: dict[str, list[str]] = {}
+        self.ckpt_fallbacks = 0  # room-restore generations rejected
+        # Fired for every checkpoint/snapshot adoption (failover restore
+        # and migration alike); subscription masks never travel in a
+        # snapshot (restore_room docstring), so this is where re-attach
+        # logic — and the drills standing in for it — re-subscribes.
+        self.on_adopt: list = []
+        # Live migration plane (service/migration.py): two-phase room
+        # handoff + node drain. Needs a shared bus to talk to peers —
+        # a bus-less single-node router runs without it.
+        self.migration = None
+        if config.migration.enabled and getattr(router, "bus", None) is not None:
+            from livekit_server_tpu_torch.service.migration import MigrationOrchestrator
+
+            self.migration = MigrationOrchestrator(self)
+        # Fleet coordination plane (service/fleetplane.py): epoch-fenced
+        # room ownership, self-fencing on lease loss, elected failover
+        # and the load rebalancer. Needs a shared bus AND a router that
+        # runs the lease loop (KVRouter) — single-node runs without it.
+        self.fleet = None
+        if config.fleet.enabled and hasattr(router, "on_lease"):
+            from livekit_server_tpu_torch.service.fleetplane import FleetPlane
+
+            self.fleet = FleetPlane(self)
         router.on_new_session(self.start_session)
         self._update_node_stats()
 
@@ -217,13 +274,17 @@ class RoomManager:
         self, name: str, info: pm.RoomInfo | None = None,
         *, admission_kind: str = "room",
     ) -> Room:
-        # admission_kind: 'room' for client-driven creates.
+        # admission_kind: 'room' for client-driven creates; 'restore' when
+        # the failover orchestrator re-homes a dead node's room (same hard
+        # gates, exempt from the governor's transient overload ladder).
         room = self.rooms.get(name)
         if room is not None:
             return room
         # Serialize creation per name: a second joiner arriving during the
-        # awaits below (store load, node pin) must wait for the
-        # fully-initialized room.
+        # awaits below (store load, migration-snapshot restore) must wait
+        # for the fully-initialized room — subscribing against a row whose
+        # ctrl masks a restore is about to overwrite would silently wipe
+        # the subscription.
         lock = self._create_locks.setdefault(name, asyncio.Lock())
         async with lock:
             room = self.rooms.get(name)
@@ -242,12 +303,23 @@ class RoomManager:
                 room.info.empty_timeout = self.config.room.empty_timeout_s
                 room.info.departure_timeout = self.config.room.departure_timeout_s
                 room.info.max_participants = self.config.room.max_participants
+            await self._maybe_restore_room(room)
             self.rooms[name] = room
             self._row_to_room[room.slots.row] = room
             await self.store.store_room(room.info)
-            await self.router.set_node_for_room(
-                name, self.router.local_node.node_id
-            )
+            try:
+                await self.router.set_node_for_room(
+                    name, self.router.local_node.node_id
+                )
+            except FencedWriteRejected:
+                # Lost the ownership election: another node claimed a
+                # higher epoch between our admission check and the pin.
+                # Tear the half-created replica down and refuse — the
+                # epoch holder serves this room.
+                self.rooms.pop(name, None)
+                self._row_to_room.pop(room.slots.row, None)
+                room.close(pm.DisconnectReason.MIGRATION)
+                raise CapacityError("room owned by another node")
         self._create_locks.pop(name, None)
         self._update_node_stats()
         self.runtime.blackbox.emit(room.slots.row, trace.EV_ROOM_OPEN)
@@ -264,8 +336,59 @@ class RoomManager:
             self.log.info("room finished", room=name)
             self._notify("room_finished", room=room.info.to_dict())
         await self.store.delete_room(name)
+        bus = getattr(self.router, "bus", None)
+        if bus is not None:
+            # A deliberate delete must also retire the failover checkpoint
+            # — every generation of it — or a same-name room created
+            # within CHECKPOINT_TTL_S would adopt the dead room's SN/TS
+            # lanes. Runs BEFORE clear_room_state releases the ownership
+            # epoch, so the deletes go out under our own fence.
+            try:
+                for key in self._checkpoint_keys(name):
+                    await self._fenced_delete(name, key)
+            except FencedWriteRejected:
+                pass   # new owner's checkpoints are theirs to retire
+            except (ConnectionError, OSError):
+                pass
         await self.router.clear_room_state(name)
+        self._ckpt_history.pop(name, None)
         self._update_node_stats()
+
+    def _checkpoint_keys(self, name: str) -> list[str]:
+        """KV keys for a room's checkpoint generations, newest first."""
+        return [f"room_checkpoint:{name}"] + [
+            f"room_checkpoint:{name}:g{i}" for i in range(1, self._ckpt_gens)
+        ]
+
+    # The ONLY writers for room-checkpoint/snapshot KV keys (graftcheck
+    # GC09 fencing discipline): with the fleet plane up every write
+    # CAS-asserts this node's ownership epoch first, so a stale owner's
+    # checkpoint loses (FencedWriteRejected) instead of clobbering the
+    # takeover winner's state. Without a fleet (single node, fleet
+    # disabled) they fall through to the raw bus.
+    async def _fenced_set(
+        self, room_name: str, key: str, value: str, ttl: float | None = None
+    ) -> None:
+        if self.fleet is not None:
+            await self.fleet.fence.guarded_set(room_name, key, value, ttl)
+        else:
+            await self.router.bus.set(key, value, ttl)
+
+    async def _fenced_set_many(
+        self, room_name: str, items: list[tuple[str, str]], ttl: float | None = None
+    ) -> None:
+        """_fenced_set of several keys of one room, the writes in flight
+        together (one epoch assert with the fleet plane up)."""
+        if self.fleet is not None:
+            await self.fleet.fence.guarded_set_many(room_name, items, ttl)
+        else:
+            await asyncio.gather(*(self.router.bus.set(k, v, ttl) for k, v in items))
+
+    async def _fenced_delete(self, room_name: str, key: str) -> None:
+        if self.fleet is not None and self.fleet.fence.owns(room_name):
+            await self.fleet.fence.guarded_delete(room_name, key)
+        else:
+            await self.router.bus.delete(key)
 
     # -- session handling (roommanager.go StartSession) -------------------
     async def start_session(
@@ -404,23 +527,39 @@ class RoomManager:
 
     def _admission_denied(self, kind: str) -> str:
         """Non-empty rejection reason when the node must refuse new work
-        of `kind` ('room' / 'join' / 'publish') — the config.go
-        LimitConfig seat plus the governor's L4. Every refusal is explicit
-        (signal response) and counted; existing sessions are never
-        evicted by any of these gates. (The reference's fence and drain
-        gates belong to the fleet and migration planes, which the port
-        does not carry yet.)"""
+        of `kind` ('room' / 'join' / 'publish'), or a failover adoption
+        ('restore') — the config.go LimitConfig seat plus the governor's
+        L4. Every refusal is explicit (signal response) and counted;
+        existing sessions are never evicted by any of these gates. A
+        'restore' passes the same hard gates as 'room' (fenced, draining,
+        plane headroom, max_rooms) but never the transient overload
+        ladder — the fleet already admitted that room before its node
+        died, and refusing its restore on a busy survivor would orphan
+        it permanently (governor.should_admit carries the carve-out)."""
         lim = self.config.limits
         st = self.router.local_node.stats
         reason = ""
-        if kind == "room" and self.runtime.occupancy().get("admittable_rooms", 1) <= 0:
+        if self.fleet is not None and self.fleet.fenced:
+            # Quorum lost: this node may already have been failed over
+            # by the majority side — admitting anything here would build
+            # state a survivor is about to own.
+            reason = "node fenced (quorum lost)"
+        elif self.migration is not None and self.migration.draining:
+            # Drain works with the governor disabled too: the orchestrator
+            # itself refuses every admission kind while rooms move off.
+            reason = "node draining"
+        elif kind in ("room", "restore") and (
+            self.runtime.occupancy().get("admittable_rooms", 1) <= 0
+        ):
             # Real plane headroom (paged: free pages / min room footprint;
             # dense: free rows) — checked before the governor so page-pool
             # exhaustion reports its own reason rather than "overloaded".
             reason = "no plane capacity for a new room"
         elif self.governor is not None and not self.governor.should_admit(kind):
             reason = "node overloaded"
-        elif kind == "room" and lim.max_rooms and len(self.rooms) >= lim.max_rooms:
+        elif kind in ("room", "restore") and (
+            lim.max_rooms and len(self.rooms) >= lim.max_rooms
+        ):
             reason = "max rooms on node"
         elif kind == "publish" and lim.num_tracks and (
             sum(len(r.tracks) for r in self.rooms.values()) >= lim.num_tracks
@@ -506,6 +645,14 @@ class RoomManager:
 
     # -- tick fan-out -----------------------------------------------------
     def _dispatch_tick(self, res: TickResult) -> None:
+        if self.fleet is not None and self.fleet.fenced:
+            # Self-fenced: drop this tick's egress wholesale (UDP batch,
+            # WS packets, padding, speaker/keyframe fan-out). The
+            # majority side may already be serving these rooms —
+            # double-forwarding is exactly the split-brain failure the
+            # fleet plane exists to prevent.
+            self.fleet.stats["muted_ticks"] += 1
+            return
         if self.udp is not None:
             # Batch wire path: one native call assembles/seals/sends every
             # UDP-destined entry; only WS-destined entries materialize as
@@ -667,27 +814,296 @@ class RoomManager:
             self.tcp_media.close()
             self.tcp_media = None
 
-    # -- supervision ------------------------------------------------------
-    async def checkpoint_rooms(self) -> None:
-        """Publish every live room's row snapshot — the seed a surviving
-        node restores from if this node dies; the reference runs it on the
-        supervisor's checkpoint cadence. Room checkpoints travel over the
-        shared bus, which a single node does not have (the multi-node
-        plane is ROADMAP A13), so the supervisor does not call it yet and
-        it returns at once, as the reference's does without a bus."""
-        if getattr(self.router, "bus", None) is None:
+    # -- cross-node room migration (participant.go:823 analog) ------------
+    async def handoff_room(self, name: str, target_node_id: str = "") -> bool:
+        """Publish a room's media-plane row to the bus and unpin (or repin)
+        it, so another node's get_or_create_room resumes mid-stream with
+        intact munger/VP8 offsets — migrated subscribers see contiguous
+        SN/TS instead of a stream reset. (The host-side NACK replay ring
+        does not travel; post-migration NACKs miss until it repopulates.)"""
+        room = self.rooms.get(name)
+        bus = getattr(self.router, "bus", None)
+        if room is None or bus is None:
+            return False
+        # Quiesce the row first: packets (or probe padding) forwarded after
+        # the snapshot would advance munger SN lanes past what the
+        # destination restores, and those SNs would be re-issued there.
+        self.runtime.ingest.frozen_rows.add(room.slots.row)
+        try:
+            # Ticks staged before the freeze finish first (see
+            # PlaneRuntime.settle_staged).
+            await self.runtime.settle_staged()
+            async with self.runtime.state_lock:  # vs. the device step
+                snap = self.runtime.snapshot_room(room.slots.row)
+            # Durability gate: the snapshot must be on the bus and the
+            # pin moved BEFORE any local teardown. A bus failure here
+            # leaves the room fully serving on this node — never pop a
+            # room whose state only exists in a packet that didn't land.
+            try:
+                await self._fenced_set(
+                    name,
+                    f"room_snapshot:{name}",
+                    self.runtime.encode_room_snapshot(snap),
+                    self.config.migration.snapshot_ttl_s,
+                )
+                if target_node_id:
+                    await self.router.set_node_for_room(name, target_node_id)
+                else:
+                    await self.router.clear_room_state(name)
+            except FencedWriteRejected:
+                # Ownership already moved to a higher epoch — the
+                # fence's on_lost callback closed the local replica;
+                # there is nothing left here to hand off.
+                return False
+            except (ConnectionError, OSError) as e:
+                self.log.warn(
+                    "handoff aborted; room keeps serving here",
+                    room=name, error=str(e),
+                )
+                return False
+            # Local teardown only — the pin/store state now belongs to the
+            # destination node (clients reconnect there, reason MIGRATION).
+            self.rooms.pop(name, None)
+            self._row_to_room.pop(room.slots.row, None)
+            room.close(pm.DisconnectReason.MIGRATION)
+            self.log.info("room handed off", room=name, target=target_node_id or "unpinned")
+        finally:
+            # On success room.close released the row (its next tenant
+            # starts unfrozen); on an aborted handoff this resumes it.
+            self.runtime.ingest.frozen_rows.discard(room.slots.row)
+        self._update_node_stats()
+        return True
+
+    async def migrate_room(self, name: str, target_node_id: str = "") -> bool:
+        """Supervised two-phase handoff (service/migration.py): the room
+        moves only after the target ACKs a restored replica, freeze-window
+        packets are bridged across, and any failure rolls back to serving
+        here. Falls back to the fire-and-forget bus handoff when the
+        migration plane is disabled."""
+        if self.migration is not None:
+            return await self.migration.migrate_room(name, target_node_id)
+        return await self.handoff_room(name, target_node_id)
+
+    def _on_room_adopted(self, room: Room) -> None:
+        """Post-adoption resync (the NACK blind-window satellite): the
+        host-side NACK replay ring does not travel in a snapshot, so
+        lost-packet recovery is blind until each video track's ring
+        repopulates. Shrink that window by soliciting an immediate
+        keyframe per migrated video track — a keyframe resets decode
+        state without needing history — and re-solicit when a publisher
+        reconnects and republishes."""
+        row = room.slots.row
+        meta = self.runtime.meta
+        cols = np.nonzero(meta.published[row] & meta.is_video[row])[0]
+        pending: set[int] = set()
+        for col in cols:
+            room.handle_keyframe_request(int(col))
+            pending.add(int(col))
+
+        def _resync(pub, track) -> None:
+            col = getattr(track, "track_col", None)
+            if col is None or col not in pending:
+                return
+            pending.discard(col)
+            # The adoption-time request above recorded _last_pli for this
+            # col even when no publisher was mapped yet; clear it so this
+            # republish-time request isn't throttled away.
+            room._last_pli.pop(col, None)
+            room.handle_keyframe_request(col)
+
+        if pending:
+            room.on_track_published.append(_resync)
+        for cb in list(self.on_adopt):
+            cb(room)
+
+    async def _maybe_restore_room(self, room: Room) -> None:
+        """Adopt a migrated room's device state if a snapshot is waiting on
+        the bus (the receiving half of handoff_room), falling back to the
+        failover checkpoint GENERATIONS (the receiving half of
+        checkpoint_rooms) when no deliberate handoff is in flight.
+
+        Every candidate is checksum-verified (decode_room_snapshot) and
+        shape/dtype-validated (restore_room) before anything scatters
+        into device state; a corrupt or mismatched payload falls back a
+        generation (counter + warn) instead of raising out of room
+        creation. With no usable candidate the room starts fresh — a
+        stream reset, not an outage."""
+        bus = getattr(self.router, "bus", None)
+        if bus is None:
+            return
+        candidates = [f"room_snapshot:{room.name}"] + self._checkpoint_keys(room.name)
+        for key in candidates:
+            raw = await bus.get(key)
+            if not raw:
+                continue
+            try:
+                snap = self.runtime.decode_room_snapshot(raw)
+                async with self.runtime.state_lock:  # vs. the device step
+                    self.runtime.restore_room(room.slots.row, snap)
+            except Exception as e:  # noqa: BLE001 — corruption, version or
+                # dims drift; reject-and-log, then try an older generation.
+                self.ckpt_fallbacks += 1
+                self.log.warn(
+                    "room snapshot rejected; falling back a generation",
+                    room=room.name, key=key, error=str(e),
+                )
+                await bus.delete(key)
+                continue
+            self.log.info("room restored from snapshot", room=room.name, key=key)
+            await bus.delete(key)
+            # Same blind window as a two-phase adoption: solicit keyframes
+            # so video recovers before the NACK ring repopulates.
+            self._on_room_adopted(room)
             return
 
+    # -- supervision & failover ------------------------------------------
+    async def checkpoint_rooms(self, force_fenced: bool = False) -> None:
+        """Publish every live room's row snapshot to the KV bus — the seed
+        a surviving node restores from if this node dies. Runs on the
+        PlaneSupervisor's checkpoint cadence.
+
+        A self-fenced node freezes this entirely (a survivor may hold
+        newer state; our write would clobber it) — except the recovery
+        reconcile, which calls with ``force_fenced=True`` exactly BECAUSE
+        each write CAS-asserts ownership: every room a survivor took
+        raises FencedWriteRejected, closing the local replica, and every
+        still-owned room gets a fresh checkpoint.
+
+        The reference snapshots, encodes and publishes room by room, each
+        write awaited in turn. Here one hold of state_lock gathers every
+        live row in one device → host copy per leaf (`snapshot_rooms`),
+        each room's frame byte-equal to `encode_room_snapshot(
+        snapshot_room(row))` at that point; a worker thread encodes the
+        frames while the event loop goes on ticking, and then every
+        room's generation ring is written, up to
+        CHECKPOINT_PUBLISH_CONCURRENCY rooms in flight. On a node whose
+        event loop the tick's fan-out keeps busy, every await waits for a
+        turn of the loop: awaited room by room, a 520-room round took
+        55 s on an H100 host (chip_smoke.py's migration phase), and
+        checkpoints older than CHECKPOINT_TTL_S expired before a survivor
+        could restore them."""
+        bus = getattr(self.router, "bus", None)
+        if bus is None:
+            return
+        if self.fleet is not None and self.fleet.fenced and not force_fenced:
+            return
+        async with self._ckpt_lock:
+            t0 = time.perf_counter()
+            live = [(name, room) for name, room in list(self.rooms.items())
+                    # mid-handoff: the migration owns this row's snapshot
+                    if room.slots.row not in self.runtime.ingest.frozen_rows]
+            if not live:
+                return
+            async with self.runtime.state_lock:  # vs. the device step
+                snaps = self.runtime.snapshot_rooms([r.slots.row for _, r in live])
+            st = self.ckpt_stats
+            st["gather_s"] += time.perf_counter() - t0
+            sem = asyncio.Semaphore(CHECKPOINT_PUBLISH_CONCURRENCY)
+
+            async def publish(name: str, items: list[tuple[str, str]]) -> None:
+                async with sem:
+                    try:
+                        await self._fenced_set_many(name, items, CHECKPOINT_TTL_S)
+                    except FencedWriteRejected:
+                        return  # room lost: on_lost closed the replica
+                st["rooms"] += 1
+                st["bytes"] += sum(len(v) for _, v in items)
+
+            te = time.perf_counter()
+            encode = self.runtime.encode_room_snapshot
+            payloads = await asyncio.to_thread(lambda: [encode(snap) for snap in snaps])
+            st["encode_s"] += time.perf_counter() - te
+            writes = []
+            for (name, room), payload in zip(live, payloads):
+                if self.rooms.get(name) is not room:
+                    continue  # deleted or handed off since the gather
+                if self.fault is not None:
+                    # corrupt_ckpt seam: damage lands on the encoded frame,
+                    # exactly where real bus/storage bit rot would.
+                    payload = self.fault.corrupt_ckpt(payload)
+                # Rotate the generation ring: newest at the base key, the
+                # previous K-1 payloads at :g1..:gK-1 so a corrupt newest
+                # frame falls back instead of orphaning the room.
+                hist = self._ckpt_history.setdefault(name, [])
+                hist.insert(0, payload)
+                del hist[self._ckpt_gens:]
+                writes.append(asyncio.ensure_future(
+                    publish(name, list(zip(self._checkpoint_keys(name), hist)))))
+            tp = time.perf_counter()
+            results = await asyncio.gather(*writes, return_exceptions=True)
+            st["publish_s"] += time.perf_counter() - tp
+            took = time.perf_counter() - t0
+            st["rounds"] += 1
+            st["max_round_s"] = max(st["max_round_s"], took)
+            if took > self.config.supervisor.checkpoint_interval_s:
+                st["over_interval"] += 1
+            for res in results:
+                if isinstance(res, BaseException):
+                    raise res
+
+    async def _failover_worker(self) -> None:
+        """Scan for rooms pinned to dead nodes (lapsed liveness lease,
+        routing/router.py dead_room_pins) and adopt the ones we win the
+        takeover race for, restoring their media-plane rows from the dead
+        node's last checkpoint. Replaces the reference's join-triggered
+        takeover with a proactive one: rooms re-home within
+        ~lease_ttl + failover_interval even with no client knocking."""
+        interval = self.config.kv.failover_interval_s
+        while True:
+            await asyncio.sleep(interval)
+            if self.fleet is not None:
+                # Elected restore path (exactly one winner per room via
+                # create-lock + epoch CAS); a fenced node sits scans out
+                # — it must not restore rooms it may be about to lose.
+                if not self.fleet.fenced:
+                    try:
+                        await self.fleet.orchestrator.run_once()
+                    except asyncio.CancelledError:
+                        raise
+                    except Exception as e:  # noqa: BLE001 — scan must
+                        # not kill the loop; next interval retries.
+                        self.log.warn("failover scan failed", error=str(e))
+                continue
+            try:
+                dead = await self.router.dead_room_pins()
+            except (ConnectionError, OSError):
+                continue  # bus outage: retry next interval
+            adopted_any = False
+            for name, dead_node in dead:
+                try:
+                    winner = await self.router.try_takeover(name, dead_node)
+                    if winner != self.router.local_node.node_id:
+                        continue  # another survivor won; it restores the room
+                    await self.get_or_create_room(name)
+                except (ConnectionError, OSError):
+                    continue
+                except CapacityError:
+                    # No free row here: release the pin so a survivor with
+                    # headroom can win the next scan's race.
+                    await self.router.clear_room_state(name)
+                    continue
+                adopted_any = True
+                self.log.info("room failed over", room=name, dead_node=dead_node[:12])
+                if self.telemetry is not None:
+                    self.telemetry.add("livekit_room_failovers_total")
+            if dead and hasattr(self.router, "remove_dead_nodes"):
+                try:
+                    await self.router.remove_dead_nodes()
+                except (ConnectionError, OSError):
+                    pass
+            if adopted_any:
+                self._update_node_stats()
+
     def integrity_stats(self) -> dict:
-        """IntegrityMonitor stats + the supervisor's checkpoint-generation
-        fallbacks and restart causes — the /debug/integrity payload. (The
-        reference adds the room checkpoints' fallbacks, which need the
-        bus, ROADMAP A13.)"""
+        """IntegrityMonitor stats + the checkpoint-generation fallback
+        counters spread across the supervisor (full-plane ring) and this
+        manager (KV room checkpoints) — the /debug/integrity payload."""
         snap = self.integrity.stats_dict() if self.integrity is not None else {}
-        snap["generation_fallbacks"] = 0
+        fallbacks = self.ckpt_fallbacks
         if self.supervisor is not None:
-            snap["generation_fallbacks"] = self.supervisor.ckpt_fallbacks
+            fallbacks += self.supervisor.ckpt_fallbacks
             snap["restart_causes"] = dict(self.supervisor.restart_causes)
+        snap["generation_fallbacks"] = fallbacks
         return snap
 
     # -- periodic reaping (server.go backgroundWorker) --------------------
@@ -697,6 +1113,14 @@ class RoomManager:
             self.supervisor.start()
         if self._reaper_task is None:
             self._reaper_task = asyncio.ensure_future(self._reaper())
+        # Failover scan only makes sense with a shared bus to observe
+        # other nodes' leases (and to read their checkpoints from).
+        if self._failover_task is None and getattr(self.router, "bus", None) is not None:
+            self._failover_task = asyncio.ensure_future(self._failover_worker())
+        if self.migration is not None:
+            self.migration.start()
+        if self.fleet is not None:
+            self.fleet.start()
 
     async def _reaper(self) -> None:
         while True:
@@ -711,11 +1135,17 @@ class RoomManager:
                     p.reap_stale_publications()
 
     async def stop(self) -> None:
+        if self.fleet is not None:
+            await self.fleet.stop()
+        if self.migration is not None:
+            await self.migration.stop()
         if self.supervisor is not None:
             await self.supervisor.stop()
-        if self._reaper_task is not None:
-            self._reaper_task.cancel()
-            self._reaper_task = None
+        for attr in ("_reaper_task", "_failover_task"):
+            task = getattr(self, attr)
+            if task is not None:
+                task.cancel()
+                setattr(self, attr, None)
         await self.runtime.stop()
         for name in list(self.rooms):
             await self.delete_room(name)

@@ -5,9 +5,12 @@ livekit.RoomService RPCs (CreateRoom, ListRooms, DeleteRoom,
 ListParticipants, GetParticipant, RemoveParticipant, MutePublishedTrack,
 UpdateParticipant, UpdateSubscriptions, SendData, UpdateRoomMetadata),
 served at POST /twirp/livekit.RoomService/<Method> with JSON bodies and
-Bearer-token auth, same wire shape as the reference's Twirp JSON mode.
-Single node: every room is hosted here. Relaying ops to another hosting
-node over the cluster bus waits for the bus (ROADMAP A13).
+Bearer-token auth, same wire shape as the reference's Twirp JSON mode. In
+multi-node mode, ops on rooms hosted elsewhere are relayed to the hosting
+node over the cluster bus (the reference's psrpc RTC-node RPC;
+multinode_roomservice_test.go) and the response mirrored back.
+
+A copy of the JAX package's service/roomservice.py.
 """
 
 from __future__ import annotations
@@ -36,9 +39,96 @@ def _err(status: int, msg: str) -> web.Response:
 
 class RoomServiceAPI:
     PREFIX = "/twirp/livekit.RoomService/"
+    # RPCs that act on live room/participant state and must execute on the
+    # node HOSTING the room (multinode_roomservice_test.go: admin ops hit
+    # the non-hosting node and are relayed — the reference's RTC-node RPC).
+    ROOM_SCOPED = frozenset({
+        "DeleteRoom", "ListParticipants", "GetParticipant",
+        "RemoveParticipant", "MutePublishedTrack", "UpdateParticipant",
+        "UpdateSubscriptions", "SendData", "UpdateRoomMetadata",
+    })
 
     def __init__(self, server: "LivekitServer"):
         self.server = server
+        self._rpc_sub = None
+        self._rpc_task = None
+
+    # -- cross-node forwarding -------------------------------------------
+    async def start(self) -> None:
+        """Subscribe to this node's admin-RPC channel (hosting side)."""
+        bus = getattr(self.server.router, "bus", None)
+        if bus is None:
+            return
+        import asyncio
+
+        node_id = self.server.router.local_node.node_id
+        self._rpc_sub = bus.subscribe(f"admin_rpc:{node_id}")
+
+        tasks: set = set()
+
+        async def serve_one(req: dict, rid: str) -> None:
+            try:
+                handler = getattr(self, f"_rpc_{req.get('method', '')}", None)
+                if handler is None:
+                    resp = {"status": 404, "body": "unknown method"}
+                else:
+                    r = await handler(req.get("body") or {})
+                    resp = {"status": r.status, "body": r.text}
+            except Exception as e:  # noqa: BLE001 — a failing handler must
+                # not take the relay down; the caller sees the 500.
+                resp = {"status": 500, "body": str(e)}
+            await bus.publish(f"admin_rpc_resp:{rid}", json.dumps(resp))
+
+        async def worker():
+            async for raw in self._rpc_sub:
+                try:
+                    req = json.loads(raw)
+                    rid = req.get("id", "")
+                except (ValueError, TypeError):
+                    continue  # malformed frame: no id to answer to
+                if not rid:
+                    continue
+                # Concurrent per-request tasks: one slow DeleteRoom must
+                # not head-of-line-block other nodes' forwarded RPCs past
+                # _forward's timeout.
+                t = asyncio.ensure_future(serve_one(req, rid))
+                tasks.add(t)
+                t.add_done_callback(tasks.discard)
+
+        self._rpc_task = asyncio.ensure_future(worker())
+
+    async def stop(self) -> None:
+        if self._rpc_sub is not None:
+            self._rpc_sub.close()
+        if self._rpc_task is not None:
+            self._rpc_task.cancel()
+
+    async def _forward(self, node_id: str, method: str, body: dict) -> web.Response:
+        """Relay an admin RPC to the hosting node and mirror its response
+        (the Twirp caller never sees which node served it)."""
+        import asyncio
+
+        from livekit_server_tpu_torch.utils import ids
+
+        bus = self.server.router.bus
+        rpc_id = ids.new_connection_id()
+        sub = bus.subscribe(f"admin_rpc_resp:{rpc_id}")
+        try:
+            await bus.publish(
+                f"admin_rpc:{node_id}",
+                json.dumps({"id": rpc_id, "method": method, "body": body}),
+            )
+            try:
+                raw = await sub.read(timeout=5.0)
+            except asyncio.TimeoutError:
+                return _err(504, f"hosting node {node_id[:12]} did not answer")
+            resp = json.loads(raw)
+            return web.Response(
+                status=resp["status"], text=resp["body"],
+                content_type="application/json",
+            )
+        finally:
+            sub.close()
 
     async def handle(self, request: web.Request) -> web.Response:
         method = request.path.removeprefix(self.PREFIX)
@@ -69,6 +159,22 @@ class RoomServiceAPI:
             target = body.get("room", "")
             if not ensure_admin_permission(claims, target):
                 return _err(403, "requires roomAdmin for this room")
+        if method in self.ROOM_SCOPED:
+            router = self.server.router
+            name = body.get("room", "")
+            node_id = await router.get_node_for_room(name)
+            if (
+                node_id
+                and node_id != router.local_node.node_id
+                and getattr(router, "bus", None) is not None
+            ):
+                if not await router.is_node_alive(node_id):
+                    # Running the op LOCALLY against a room living on a
+                    # (possibly just slow-heartbeating) other node would
+                    # split-brain its state; a join re-homes the room via
+                    # takeover, after which admin ops work again.
+                    return _err(503, "hosting node unreachable")
+                return await self._forward(node_id, method, body)
         return await handler(body)
 
     # -- RPCs -------------------------------------------------------------

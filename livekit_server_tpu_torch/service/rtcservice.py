@@ -64,6 +64,15 @@ class RTCService:
         # -- route (rtcservice.go startConnection :527) -------------------
         router = self.server.router
         node_id = await router.get_node_for_room(room_name)
+        if node_id and node_id != router.local_node.node_id:
+            # Dead-node takeover (redisrouter RemoveDeadNodes + the
+            # multinode shutdown-reconnect flow): a room pinned to a
+            # REMOTE node that stopped heartbeating is re-homed through a
+            # setnx-serialized race so concurrent joins on different live
+            # nodes can't split-brain the room. (A local pin needs no
+            # registry check — we are obviously alive.)
+            if not await router.is_node_alive(node_id):
+                node_id = await router.try_takeover(room_name, node_id)
         if not node_id:
             if not self.server.config.room.auto_create:
                 # ValidateCreateRoom (roomallocator.go:147): with

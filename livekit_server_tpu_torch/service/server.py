@@ -5,15 +5,17 @@ Reference parity: pkg/service/server.go (LivekitServer :46-61, Start
 (wire_gen.go:38-138) — here plain constructor wiring in create_server().
 Endpoints: /rtc (WS signal+media), /twirp/livekit.RoomService/* (admin),
 / (health), /metrics (prometheus text format), /debug/rooms,
-/debug/overload (the governor) and /debug/integrity (the audit, the
-repair ladder, the checkpoint codec, restart causes).
+/debug/overload (the governor), /debug/integrity (the audit, the repair
+ladder, the checkpoint codec, restart causes), /debug/migration and
+/debug/fleet (the multi-node plane).
 
 Port of the JAX package's service/server.py. `create_server(cfg,
 device=...)` builds the port's RoomManager on `device` ("cuda" by
-default). Routes whose subsystem the port does not carry yet are left
-out (ROADMAP A): the agents, egress, ingress and SIP services, ioinfo,
-/debug/compiles, /debug/migration, /debug/fleet and /debug/trace; so is
-the relay, which RoomManager refuses to configure. The UDP media transport and the TCP
+default) and, with `kv.kind: tcp` (or an injected `bus`), the multi-node
+router, store and planes over the shared bus (`connect_bus`). Routes
+whose subsystem the port does not carry yet are left out (ROADMAP A): the
+agents, egress, ingress and SIP services, ioinfo, /debug/compiles and
+/debug/trace; so is the relay, which RoomManager refuses to configure. The UDP media transport and the TCP
 fallback open at start (RoomManager.start_transports) on rtc.udp_port
 and rtc.tcp_port.
 """
@@ -28,8 +30,9 @@ from aiohttp import web
 from livekit_server_tpu_torch.config.config import Config, ConfigError
 from livekit_server_tpu_torch.routing import (
     LocalNode,
-    LocalRouter,
+    MemoryBus,
     NodeState,
+    create_router,
     create_selector,
 )
 from livekit_server_tpu_torch.routing.node import sample_system_stats
@@ -37,7 +40,7 @@ from livekit_server_tpu_torch.routing.selector import NoNodesAvailable
 from livekit_server_tpu_torch.service.roommanager import RoomManager
 from livekit_server_tpu_torch.service.roomservice import RoomServiceAPI
 from livekit_server_tpu_torch.service.rtcservice import RTCService
-from livekit_server_tpu_torch.service.store import LocalStore
+from livekit_server_tpu_torch.service.store import KVStore, LocalStore
 from livekit_server_tpu_torch.telemetry import TelemetryService
 from livekit_server_tpu_torch.version import __version__
 
@@ -72,6 +75,8 @@ class LivekitServer:
         self.app.router.add_get("/debug/overload", self.debug_overload)
         self.app.router.add_get("/debug/pager", self.debug_pager)
         self.app.router.add_get("/debug/integrity", self.debug_integrity)
+        self.app.router.add_get("/debug/migration", self.debug_migration)
+        self.app.router.add_get("/debug/fleet", self.debug_fleet)
         self.app.router.add_get("/debug/egress", self.debug_egress)
         self.app.router.add_get("/debug/blackbox/{room}", self.debug_blackbox)
         self._runner: web.AppRunner | None = None
@@ -227,6 +232,14 @@ class LivekitServer:
         })
 
     async def metrics(self, request: web.Request) -> web.Response:
+        # Recovery-machinery gauges sampled at scrape time: bus transport
+        # churn lives on the client object, plane restarts on the
+        # supervisor (livekit_plane_restarts_total / _room_failovers_total
+        # counters are emitted by their owners via telemetry.add).
+        bus = getattr(self.router, "bus", None)
+        if bus is not None and hasattr(bus, "retries"):
+            self.telemetry.set_gauge("livekit_bus_retries_total", bus.retries)
+            self.telemetry.set_gauge("livekit_bus_reconnects_total", bus.reconnects)
         self.telemetry.observe_queue_drops()
         return web.Response(
             text=self.telemetry.prometheus_text(), content_type="text/plain"
@@ -234,10 +247,11 @@ class LivekitServer:
 
     async def debug_overload(self, request: web.Request) -> web.Response:
         """Overload-governor state: ladder level, recent transitions,
-        split ingest drop counters, admission rejections, signal
+        split ingest drop counters, admission rejections, bus/signal
         back-pressure drops, and the active limits."""
         from dataclasses import asdict
 
+        from livekit_server_tpu_torch.routing.kv import Subscription
         from livekit_server_tpu_torch.routing.messagechannel import MessageChannel
 
         rm = self.room_manager
@@ -252,10 +266,37 @@ class LivekitServer:
             },
             "admission_rejected": dict(rm.admission_rejected),
             "admission_denied_reasons": dict(rm.admission_denied_reasons),
-            "queue_drops": {"signal_channel": MessageChannel.total_dropped},
+            "queue_drops": {
+                "signal_channel": MessageChannel.total_dropped,
+                "bus_subscription": Subscription.total_dropped,
+            },
             "supervisor_restarts": rm.supervisor.restarts if rm.supervisor is not None else 0,
             "limits": asdict(self.config.limits),
         })
+
+    async def debug_fleet(self, request: web.Request) -> web.Response:
+        """Fleet-plane state: fence flag + lease age, owned room epochs,
+        and the fencing / failover-election / rebalance counters."""
+        fleet = self.room_manager.fleet
+        return web.json_response(
+            {
+                "enabled": fleet is not None,
+                "fleet": fleet.snapshot() if fleet is not None else None,
+            }
+        )
+
+    async def debug_migration(self, request: web.Request) -> web.Response:
+        """Migration-plane state: drain flag, in-flight handoffs with
+        their epochs, pending adoptions, and the lifetime counters
+        (commits, rollbacks, NACKs, bridged packets, stale-epoch drops)."""
+        mig = self.room_manager.migration
+        return web.json_response(
+            {
+                "enabled": mig is not None,
+                "migration": mig.snapshot() if mig is not None else None,
+                "frozen_rows": sorted(self.room_manager.runtime.ingest.frozen_rows),
+            }
+        )
 
     async def debug_integrity(self, request: web.Request) -> web.Response:
         """State-integrity plane: audits run, violations by rule, the
@@ -275,6 +316,7 @@ class LivekitServer:
             },
             "restart_causes": dict(sup.restart_causes) if sup is not None else {},
             "supervisor_ckpt_fallbacks": sup.ckpt_fallbacks if sup is not None else 0,
+            "room_ckpt_fallbacks": rm.ckpt_fallbacks,
             "config": {
                 "enabled": integ.enabled,
                 "audit_every_ticks": integ.audit_every_ticks,
@@ -352,7 +394,15 @@ class LivekitServer:
 
     # -- lifecycle --------------------------------------------------------
     async def start(self) -> None:
+        # Identify this node's bus connection to the BusServer before any
+        # other op: the partition-injection harness severs/heals by node
+        # id, and pub/sub sender attribution needs it.
+        bus = getattr(self.router, "bus", None)
+        if bus is not None and hasattr(bus, "set_ident"):
+            bus.set_ident(self.router.local_node.node_id)
         await self.router.register_node()
+        if hasattr(self.router, "remove_dead_nodes"):
+            await self.router.remove_dead_nodes()
         # Warm step before accepting traffic: builds the CUDA kernels
         # (nvcc, once per process) and runs the first tick, so no session
         # waits on a build mid-call.
@@ -360,6 +410,7 @@ class LivekitServer:
         self.room_manager.runtime.mark_warm()
         # Native UDP media transport on the RTC port, and the TCP fallback.
         await self.room_manager.start_transports()
+        await self.room_api.start()
         self.room_manager.start()
         self._stats_task = asyncio.ensure_future(self._refresh_nodes())
         self._runner = web.AppRunner(self.app)
@@ -373,8 +424,18 @@ class LivekitServer:
     async def stop(self, force: bool = False) -> None:
         self.router.local_node.state = NodeState.SHUTTING_DOWN
         await self.router.drain()
-        if not force:
-            # Single node: nobody to migrate to. Wait briefly for
+        mig = self.room_manager.migration
+        if not force and mig is not None:
+            # Graceful stop IS a node drain: every local room migrates to
+            # a peer through the two-phase handoff (bounded concurrency,
+            # admissions refused throughout); rooms with no willing peer
+            # stay and are torn down by room_manager.stop() below.
+            try:
+                await mig.drain_node()
+            except Exception as e:  # noqa: BLE001 — stopping anyway
+                self.log.warn("graceful drain failed", error=str(e))
+        elif not force:
+            # Bus-less single node: nobody to migrate to. Wait briefly for
             # participants to leave on their own (server.go:295).
             for _ in range(50):
                 if not any(r.participants for r in self.room_manager.rooms.values()):
@@ -383,6 +444,7 @@ class LivekitServer:
         if self._stats_task:
             self._stats_task.cancel()
         self.room_manager.close_transports()
+        await self.room_api.stop()
         await self.room_manager.stop()
         await self.router.unregister_node()
         if self._runner is not None:
@@ -393,22 +455,53 @@ class LivekitServer:
         return self.config.port
 
 
-def create_server(config: Config, device="cuda") -> LivekitServer:
-    """The Wire graph (wire_gen.go InitializeServer) as explicit wiring:
-    the single-node router and store, the media plane on `device`. A
-    shared bus (kv.kind other than memory) waits for ROADMAP A13."""
-    if config.kv.kind not in ("", "memory"):
-        raise ConfigError(
-            f"kv.kind {config.kv.kind!r} needs the multi-node bus, which this "
-            "port does not carry yet (ROADMAP A13 (migration, fleet plane, "
-            "TCP bus)); use kv.kind 'memory'"
+async def connect_bus(config: Config):
+    """Resolve the configured multi-node bus (redisrouter's Redis client
+    seat): kv.kind == "tcp" dials the in-repo BusServer at kv.address."""
+    if config.kv.kind == "tcp":
+        if not config.kv.address:
+            # Booting a cluster-configured node standalone would silently
+            # split-brain it out of the cluster; fail loudly instead.
+            raise ConfigError("kv.kind is 'tcp' but kv.address is empty")
+        from livekit_server_tpu_torch.routing.tcpbus import TCPBusClient
+
+        return await TCPBusClient.connect_address(
+            config.kv.address, token=config.kv.auth_token
         )
+    if config.kv.kind in ("", "memory"):
+        return None
+    # An unknown kind must not fall through to a private in-process bus —
+    # the node would boot "clustered" against a registry only it can see.
+    raise ConfigError(
+        f"unsupported kv.kind {config.kv.kind!r}: no external KV client is "
+        "bundled; run `python -m livekit_server_tpu_torch bus` and use kv.kind='tcp'"
+    )
+
+
+def create_server(config: Config, bus=None, device="cuda") -> LivekitServer:
+    """The Wire graph (wire_gen.go InitializeServer) as explicit wiring:
+    with kv.kind 'memory' and no `bus`, the single-node router and store;
+    otherwise the KV router and store over `bus` (a private MemoryBus when
+    none is given). The media plane runs on `device`."""
     node = LocalNode(region=config.region)
     sample_system_stats(node.stats)
-    router = LocalRouter(node)
-    store = LocalStore()
+    if bus is None and config.kv.kind == "memory":
+        router = create_router(node, None)
+        store = LocalStore()
+    else:
+        bus = bus if bus is not None else MemoryBus()
+        router = create_router(
+            node, bus,
+            lease_ttl=config.kv.lease_ttl_s,
+            stats_interval=config.kv.stats_interval_s,
+        )
+        store = KVStore(bus)
     telemetry = TelemetryService(config)
     rm = RoomManager(config, router, store, telemetry=telemetry, device=device)
     server = LivekitServer(config, router, store, rm, telemetry)
     server._selector = create_selector(config.node_selector, config.region)
+    if rm.migration is not None:
+        # Drain-target ranking reuses the placement selector, so a drain
+        # spreads rooms the same way the router places new ones.
+        rm.migration.selector = server._selector
     return server

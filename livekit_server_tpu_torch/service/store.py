@@ -1,8 +1,12 @@
 """Room/participant object store.
 
+A copy of the JAX package's service/store.py.
+
 Reference parity: pkg/service/interfaces.go ObjectStore +
-localstore.go:28-170 (in-memory, single-node). The KV-backed store of
-redisstore.go waits for the multi-node bus (ROADMAP A13).
+localstore.go:28-170 (in-memory, single-node) + redisstore.go:67-944
+(KV-backed, multi-node, with distributed room lock). The KV variant rides
+the routing MessageBus so multi-node tests run N stores over one
+MemoryBus, like the reference's multi-node tests over one Redis.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import time
 from typing import Protocol
 
 from livekit_server_tpu_torch.protocol import models as pm
+from livekit_server_tpu_torch.routing.kv import MessageBus
 
 
 class ObjectStore(Protocol):
@@ -71,3 +76,52 @@ class LocalStore:
 
     async def unlock_room(self, name: str) -> None:
         self._locks.pop(name, None)
+
+
+class KVStore:
+    """redisstore.go over the MessageBus (hashes + setnx lock)."""
+
+    ROOMS = "rooms"
+
+    def __init__(self, bus: MessageBus):
+        self.bus = bus
+
+    async def store_room(self, room: pm.RoomInfo) -> None:
+        await self.bus.hset(self.ROOMS, room.name, json.dumps(room.to_dict()))
+
+    async def load_room(self, name: str) -> pm.RoomInfo | None:
+        raw = await self.bus.hget(self.ROOMS, name)
+        return pm.RoomInfo.from_dict(json.loads(raw)) if raw else None
+
+    async def delete_room(self, name: str) -> None:
+        await self.bus.hdel(self.ROOMS, name)
+        parts = await self.bus.hgetall(f"room_participants:{name}")
+        for identity in parts:
+            await self.bus.hdel(f"room_participants:{name}", identity)
+
+    async def list_rooms(self, names: list[str] | None = None) -> list[pm.RoomInfo]:
+        raw = await self.bus.hgetall(self.ROOMS)
+        rooms = [pm.RoomInfo.from_dict(json.loads(v)) for v in raw.values()]
+        if names is not None:
+            rooms = [r for r in rooms if r.name in names]
+        return rooms
+
+    async def store_participant(self, room: str, p: pm.ParticipantInfo) -> None:
+        await self.bus.hset(f"room_participants:{room}", p.identity, json.dumps(p.to_dict()))
+
+    async def load_participant(self, room: str, identity: str) -> pm.ParticipantInfo | None:
+        raw = await self.bus.hget(f"room_participants:{room}", identity)
+        return pm.ParticipantInfo.from_dict(json.loads(raw)) if raw else None
+
+    async def delete_participant(self, room: str, identity: str) -> None:
+        await self.bus.hdel(f"room_participants:{room}", identity)
+
+    async def list_participants(self, room: str) -> list[pm.ParticipantInfo]:
+        raw = await self.bus.hgetall(f"room_participants:{room}")
+        return [pm.ParticipantInfo.from_dict(json.loads(v)) for v in raw.values()]
+
+    async def lock_room(self, name: str, ttl: float = 5.0) -> bool:
+        return await self.bus.setnx(f"room_lock:{name}", "1", ttl)
+
+    async def unlock_room(self, name: str) -> None:
+        await self.bus.delete(f"room_lock:{name}")

@@ -212,13 +212,17 @@ class TelemetryService:
             self.set_gauge(f"livekit_pager_{k}_total", snap.get(k, 0))
 
     def observe_queue_drops(self) -> None:
-        """Signal back-pressure drops (the QueueFull paths that used to
-        lose messages with at most a local count): a process-wide class
-        counter read at scrape/tick time."""
+        """Bus/signal back-pressure drops (the QueueFull paths that used
+        to lose messages with at most a local count): process-wide class
+        counters read at scrape/tick time."""
+        from livekit_server_tpu_torch.routing.kv import Subscription
         from livekit_server_tpu_torch.routing.messagechannel import MessageChannel
 
         self.set_gauge(
             "livekit_signal_channel_dropped_total", MessageChannel.total_dropped
+        )
+        self.set_gauge(
+            "livekit_bus_sub_dropped_total", Subscription.total_dropped
         )
 
     def observe_transport(self, stats: dict[str, Any]) -> None:

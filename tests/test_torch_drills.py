@@ -142,7 +142,7 @@ async def _unrepairable(pkg) -> dict:
     mon.escalate_cb = reasons.append
     mon.snapshot_provider = lambda: None      # no verified checkpoint at all
     rt.integrity = mon
-    poison(rt, "bwe_state.ring_pos", 1, 77, pkg)
+    poison(rt, "bwe_state.ring_pos", 1, -77, pkg)
     egress = []
     for i in range(4):
         push_audio(rt, range(ROOMS), i, pkg)
@@ -183,7 +183,7 @@ async def _repair_storm(pkg) -> dict:
     rt.integrity = mon
     restored = spy_restores(rt, pkg)
     for room in range(4):                     # 4 rooms > storm threshold 2
-        poison(rt, "bwe_state.ring_pos", room, 77, pkg)
+        poison(rt, "bwe_state.ring_pos", room, -77, pkg)
     for i in range(2, 6):
         push_audio(rt, range(ROOMS), i, pkg)
         res = await rt.step_once()
@@ -206,7 +206,8 @@ async def _repair_storm(pkg) -> dict:
     # JAX package's stop does not wait for it, and its step donates the
     # buffers it read).
     await asyncio.get_running_loop().run_in_executor(rt._executor, lambda: None)
-    out["ring_max"] = int(np.asarray(rt.state.bwe_state.ring_pos).max())
+    ring = np.asarray(rt.state.bwe_state.ring_pos)
+    out["ring_min"], out["ring_max"] = int(ring.min()), int(ring.max())
     assert_same_bits(restored[0], seed, "the restore against its checkpoint")
     return out, restored[0]
 
@@ -219,7 +220,7 @@ async def test_repair_storm_escalates_to_one_supervisor_restart():
     assert {room for room, _, _ in got["egress_then"]} == {4, 5}       # muted that tick
     assert got["restart_causes"] == {"stall": 0, "integrity": 1} and got["restores"] == 1
     assert got["escalations"] == 1 and not got["quarantined"] and not got["gave_up"]
-    assert got["ring_max"] < bwe.WINDOW                                 # restored clean
+    assert 0 <= got["ring_min"] and got["ring_max"] < bwe.WINDOW       # restored clean
     fx.assert_leaves_match(got_state, want_state, NAMES, "the restored plane")
 
 
@@ -344,7 +345,7 @@ async def test_step_committed_before_a_restart_does_not_audit_the_restored_plane
     escalations: list[str] = []
     mon.escalate_cb = escalations.append
     rt.integrity = mon
-    poison(rt, "bwe_state.ring_pos", 0, 77)   # the step's audit would flag room 0
+    poison(rt, "bwe_state.ring_pos", 0, -77)   # the step's audit would flag room 0
     gate, entered = threading.Event(), threading.Event()
     real = rt._unpack_outputs
 
@@ -450,7 +451,8 @@ async def test_room_manager_wires_the_failure_and_overload_plane():
     assert rt.fault is rm.fault and rt.ingest.fault is rm.fault
     assert rm.integrity.snapshot_provider == rm.supervisor.last_good_snapshot
     assert rm.integrity.escalate_cb == rm.supervisor.request_restart
-    assert rm.supervisor.room_checkpoint_cb is None       # no bus: ROADMAP A13
+    assert rm.supervisor.room_checkpoint_cb == rm.checkpoint_rooms
+    assert rm.migration is None and rm.fleet is None      # no bus: single node
     assert rm.supervisor.tick_deadline_s == 1.0 and rm.supervisor.warmup_deadline_s == 30.0
     assert rm.integrity.audit_every == 16 and rm.governor.escalate_ticks == 20
     assert set(rm.integrity_stats()) >= {"audits", "restart_causes", "generation_fallbacks"}

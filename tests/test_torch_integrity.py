@@ -3,8 +3,11 @@ device="cpu") against the JAX package's, on seeded numpy states carried
 into both packages leaf by leaf: `audit_plane`'s mask, counts and new
 mirror must be equal (all integers and bools) on a clean state, on one
 room corrupted per rule, on a cursor regression against a legitimate
-stream reset, across an SN wrap, with the BWE ring cursor past its window,
-and on seeded random corruption; and the paged runtime's `map_audit_mask`
+stream reset, across an SN wrap, and on seeded random corruption; with
+the BWE ring cursor past its window the reference flags the room and the
+port, by design, does not (ROADMAP C5/C6): the comparison hands the
+reference that state with the cursor taken modulo the window, which it
+reads the same way. The paged runtime's `map_audit_mask`
 with its page-table check must give the same per-room mask as the
 reference's and repair the same table rows."""
 
@@ -66,13 +69,31 @@ def mirror_of(leaves) -> list[np.ndarray]:
             s["stats.received"].copy()]
 
 
-def both(leaves, mirror):
-    """audit_plane of both packages on the same numpy state and mirror;
-    asserts mask, counts and new mirror equal, returns (mask, counts)."""
+def jax_audit(leaves, mirror):
+    """The JAX package's audit_plane on numpy leaves and mirror."""
     jstate = jax.tree.unflatten(
         jax.tree.structure(jplane.init_state(jplane.PlaneDims(*DIMS))),
         [jnp.asarray(a) for a in leaves])
-    jm, jc, jnm = jinteg.audit_plane(jstate, jinteg.AuditMirror(*map(jnp.asarray, mirror)))
+    return jinteg.audit_plane(jstate, jinteg.AuditMirror(*map(jnp.asarray, mirror)))
+
+
+def ring_wrapped(leaves) -> list[np.ndarray]:
+    """`leaves` with every BWE ring cursor at or past bwe.WINDOW taken
+    modulo WINDOW: the state on which the reference's bounds rule reads
+    what the port's reads on `leaves` (the port does not flag a cursor
+    past its window; nothing else reads the cursor's value)."""
+    out = list(leaves)
+    i = NAMES.index("bwe_state.ring_pos")
+    ring = out[i]
+    out[i] = np.where(ring >= bwe.WINDOW, ring % bwe.WINDOW, ring).astype(ring.dtype)
+    return out
+
+
+def both(leaves, mirror):
+    """audit_plane of both packages on the same numpy state and mirror
+    (the reference's with the ring cursor wrapped, `ring_wrapped`);
+    asserts mask, counts and new mirror equal, returns (mask, counts)."""
+    jm, jc, jnm = jax_audit(ring_wrapped(leaves), mirror)
     m, c, nm = integrity.audit_plane(plane.state_from_numpy(leaves, device="cpu"),
                                      integrity.AuditMirror(*map(torch.from_numpy, mirror)))
     assert np.array_equal(m.numpy(), np.asarray(jm))
@@ -150,15 +171,24 @@ def test_sn_wrap_is_monotonic_in_both():
 
 def test_bwe_ring_cursor_past_its_window_flags_in_both():
     """The BWE advances its ring write cursor on every estimate sample and
-    reads it modulo bwe.WINDOW; the audit's bounds rule holds it below
-    WINDOW. Both packages flag a room once one subscriber has had WINDOW
-    samples (a clean state of a session with receiver estimates)."""
+    reads it modulo bwe.WINDOW. The reference's bounds rule holds it below
+    WINDOW, so it flags a room once one subscriber has had WINDOW samples
+    (a clean state of a session with receiver estimates: ROADMAP C6). The
+    port's rule keeps only `ring_pos >= 0` and audits that state clean; a
+    negative cursor stays flagged in both."""
     leaves = clean_leaves(6)
     put(leaves, "bwe_state.ring_pos", (2, 1), bwe.WINDOW)
     put(leaves, "bwe_state.ring_pos", (4, 0), 1000)
-    mask, counts = both(leaves, mirror_of(leaves))
-    assert np.nonzero(mask)[0].tolist() == [2, 4]
-    assert counts.tolist() == [0, 0, 0, 0, 2]
+    mirror = mirror_of(leaves)
+    jm, jc, _ = jax_audit(leaves, mirror)
+    assert np.nonzero(np.asarray(jm))[0].tolist() == [2, 4]
+    assert np.asarray(jc).tolist() == [0, 0, 0, 0, 2]
+    mask, counts = both(leaves, mirror)
+    assert not mask.any() and not counts.any()
+    put(leaves, "bwe_state.ring_pos", (3, 2), -1)
+    mask, counts = both(leaves, mirror)
+    assert np.nonzero(mask)[0].tolist() == [3]
+    assert counts.tolist() == [0, 0, 0, 0, 1]
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -1,6 +1,9 @@
 """The port stands alone: no module of livekit_server_tpu_torch, and not
-chip_smoke.py or kernel_ab.py, imports jax or the JAX package; its entry points default
-to the card and refuse to fall back to the CPU."""
+chip_smoke.py or kernel_ab.py, imports jax or the JAX package (the
+multi-node modules copied from it included); its entry points default to
+the card and refuse to fall back to the CPU; the serving path, the
+multi-node plane among it, needs only torch, numpy and the standard
+library."""
 
 import ast
 from pathlib import Path
@@ -135,6 +138,34 @@ async def main():
     # injection, checkpoint frames): chip_smoke's drills on a small plane.
     report, _ = await cs.drills("cpu", plane.PlaneDims(8, 10, 8, 10))
     assert report["bitflip"]["rows_repaired"] == 1 and report["stall"]["restarts"] == 2
+    # The multi-node plane (chip_smoke's migration phase, in one process):
+    # a BusServer, two nodes on TCPBusClients with KVRouter, KVStore and
+    # the migration and fleet planes; a room migrated, then a drain.
+    from livekit_server_tpu_torch.routing import create_router
+    from livekit_server_tpu_torch.routing.tcpbus import BusServer, TCPBusClient
+    from livekit_server_tpu_torch.service.store import KVStore
+
+    srv = BusServer()
+    await srv.start("127.0.0.1", 0)
+    nodes = []
+    for _ in range(2):
+        bus = await TCPBusClient.connect("127.0.0.1", srv.port)
+        cfg = cs.migration_config(srv.port, plane.PlaneDims(4, 4, 4, 4))
+        router = create_router(cs.LocalNode(), bus)
+        node = cs.RoomManager(cfg, router, KVStore(bus), device="cpu")
+        assert node.migration is not None and node.fleet is not None
+        await router.register_node()
+        node.start()
+        nodes.append(node)
+    a, b = nodes
+    await a.get_or_create_room("moved")
+    assert await a.migrate_room("moved", b.router.local_node.node_id)
+    await a.get_or_create_room("drained")
+    assert (await a.migration.drain_node())["failed"] == []
+    assert set(b.rooms) == {"moved", "drained"} and not a.rooms
+    for node in nodes:
+        await node.stop()
+    srv.close()
 
 asyncio.run(main())
 after = {m.split(".")[0] for m in sys.modules}
@@ -147,9 +178,11 @@ def test_serving_path_needs_only_torch_numpy_and_stdlib():
     routing, telemetry, the codec, the runtime loop, the UDP media wire:
     transport, native libraries, sealed frames through libcrypto; and the
     failure and overload plane: supervisor, integrity audit, governor,
-    fault injection, checkpoint frames) runs with aiohttp, msgpack, PyYAML
-    and cryptography absent, as they may be on a card's host, and adds no
-    module outside the port, torch, numpy and the standard library."""
+    fault injection, checkpoint frames; and the multi-node plane: the TCP
+    bus, KVRouter, KVStore, migration and fleet planes) runs with aiohttp,
+    msgpack, PyYAML and cryptography absent, as they may be on a card's
+    host, and adds no module outside the port, torch, numpy and the
+    standard library."""
     import json
     import os
     import subprocess
@@ -183,3 +216,20 @@ def test_port_native_sources_are_its_own():
     root_native = re.compile(r'parents\[\d+\]\s*/\s*"native"|ROOT\s*/\s*"native"')
     bad = [str(p.relative_to(ROOT)) for p in SOURCES if root_native.search(p.read_text())]
     assert not bad, f"sources reading the root native/: {bad}"
+
+
+def test_multinode_modules_are_the_ports_own():
+    """The multi-node modules exist in the port as its own files, and the
+    ones chip_smoke's migration phase runs import nothing beyond the
+    port, torch, numpy and the standard library (checked statically; the
+    serving probe above runs them)."""
+    import sys
+
+    pkg = ROOT / "livekit_server_tpu_torch"
+    mods = ("routing/kv.py", "routing/tcpbus.py", "routing/fleet.py", "routing/router.py",
+            "service/store.py", "service/migration.py", "service/fleetplane.py")
+    for rel in mods:
+        names = {n.split(".")[0] for n in _imported_modules(pkg / rel)}
+        outside = {n for n in names if n not in sys.stdlib_module_names
+                   and n not in ("livekit_server_tpu_torch", "numpy", "torch")}
+        assert not outside, (rel, outside)

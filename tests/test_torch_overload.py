@@ -23,7 +23,6 @@ from livekit_server_tpu.runtime import PlaneRuntime as JaxRuntime  # noqa: E402
 from livekit_server_tpu.runtime import faultinject as jfault  # noqa: E402
 from livekit_server_tpu.runtime import governor as jgov  # noqa: E402
 from livekit_server_tpu.runtime.ingest import PacketIn as JaxPacket  # noqa: E402
-from livekit_server_tpu_torch.config import ConfigError  # noqa: E402
 from livekit_server_tpu_torch.config.config import FaultInjectConfig, LimitsConfig  # noqa: E402
 from livekit_server_tpu_torch.models import plane  # noqa: E402
 from livekit_server_tpu_torch.runtime import PlaneRuntime  # noqa: E402
@@ -235,12 +234,18 @@ def test_stall_cadence_and_bitflip_choice_match_reference():
 
 
 def test_config_refuses_migration_and_bus_drills():
+    """The migration and bus drills are ported: from_config takes them into
+    the spec exactly as the reference's does (it refused them before the
+    multi-node plane was ported)."""
     for name, value in (("mig_drop_prepare", True), ("mig_ack_delay_s", 1.0),
-                        ("bus_partition_groups", [[1], [2]]), ("bus_heal_at_tick", 4)):
+                        ("mig_corrupt_handoff", True), ("mig_sever_handoffs", 2),
+                        ("bus_partition_groups", [[1], [2]]), ("bus_partition_tick", 3),
+                        ("bus_heal_at_tick", 4), ("bus_asym_pairs", [["a", "b"]])):
         cfg = FaultInjectConfig(enabled=True)
         setattr(cfg, name, value)
-        with pytest.raises(ConfigError, match=f"faults.{name}.*A13"):
-            faultinject.FaultInjector.from_config(cfg)
+        got = faultinject.FaultInjector.from_config(cfg).spec
+        want = jfault.FaultInjector.from_config(cfg).spec
+        assert vars(got) == vars(want), name
     inj = faultinject.FaultInjector.from_config(
         FaultInjectConfig(enabled=True, seed=4, drop_pct=0.25, flood_rooms=[1]))
     assert inj.spec.drop_pct == 0.25 and inj.spec.flood_rooms == (1,)

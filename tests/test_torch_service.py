@@ -36,7 +36,7 @@ from livekit_server_tpu_torch.config import ConfigError, load_config  # noqa: E4
 from livekit_server_tpu_torch.config.config import UNPORTED, port_overlay  # noqa: E402
 from livekit_server_tpu_torch.runtime import udp as udp_mod  # noqa: E402
 from livekit_server_tpu_torch.runtime.crypto import MediaCryptoClient  # noqa: E402
-from livekit_server_tpu_torch.service.server import create_server  # noqa: E402
+from livekit_server_tpu_torch.service.server import connect_bus, create_server  # noqa: E402
 from tests.test_native import rtp_packet  # noqa: E402
 from tests.torch_udp_fixture import client_socket, drain, until  # noqa: E402
 
@@ -271,9 +271,15 @@ async def test_metrics_and_debug_routes():
             async with s.get(f"{base}/debug/blackbox/m") as r:
                 assert [e["event"] for e in (await r.json())["events"]][:2] == [
                     "room_open", "join"]
-            for gone in ("/debug/compiles", "/debug/fleet", "/agent"):
+            for gone in ("/debug/compiles", "/debug/trace", "/agent"):
                 async with s.get(f"{base}{gone}") as r:
                     assert r.status == 404
+            # Single node (kv.kind memory): the multi-node planes are off.
+            async with s.get(f"{base}/debug/fleet") as r:
+                assert await r.json() == {"enabled": False, "fleet": None}
+            async with s.get(f"{base}/debug/migration") as r:
+                mig = await r.json()
+                assert not mig["enabled"] and mig["frozen_rows"] == []
             await alice.close()
 
 
@@ -355,18 +361,36 @@ def test_unported_subsystems_raise_config_error():
     cfg = make_config(_free_port())
     cfg.rtc.udp_port, cfg.rtc.tcp_port = 7882, 7881
     assert create_server(cfg, device="cpu").room_manager.udp is None  # opens at start
-    # A shared bus is not ported: only the single-node router and store.
-    for kind in ("tcp", "redis"):
+    # kv.kind tcp dials the bus and fails loudly when it cannot; a kind
+    # without a bundled client is refused; memory stays single-node.
+    for kind, err in (("tcp", OSError), ("redis", ConfigError)):
         cfg = make_config(_free_port())
         cfg.kv.kind, cfg.kv.address = kind, "127.0.0.1:1"
-        with pytest.raises(ConfigError, match="A13"):
-            create_server(cfg, device="cpu")
-    for kind in ("", "memory"):
-        cfg = make_config(_free_port())
-        cfg.kv.kind = kind
-        server = create_server(cfg, device="cpu")
-        assert type(server.router).__name__ == "LocalRouter"
-        assert type(server.store).__name__ == "LocalStore"
+        with pytest.raises(err):
+            asyncio.run(connect_bus(cfg))
+    cfg = make_config(_free_port())
+    cfg.kv.kind = "tcp"
+    with pytest.raises(ConfigError, match="kv.address"):
+        asyncio.run(connect_bus(cfg))
+    cfg = make_config(_free_port())
+    cfg.kv.kind = "memory"
+    server = create_server(cfg, device="cpu")
+    assert type(server.router).__name__ == "LocalRouter"
+    assert type(server.store).__name__ == "LocalStore"
+    rm = server.room_manager
+    assert rm.migration is None and rm.fleet is None
+    # Any other kind, or an injected bus, builds the KV router and store
+    # and, on the reference's defaults, the migration and fleet planes.
+    cfg = make_config(_free_port())
+    cfg.kv.kind = ""
+    server = create_server(cfg, device="cpu")
+    assert type(server.router).__name__ == "KVRouter"
+    assert type(server.store).__name__ == "KVStore"
+    rm = server.room_manager
+    assert type(rm.migration).__name__ == "MigrationOrchestrator"
+    assert type(rm.fleet).__name__ == "FleetPlane"
+    assert rm.migration.selector is server._selector
+    assert rm.supervisor.room_checkpoint_cb == rm.checkpoint_rooms
 
 
 def test_serve_refuses_without_a_card_or_aiohttp(monkeypatch, capsys):
@@ -381,9 +405,9 @@ def test_serve_refuses_without_a_card_or_aiohttp(monkeypatch, capsys):
     assert "aiohttp" in capsys.readouterr().err
     # An explicit YAML/flag enabling an unported subsystem is refused too.
     monkeypatch.setattr(cli.importlib.util, "find_spec", real)
-    with pytest.raises(ConfigError, match="migration.enabled"):
+    with pytest.raises(ConfigError, match="relay.enabled"):
         cli.main(["serve", "--dev", "--device", "cpu", "--port", port,
-                  "--migration.enabled", "true"])
+                  "--relay.enabled", "true"])
 
 
 @contextlib.contextmanager
@@ -424,7 +448,8 @@ def test_serve_dev_cpu_answers_health():
     with _serve_dev_cpu() as (_base, out):
         pass
     text = "".join(out)
-    assert "port overlay" in text and '"migration": {"enabled": false}' in text
+    assert "port overlay" in text and '"relay": {"enabled": false}' in text
+    assert '"migration"' not in text and '"fleet"' not in text
     assert '"supervisor"' not in text and '"integrity"' not in text
 
 

@@ -309,7 +309,7 @@ async def _bitflip_scenario(port: bool) -> dict:
     mon.escalate_cb = escalations.append
     rt.integrity = mon
     rt.fault = injector(spec(seed=7, bitflip_tick=5, bitflip_room=0,
-                             bitflip_leaf="bwe_state.ring_pos", bitflip_bit=30,
+                             bitflip_leaf="bwe_state.ring_pos", bitflip_bit=31,
                              bitflip_count=2))
     witness_ok, detection_tick, repair_tick, quarantined_seen = True, None, None, False
     egress = []
@@ -330,6 +330,7 @@ async def _bitflip_scenario(port: bool) -> dict:
         "repaired": mon.rows_repaired, "escalations": len(escalations),
         "quarantined_now": sorted(mon.quarantined), "witness_ok": witness_ok,
         "ring_max": int(np.asarray(rt.state.bwe_state.ring_pos).max()),
+        "ring_min": int(np.asarray(rt.state.bwe_state.ring_pos).min()),
         "rule_hits": dict(mon.rule_violations), "egress": egress,
     }
 
@@ -341,5 +342,6 @@ async def test_bitflip_drill_walks_the_reference_ladder():
     assert got["bitflips"] == 2 and got["detection_tick"] == 8
     assert got["quarantined_seen"] and got["repaired"] == 1 and got["repair_tick"] == 8
     assert got["escalations"] == 0 and got["quarantined_now"] == [] and got["witness_ok"]
-    assert got["ring_max"] < bwe.WINDOW and got["rule_hits"]["bounds"] >= 1
+    assert 0 <= got["ring_min"] and got["ring_max"] < bwe.WINDOW
+    assert got["rule_hits"]["bounds"] >= 1
     assert await _bitflip_scenario(port=True) == got          # seeded: deterministic

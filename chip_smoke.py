@@ -158,7 +158,7 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
                 cutover; A's rows released); B SIGKILLed and its 264 rooms
                 restored on A from its KV checkpoints (every room once,
                 each row equal to the checkpoint generation it decoded;
-                rooms that came back without state are counted); node C
+                a room that came back without its state fails); node C
                 joins, runs the reference's default governor on its loop
                 for a while (its ladder, and whether a PREPARE is NACKed),
                 and A is drained into it (every room moves, A refuses
@@ -169,8 +169,9 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
                 drain's time and rooms per second, and per node the
                 checkpoint rounds (ms, bytes, rounds past the interval),
                 lease refresh lateness, event-loop lag, self-fencing,
-                restarts by cause and the loop's wall ms per tick. B1 and
-                B2 launch on every node.
+                restarts by cause and the loop's wall ms per tick. Each
+                node's B1 and B2 launches equal its steps plus the steps
+                in flight (at most 2).
 
 Output: JSON lines per phase (the serving phase's under "serving", the
 UDP phase's under "udp", the failure phase's under "failure", the
@@ -220,7 +221,7 @@ from livekit_server_tpu_torch.runtime.ingest import PacketIn
 from livekit_server_tpu_torch.runtime.paged_runtime import PagedPlaneRuntime
 from livekit_server_tpu_torch.runtime.pager import RoomPager
 from livekit_server_tpu_torch.runtime.slots import CapacityError
-from livekit_server_tpu_torch.service.roommanager import RoomManager
+from livekit_server_tpu_torch.service.roommanager import CHECKPOINT_TTL_S, RoomManager
 from livekit_server_tpu_torch.service.store import LocalStore
 from livekit_server_tpu_torch.telemetry.service import TelemetryService
 from livekit_server_tpu_torch.utils.logger import configure
@@ -2585,7 +2586,7 @@ MIG_AUDIO_COLS = tuple(range(RUNTIME_SPEC.video_tracks,
                              RUNTIME_SPEC.video_tracks + RUNTIME_SPEC.audio_tracks))
 MIG_AFTER_TICKS = 10               # target ticks that carry the sampled audio on
 MIG_WAIT_S = 180.0                 # bound on every wait on a node
-MIG_DRAIN_CAP_S = 420.0
+MIG_DRAIN_CAP_S = 600.0            # drains of 768 rooms took 317-392 s on an H100 host
 
 
 def migration_config(bus_port: int, dims: plane.PlaneDims = MIG_DIMS) -> Config:
@@ -2675,7 +2676,7 @@ class MigNode:
             raise AssertionError("the default config built no migration or fleet plane")
         rm.migration.selector = create_selector(cfg.node_selector, cfg.region)
         self.rm, self.rt, self.cfg = rm, rm.runtime, cfg
-        self.t_start, self.ticks0 = time.perf_counter(), 0
+        self.t_start, self.ticks0, self.dropped0 = time.perf_counter(), 0, 0
         self._hook()
         await self.rt.step_once()                     # the warm step of LivekitServer.start
         self.rt.mark_warm()
@@ -2786,6 +2787,7 @@ class MigNode:
                     self.next_sn[(name, col)] = 1000 * (col + 1)
         cuda.reset_launches()
         self.t_start, self.ticks0 = time.perf_counter(), rt.stats["ticks"]
+        self.dropped0 = rt.stats["dropped_steps"]
         rm.start()
         self.feed = asyncio.ensure_future(self.feeder())
         self.probe = asyncio.ensure_future(self.lag_probe())
@@ -2948,6 +2950,9 @@ class MigNode:
             "ticks": ticks, "wall_s": wall,
             "wall_ms_per_tick": wall / ticks * 1e3 if ticks else None,
             "late_ticks": rt.stats["late_ticks"], "launches": dict(cuda.launches),
+            # Steps whose tick completed or a restart dropped; the loop's
+            # launches exceed them by the steps in flight (`check_launches`).
+            "steps": ticks + rt.stats["dropped_steps"] - self.dropped0,
             "checkpoint_rounds": {
                 **ck, "ms_per_round": (ck["gather_s"] + ck["encode_s"] + ck["publish_s"])
                 / ck["rounds"] * 1e3 if ck["rounds"] else None,
@@ -3061,6 +3066,17 @@ class NodeHandle:
         self.proc.join(30)
 
 
+def check_launches(rep: dict) -> None:
+    """A node's kernel launches since its join: B1 and B2 once a step, so
+    each equals the node's completed and dropped steps plus the steps in
+    flight, at most 2 (the pipelined loop's device step and the step
+    before it, whose fan-out has not completed); B3 never (dense plane)."""
+    lc, steps = rep["launches"], rep["steps"]
+    extra = {k: lc[k] - steps for k in ("decide_rooms", "allocate_budget_rooms")}
+    if any(not 0 <= v <= 2 for v in extra.values()) or lc["paged_kernel"] or not steps:
+        raise AssertionError(f"node {rep['node']}: launches {lc} over {steps} steps")
+
+
 def check_continuity(sampled: list[str], parts: list[dict], subs: int) -> dict:
     """Every Opus packet of the sampled rooms, pushed on either node,
     reaches every other participant exactly once, with consecutive munged
@@ -3105,16 +3121,17 @@ async def migration_phase(dev, dims: plane.PlaneDims = MIG_DIMS, rooms: dict = M
     """The multi-node plane on the card: a port BusServer on loopback and
     nodes A, B and C, each its own process on the one card (a KVRouter on
     a TCPBusClient, a RoomManager on the card under the reference's
-    default config: supervisor, integrity, governor, migration and fleet
-    on, kv.kind tcp), joined through start_session with MessageChannel
+    default config but the governor: supervisor, integrity, migration and
+    fleet on, kv.kind tcp), joined through start_session with MessageChannel
     sinks, a feeder pushing one seeded synth tick (and every subscriber's
     receiver estimate) per loop tick. A hosts rooms["A"] rooms, B
     rooms["B"]. Steps: `sample` rooms migrated A → B one at a time with
     migrate_room (each moved row on B bit-equal to A's freeze snapshot,
     every Opus packet of those rooms delivered once with consecutive
     munged SNs across the cutover, A's rows released); B SIGKILLed and
-    its rooms restored on A from its KV checkpoints (every room once,
-    each row equal to the checkpoint it decoded); C started and A
+    its rooms restored on A from its KV checkpoints (every room once and
+    with its state, each row equal to the checkpoint it decoded; the
+    launches of every node held to its steps); C started and A
     drained into it (every room moves, A refuses admissions meanwhile
     and ends with no room and no row). Returns the numbers."""
     from livekit_server_tpu_torch.routing.tcpbus import BusServer
@@ -3127,9 +3144,8 @@ async def migration_phase(dev, dims: plane.PlaneDims = MIG_DIMS, rooms: dict = M
     nodes = {n: NodeHandle(ctx, n, srv.port, str(dev), dims) for n in ("A", "B", "C")}
     reports: dict = {}
     try:
-        ids = {}
-        for n, h in nodes.items():
-            ids[n] = (await h.call("init"))["node_id"]
+        inits = await asyncio.gather(*(h.call("init") for h in nodes.values()))
+        ids = {n: r["node_id"] for n, r in zip(nodes, inits)}
         names_a = [f"a{r}" for r in range(rooms["A"])]
         names_b = [f"b{r}" for r in range(rooms["B"])]
         sampled = names_a[:sample]
@@ -3169,7 +3185,8 @@ async def migration_phase(dev, dims: plane.PlaneDims = MIG_DIMS, rooms: dict = M
             "bridged_packets": st["bridged_out"], "bridge_evicted": st["bridge_dropped"],
             "ack_timeouts": st["timeouts"],
             "retries": sum(r["prepares"] - 1 for r in mig["rooms"].values()),
-            "rollbacks": st["rollbacks"], "a_rows_used_after": mig["rows_used"],
+            "rollbacks": st["rollbacks"], "settle_timeouts": st["settle_timeouts"],
+            "a_rows_used_after": mig["rows_used"],
             "rows_bit_equal": len(sampled), **cont,
         }
         if mig["rows_used"] != rooms["A"] - sample:
@@ -3200,7 +3217,8 @@ async def migration_phase(dev, dims: plane.PlaneDims = MIG_DIMS, rooms: dict = M
         # Hosted without a restore: no checkpoint generation of the room
         # was left to decode (they live CHECKPOINT_TTL_S after their
         # write), so it came back empty — a stream reset, as the
-        # reference's restore does then; its state is lost.
+        # reference's restore does then; its state is lost, and the step
+        # fails.
         fresh = sorted(b_rooms & set(res["hosted"]) - set(got))
         lost = sorted(b_rooms - set(res["hosted"]))
         twice = sorted(n for n, r in got.items() if r["count"] != 1)
@@ -3217,15 +3235,20 @@ async def migration_phase(dev, dims: plane.PlaneDims = MIG_DIMS, rooms: dict = M
             "first_room_s": tried[0] if tried else None,
             "last_checkpoint_restore_s": times[-1] if times else None,
             "lease_ttl_plus_failover_interval_s": ttl.lease_ttl_s + ttl.failover_interval_s,
+            # B's newest checkpoints were written before the kill, so the
+            # last restore had at most this much of their TTL left.
+            "checkpoint_ttl_s": CHECKPOINT_TTL_S,
+            "ttl_left_at_last_restore_s": CHECKPOINT_TTL_S - tried[-1] if tried else None,
             "checkpoint_fallbacks": res["ckpt_fallbacks"],
             "generations_used": {"newest": len(got)} if res["ckpt_fallbacks"] == 0
             else {"fallbacks": res["ckpt_fallbacks"]},
             "orchestrator": res["failover"],
         }
         log(f"migration: failover {json.dumps(out['failover'])}")
-        if lost or twice or unequal:
-            await mig_fail(nodes, reports, f"failover: not restored {lost[:5]}, twice "
-                                          f"{twice[:5]}, unequal to the checkpoint {unequal[:5]}")
+        if lost or fresh or twice or unequal:
+            await mig_fail(nodes, reports, f"failover: not restored {lost[:5]}, without their "
+                                          f"state {fresh[:5]}, twice {twice[:5]}, unequal to "
+                                          f"the checkpoint {unequal[:5]}")
 
         # 3. Drain A into a fresh node C (its heartbeat in the registry
         # first). B's entry stays there, and may still be offered as a
@@ -3253,11 +3276,10 @@ async def migration_phase(dev, dims: plane.PlaneDims = MIG_DIMS, rooms: dict = M
         for n, rep in reports.items():
             if rep["restarts"] and rep["restarts"].get("integrity"):
                 raise AssertionError(f"node {n}: integrity restarts on a clean state")
+            check_launches(rep)
         launches = {k: sum(rep["launches"][k] for rep in reports.values())
                     for k in reports["A"]["launches"]}
         out["launches"] = launches
-        if not launches["decide_rooms"] or not launches["allocate_budget_rooms"]:
-            raise AssertionError(f"migration: the dense kernels did not launch: {launches}")
     finally:
         for n in ("A", "C"):
             h = nodes[n]
@@ -3297,22 +3319,35 @@ def main() -> int:
     card = card_line()
     log(f"build ok in {time.perf_counter() - t0:.1f} s; card: {card}")
 
+    ends: dict[str, float] = {"build": time.perf_counter() - t0}   # s into the run
+
+    def done(phase: str) -> None:
+        ends[phase] = time.perf_counter() - t0
+
     errs = parity_phase(dev)
     errs["paged_kernel"], mix_t = paged_parity_phase(dev)
+    done("parity")
     dense_launches = asyncio.run(runtime_phase(dev))
     paged_launches = asyncio.run(paged_runtime_phase(dev))
+    done("runtime")
     serving = asyncio.run(serving_phase(dev))
     print(json.dumps({"serving": serving}), flush=True)
+    done("serving")
     udp = asyncio.run(udp_phase(dev))
     print(json.dumps({"udp": udp}), flush=True)
+    done("udp")
     tick, dense_t, ns_state = timing_phase(dev, args.profile)
     paged_tick, paged_t, pool_state = paged_timing_phase(dev, args.profile)
+    done("timing")
     failure = asyncio.run(failure_phase(dev, ns_state, tick, pool_state, paged_tick))
     del ns_state, pool_state
     print(json.dumps({"failure": failure}), flush=True)
+    done("failure")
     torch.cuda.empty_cache()
     migration = asyncio.run(migration_phase(dev))
     print(json.dumps({"migration": migration}), flush=True)
+    done("migration")
+    print(json.dumps({"phase_end_s": ends}), flush=True)
 
     # decide_rooms and allocate_budget_rooms belong to the dense path,
     # paged_kernel to the paged path; each kernel's top-level numbers and

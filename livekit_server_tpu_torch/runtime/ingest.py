@@ -110,6 +110,30 @@ class PacketIn:
     ts_aligned: bool = False  # ts already on the track's common timeline
 
 
+# PacketIn's header fields besides room, track and payload, by type.
+_INT_FIELDS = ("sn", "ts", "size", "layer", "temporal", "pid", "tl0", "keyidx",
+               "frame_ms", "audio_level", "arrival_rtp")
+_BOOL_FIELDS = ("marker", "keyframe", "layer_sync", "begin_pic", "ts_aligned")
+
+
+def packet_at(cols: dict, i, room: int, track: int, payload: bytes) -> PacketIn:
+    """The packet at index `i` of per-field arrays `cols`, keyed by
+    PacketIn's header field names."""
+    return PacketIn(room=room, track=track, payload=payload,
+                    **{f: int(cols[f][i]) for f in _INT_FIELDS},
+                    **{f: bool(cols[f][i]) for f in _BOOL_FIELDS})
+
+
+def row_fields(arrays: dict, row: int) -> dict:
+    """PacketIn's header fields of one row of [R, T, K] staging arrays
+    named as IngestBuffer's (the frame-end bit is the packet's marker, a
+    ts_jump of -1 its aligned timestamp), for `packet_at`."""
+    cols = {f: arrays[f][row] for f in _INT_FIELDS + ("keyframe", "layer_sync", "begin_pic")}
+    cols["marker"] = arrays["end_frame"][row]
+    cols["ts_aligned"] = arrays["ts_jump"][row] == -1
+    return cols
+
+
 class _StagingSet:
     """One of the two ping-ponged per-tick staging halves; IngestBuffer
     binds the active set's arrays as its own attributes."""
@@ -362,32 +386,15 @@ class IngestBuffer:
         counts = self._count[room]
         if not counts.any():
             return out
+        cols = row_fields(vars(self), room)
         for t in np.nonzero(counts)[0]:
             for k in range(int(counts[t])):
                 if not self.valid[room, t, k]:
                     continue
                 ps = int(self.pay_off[room, t, k])
                 pl = int(self.pay_len[room, t, k])
-                out.append(PacketIn(
-                    room=int(room), track=int(t),
-                    sn=int(self.sn[room, t, k]),
-                    ts=int(self.ts[room, t, k]),
-                    size=int(self.size[room, t, k]),
-                    payload=bytes(self._slab[ps:ps + pl]) if ps >= 0 else b"",
-                    marker=bool(self.end_frame[room, t, k]),
-                    layer=int(self.layer[room, t, k]),
-                    temporal=int(self.temporal[room, t, k]),
-                    keyframe=bool(self.keyframe[room, t, k]),
-                    layer_sync=bool(self.layer_sync[room, t, k]),
-                    begin_pic=bool(self.begin_pic[room, t, k]),
-                    pid=int(self.pid[room, t, k]),
-                    tl0=int(self.tl0[room, t, k]),
-                    keyidx=int(self.keyidx[room, t, k]),
-                    frame_ms=int(self.frame_ms[room, t, k]),
-                    audio_level=int(self.audio_level[room, t, k]),
-                    arrival_rtp=int(self.arrival_rtp[room, t, k]),
-                    ts_aligned=bool(self.ts_jump[room, t, k] == -1),
-                ))
+                out.append(packet_at(cols, (t, k), int(room), int(t),
+                                     bytes(self._slab[ps:ps + pl]) if ps >= 0 else b""))
                 self.rx_pkts[room, t] -= 1
                 self.rx_bytes[room, t] -= int(self.size[room, t, k])
         self._count[room] = 0
@@ -409,6 +416,16 @@ class IngestBuffer:
         n = len(room)
         if n == 0:
             return 0
+        cols = dict(sn=sn, ts=ts, size=size, marker=marker, layer=layer, temporal=temporal,
+                    keyframe=keyframe, layer_sync=layer_sync, begin_pic=begin_pic, pid=pid,
+                    tl0=tl0, keyidx=keyidx, frame_ms=frame_ms, audio_level=audio_level,
+                    arrival_rtp=arrival_rtp, ts_aligned=ts_aligned)
+
+        def packet(i: int) -> PacketIn:
+            ps, pl = int(pay_start[i]), int(pay_length[i])
+            return packet_at(cols, i, int(room[i]), int(track[i]),
+                             bytes(blob[ps:ps + pl]) if ps >= 0 else b"")
+
         if self.fault is not None:
             # Chaos path: route the batch through the per-packet seam so
             # the seeded rng sees every packet in arrival order (the
@@ -417,18 +434,7 @@ class IngestBuffer:
             # bytes are not re-staged on this path.
             staged = 0
             for i in range(n):
-                ps, pl = int(pay_start[i]), int(pay_length[i])
-                staged += self.push(PacketIn(
-                    room=int(room[i]), track=int(track[i]), sn=int(sn[i]), ts=int(ts[i]),
-                    size=int(size[i]),
-                    payload=bytes(blob[ps:ps + pl]) if ps >= 0 else b"",
-                    marker=bool(marker[i]), layer=int(layer[i]),
-                    temporal=int(temporal[i]), keyframe=bool(keyframe[i]),
-                    layer_sync=bool(layer_sync[i]), begin_pic=bool(begin_pic[i]),
-                    pid=int(pid[i]), tl0=int(tl0[i]), keyidx=int(keyidx[i]),
-                    frame_ms=int(frame_ms[i]), audio_level=int(audio_level[i]),
-                    arrival_rtp=int(arrival_rtp[i]), ts_aligned=bool(ts_aligned[i]),
-                ), t_rx)
+                staged += self.push(packet(i), t_rx)
             return staged
         if dd_start is None:
             dd_start = np.full(n, -1, np.int64)
@@ -445,20 +451,8 @@ class IngestBuffer:
                     # capture the scalar path does) before filtering.
                     for i in np.nonzero(~keep0)[0]:
                         sink = self.freeze_sinks.get(int(room[i]))
-                        if sink is None:
-                            continue
-                        ps, pl = int(pay_start[i]), int(pay_length[i])
-                        sink(PacketIn(
-                            room=int(room[i]), track=int(track[i]),
-                            sn=int(sn[i]), ts=int(ts[i]), size=int(size[i]),
-                            payload=bytes(blob[ps:ps + pl]) if ps >= 0 else b"",
-                            marker=bool(marker[i]), layer=int(layer[i]),
-                            temporal=int(temporal[i]), keyframe=bool(keyframe[i]),
-                            layer_sync=bool(layer_sync[i]), begin_pic=bool(begin_pic[i]),
-                            pid=int(pid[i]), tl0=int(tl0[i]), keyidx=int(keyidx[i]),
-                            frame_ms=int(frame_ms[i]), audio_level=int(audio_level[i]),
-                            arrival_rtp=int(arrival_rtp[i]), ts_aligned=bool(ts_aligned[i]),
-                        ))
+                        if sink is not None:
+                            sink(packet(i))
                 (room, track, layer, sn, ts, ts_aligned, temporal, keyframe,
                  layer_sync, begin_pic, marker, pid, tl0, keyidx, size,
                  frame_ms, audio_level, arrival_rtp, pay_start, pay_length,

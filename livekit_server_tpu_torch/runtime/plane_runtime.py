@@ -68,7 +68,12 @@ from livekit_server_tpu_torch.models import plane
 from livekit_server_tpu_torch.ops import audio as audio_ops, bwe as bwe_ops
 from livekit_server_tpu_torch.runtime import trace as trace_mod
 from livekit_server_tpu_torch.runtime.egress_plane import EgressPlane
-from livekit_server_tpu_torch.runtime.ingest import IngestBuffer, PacketIn
+from livekit_server_tpu_torch.runtime.ingest import (
+    IngestBuffer,
+    PacketIn,
+    packet_at,
+    row_fields,
+)
 from livekit_server_tpu_torch.runtime.munge import HostMunger
 from livekit_server_tpu_torch.runtime.probe import PAD_BYTES, ProbeController
 from livekit_server_tpu_torch.runtime.slots import SlotAllocator
@@ -764,27 +769,20 @@ class PlaneRuntime:
             return []
         R, T, K, _ = self.dims
         pkt = st.wire[:len(plane.PKT_FIELDS) * R * T * K].reshape(len(plane.PKT_FIELDS), R, T, K)
-        fields = dict(zip(plane.PKT_FIELDS, pkt[:, row]))
-        tracks, slots = np.nonzero(fields["valid"])
+        valid = pkt[plane.PKT_FIELDS.index("valid"), row]
+        tracks, slots = np.nonzero(valid)
         if not len(tracks):
             return []
         inp, ing = st.inp, self.ingest
+        cols = row_fields({**dict(zip(plane.PKT_FIELDS, pkt)),
+                           **{f: getattr(inp, f) for f in plane.HOST_ONLY_PKT_FIELDS}}, row)
         out = []
         for t, k in zip(tracks.tolist(), slots.tolist()):
-            f = {name: int(v[t, k]) for name, v in fields.items()}
             payload, _ = st.payloads.get(row, t, k)
-            out.append(PacketIn(
-                room=row, track=t, sn=f["sn"], ts=f["ts"], size=f["size"], payload=payload,
-                marker=bool(f["end_frame"]), layer=f["layer"], temporal=f["temporal"],
-                keyframe=bool(f["keyframe"]), layer_sync=bool(f["layer_sync"]),
-                begin_pic=bool(f["begin_pic"]), pid=int(inp.pid[row, t, k]),
-                tl0=int(inp.tl0[row, t, k]), keyidx=int(inp.keyidx[row, t, k]),
-                frame_ms=f["frame_ms"], audio_level=f["audio_level"],
-                arrival_rtp=f["arrival_rtp"], ts_aligned=bool(inp.ts_jump[row, t, k] == -1),
-            ))
+            out.append(packet_at(cols, (t, k), row, t, payload))
             ing.rx_pkts[row, t] -= 1
-            ing.rx_bytes[row, t] -= f["size"]
-        fields["valid"][:] = 0
+            ing.rx_bytes[row, t] -= int(cols["size"][t, k])
+        valid[:] = 0
         inp.valid[row] = False        # the drain's own copy
         return out
 
@@ -1194,19 +1192,12 @@ class PlaneRuntime:
         mutations newer than the device copy); everything else is sliced
         on the device so only one row crosses to the host. The host
         munger's row rides along after the device leaves."""
-        with self._on_stream():
-            tree = plane.tree_map(lambda x: x[row].to("cpu", copy=True).numpy(), self.state)
-        tree = tree._replace(
-            meta=plane.TrackMeta(*[np.array(m[row]) for m in self.meta]),
-            ctrl=plane.SubControl(*[np.array(c[row]) for c in self.ctrl]),
-        )
-        return {"arrays": plane.tree_leaves(tree) + self.munger.snapshot_room(row)}
+        return self.snapshot_rooms([row])[0]
 
     def snapshot_rooms(self, rows: list[int]) -> list[dict[str, Any]]:
-        """`snapshot_room` for many rows at one point in time, with one
+        """`snapshot_room` of many rows at one point in time, with one
         device → host copy per state leaf (the rows gathered on the
-        device) instead of one per leaf and row — the room-checkpoint
-        round's read. Each entry equals `snapshot_room(row)`."""
+        device) — the room-checkpoint round's read."""
         if not rows:
             return []
         idx = torch.as_tensor(rows, dtype=torch.long)

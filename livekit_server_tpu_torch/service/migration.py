@@ -203,6 +203,9 @@ class MigrationOrchestrator:
             # by a failover restorer (routing/fleet.py): the local
             # replica is closed by the fence, not rolled back.
             "fenced_handoffs": 0,
+            # Handoffs that snapshotted after settle_staged timed out (a
+            # tick staged before the freeze had not completed).
+            "settle_timeouts": 0,
         }
 
     # -- lifecycle --------------------------------------------------------
@@ -373,7 +376,9 @@ class MigrationOrchestrator:
             # land in the snapshot (the port's settle; the reference
             # snapshots at once, and loses such packets of the row when
             # the commit closes it first).
-            await rt.settle_staged(staged=staged is None)
+            if not await rt.settle_staged(staged=staged is None):
+                self.stats["settle_timeouts"] += 1
+                self.log.warn("handoff snapshot after a settle timeout", room=name)
             async with rt.state_lock:      # vs. the device step
                 snap = rt.snapshot_room(row)
             payload = rt.encode_room_snapshot(snap)

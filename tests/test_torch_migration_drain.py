@@ -141,10 +141,13 @@ async def test_adopted_room_solicits_keyframes():
 async def test_checkpoint_round_gathers_rows_into_per_room_frames():
     """checkpoint_rooms reads every live row in one gathered device read
     (snapshot_rooms); each room's snapshot equals, array for array and
-    bit for bit, what snapshot_room(row) gives at the same point (so its
-    frame is the one encode_room_snapshot(snapshot_room(row)) gives, but
-    for the zip entries' clock stamps), and the round rotates the
-    generation ring (base key newest, :g1 the previous round)."""
+    bit for bit, the row read out of a full copy of the plane state at
+    the same point, with the control leaves from the host mirrors and the
+    munger lanes after them (the reference's snapshot_room), and the
+    round rotates the generation ring (base key newest, :g1 the previous
+    round)."""
+    from livekit_server_tpu_torch.models import plane
+
     bus = MemoryBus()
     a = None
     try:
@@ -161,10 +164,16 @@ async def test_checkpoint_round_gathers_rows_into_per_room_frames():
         await asyncio.sleep(0.1)                 # a few ticks of state
         async with rt.state_lock:
             batch = rt.snapshot_rooms(rows)
-            single = [rt.snapshot_room(r) for r in rows]
+            full = plane.state_to_numpy(rt.state)
+            single = []
+            for r in rows:
+                tree = plane.tree_unflatten(rt.state, [a[r] for a in full])._replace(
+                    meta=plane.TrackMeta(*[np.array(m[r]) for m in rt.meta]),
+                    ctrl=plane.SubControl(*[np.array(c[r]) for c in rt.ctrl]))
+                single.append(plane.tree_leaves(tree) + rt.munger.snapshot_room(r))
         for got, want in zip(batch, single):
-            assert len(got["arrays"]) == len(want["arrays"])
-            for x, y in zip(got["arrays"], want["arrays"]):
+            assert len(got["arrays"]) == len(want)
+            for x, y in zip(got["arrays"], want):
                 x, y = np.asarray(x), np.asarray(y)
                 assert x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
         await rm.checkpoint_rooms()
@@ -176,7 +185,7 @@ async def test_checkpoint_round_gathers_rows_into_per_room_frames():
         for n, payload in first.items():
             assert await bus.get(f"room_checkpoint:{n}:g1") == payload
             snap = rt.decode_room_snapshot(await bus.get(f"room_checkpoint:{n}"))
-            assert len(snap["arrays"]) == len(single[0]["arrays"])
+            assert len(snap["arrays"]) == len(single[0])
         st = rm.ckpt_stats
         assert st["rounds"] == 2 and st["rooms"] == 6 and st["bytes"] > 0
     finally:

@@ -93,6 +93,31 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
                 (the transport's packet-in → wire-out probe), datagrams sent
                 by the publishers, received by the server, sent (`tx`,
                 `tx_drop`) and received at the sinks, and the egress shards;
+  5c. express — the express lane (runtime/express.py) and the media relay
+     and relay  (runtime/relay.py), both off by default: two RoomManagers on
+                the card at cfg4's PlaneDims(1024, 10, 8, 10) with their
+                UDP transports on loopback, one with the lane on
+                (express_max_subs EXPRESS_MAX_SUBS, express_max_rooms
+                EXPRESS_MAX_ROOMS) and its media relay started, one with
+                the lane off; EXPRESS_ROOMS seeded rooms of 2–4
+                participants, p0 publishing VP8 simulcast (VP8_LAYERS
+                SSRCs) and p1 Opus over `transport: udp`, everyone
+                subscribed over UDP; on the lane's node the publishers of
+                RELAY_ROOMS reach it only through the relay, with tokens
+                their `request_relay` minted. EXPRESS_LOCK_TICKS lockstep
+                ticks (step_once on both, one room pinned to the batched
+                tier for a few ticks): every subscriber's opened datagrams
+                equal on both nodes byte for byte but the SSRC, B1 and B2
+                launched once per tick on each node, at least one
+                promotion; then the lane's node's real-time loop for
+                EXPRESS_SECONDS, launches once per tick. Reports the
+                promotions, demotions and express datagrams, the selector
+                mirror read's ms, forward latency p50/p99 of the express
+                tier beside the batched tier's from the same loop, and the
+                relay's allocations, forwarded datagrams and drops. Then
+                the golden scans (ops/rtpmunger.py, ops/vp8.py, ops/svc.py
+                dd_select_tick) on CUDA tensors against their CPU runs and
+                the host munger on the same seeded packets, all equal;
   6. timing   — the dense runtime's device step (plane.device_tick: upload,
                 tick, fetch) at the north-star PlaneDims(10240, 8, 16, 50),
                 median and p90 of TIMED_TICKS ticks after warm-up; the paged
@@ -150,7 +175,7 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
                 tcp; the governor off, see `migration_config`), joined
                 through start_session, fed one seeded synth tick and
                 every subscriber's receiver estimate per loop tick. Node A
-                hosts 512 rooms, B 256. Live migration of 8 rooms A → B
+                hosts 256 rooms, B 256. Live migration of 8 rooms A → B
                 one at a time (each moved row on B bit-equal to A's freeze
                 snapshot, every leaf and the munger lanes; every Opus
                 packet of those rooms delivered once to every other
@@ -174,7 +199,8 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
                 in flight (at most 2).
 
 Output: JSON lines per phase (the serving phase's under "serving", the
-UDP phase's under "udp", the failure phase's under "failure", the
+UDP phase's under "udp", phase 5c's under "express" and "golden_scans",
+the failure phase's under "failure", the
 multi-node plane's under "migration"), a
 `{"kernels": [...]}` JSON line (each kernel's numbers on its own path,
 `launches_by_path` its launches on every path, the serving loop's
@@ -211,15 +237,19 @@ import torch
 from livekit_server_tpu_torch import native
 from livekit_server_tpu_torch.config.config import Config, load_config, port_overlay
 from livekit_server_tpu_torch.models import paged, plane, synth
-from livekit_server_tpu_torch.ops import allocation, bwe, cuda, pacer, paged_kernel, selector
+from livekit_server_tpu_torch.ops import (
+    allocation, bwe, cuda, pacer, paged_kernel, rtpmunger, selector, svc, vp8,
+)
 from livekit_server_tpu_torch.ops.mix import MIX_TOP_K
-from livekit_server_tpu_torch.protocol import packer
+from livekit_server_tpu_torch.protocol import decode_signal_response, packer
 from livekit_server_tpu_torch.routing import LocalNode, LocalRouter, MessageChannel
 from livekit_server_tpu_torch.runtime import PlaneRuntime, dd, integrity
 from livekit_server_tpu_torch.runtime import crypto as crypto_mod, udp as udp_mod
 from livekit_server_tpu_torch.runtime.ingest import PacketIn
+from livekit_server_tpu_torch.runtime.munge import HostMunger
 from livekit_server_tpu_torch.runtime.paged_runtime import PagedPlaneRuntime
 from livekit_server_tpu_torch.runtime.pager import RoomPager
+from livekit_server_tpu_torch.runtime.relay import BIND_ACK, BIND_REQ, RELAY_MAGIC
 from livekit_server_tpu_torch.runtime.slots import CapacityError
 from livekit_server_tpu_torch.service.roommanager import CHECKPOINT_TTL_S, RoomManager
 from livekit_server_tpu_torch.service.store import LocalStore
@@ -1489,6 +1519,7 @@ class UdpRig:
         self.ssrc = np.zeros((R, T), np.uint32)
         self.video = np.zeros((R, T), bool)
         self.pub_client: dict[tuple[int, int], object] = {}   # (row, col) → client
+        self.counters: dict[int, set] = {}    # key_id → egress nonce counters seen
         self.sent = 0
 
     def sink_of(self, r: int):
@@ -1582,18 +1613,26 @@ class UdpRig:
         await wait_until(lambda: self.udp.stats["rx"] >= rx0 + n, "the publishers")
         self.sent += n
 
-    def drain_checked(self) -> dict:
-        """Open every datagram waiting on the checked rooms' sockets →
-        {(row, sub, track): [media datagram with its SSRC zeroed]}."""
+    def drain_checked(self, socks=None) -> dict:
+        """Open every datagram waiting on `socks` (the checked rooms'
+        sockets by default) → {(row, sub, track): [media datagram with its
+        SSRC zeroed]}. Every sealing path of the node (batched, express,
+        retransmission, RTCP) draws from one counter per session, so no
+        nonce counter may repeat on a session."""
         got: dict = {}
-        for sock in self.check_socks:
+        for sock in self.check_socks if socks is None else socks:
             while True:
                 try:
                     frame = sock.recv(4096)
                 except BlockingIOError:
                     break
                 if frame[0] == crypto_mod.MAGIC:
-                    sess = self.rm.crypto.get(crypto_mod.parse_key_id(frame))
+                    key_id = crypto_mod.parse_key_id(frame)
+                    seen = self.counters.setdefault(key_id, set())
+                    if frame[6:14] in seen:
+                        raise AssertionError(f"nonce counter reused on session {key_id}")
+                    seen.add(frame[6:14])
+                    sess = self.rm.crypto.get(key_id)
                     c = self.client(sess)
                     frame = c.open(frame) if c is not None else None
                     if frame is None:
@@ -1980,6 +2019,439 @@ async def udp_phase(dev, dense_dims: plane.PlaneDims = RUNTIME_DIMS,
             "lockstep": lock,
             "dense": {"dims": list(dense_dims), "join_s": join_s, **dense},
             "paged": {"dims": list(paged_dims), "join_s": pjoin, **paged_report}}
+
+
+# ---------------------------------------------------------------------------
+# The express lane and the media relay (phase 5c)
+# ---------------------------------------------------------------------------
+
+EXPRESS_DIMS = RUNTIME_DIMS        # cfg4's plane
+EXPRESS_ROOMS = 64                 # rooms of 2–4 participants
+EXPRESS_MAX_SUBS = 4
+EXPRESS_MAX_ROOMS = 16             # the reference's default cap
+EXPRESS_LOCK_TICKS = 30
+EXPRESS_PIN = (12, 18, 3)          # room 3 pinned to the batched tier for ticks 12..17
+EXPRESS_SECONDS = 5.0
+EXPRESS_KEYFRAME_EVERY = 10
+VP8_LAYERS = 3
+# Rooms whose publishers reach the lane's node through the media relay:
+# four express rooms and four batched ones (the lane takes rooms 0..15).
+RELAY_ROOMS = (0, 1, 2, 3, 16, 17, 18, 19)
+
+
+def vp8_descriptor(pid: int, tl0: int, tid: int, keyidx: int, keyframe: bool) -> bytes:
+    """A VP8 payload descriptor (X, I with a 15-bit picture id, L, T, K;
+    start of partition, layer sync) and the first VP8 header byte."""
+    return bytes([0x90, 0xF0, 0x80 | (pid >> 8), pid & 0xFF, tl0 & 0xFF,
+                  (tid << 6) | 0x20 | (keyidx & 0x1F), 0x00 if keyframe else 0x01])
+
+
+def express_datagrams(rooms: int, tick: int) -> list[tuple[int, int, int, bytes]]:
+    """One tick of seeded cleartext RTP for every room: a VP8 simulcast
+    frame on each of VP8_LAYERS layers (track 0; a keyframe on every
+    layer each EXPRESS_KEYFRAME_EVERY ticks, temporal layers 0/1) and an
+    Opus packet with an audio level (track 1). Sequence numbers, picture
+    ids and TL0PICIDX start near their wraps. → [(room, track, layer,
+    datagram)]; the SSRC field is filled by the rig."""
+    base = np.random.default_rng(SEED).integers(0, 1 << 16, (rooms, VP8_LAYERS + 1))
+    rng = np.random.default_rng((SEED, tick))
+    out = []
+    kf = tick % EXPRESS_KEYFRAME_EVERY == 0
+    for r in range(rooms):
+        for layer in range(VP8_LAYERS):
+            sn = (int(base[r, layer]) + tick) & 0xFFFF
+            desc = vp8_descriptor((32700 + 7 * layer + tick) & 0x7FFF, 250 + tick // 2,
+                                  tick % 2, tick // EXPRESS_KEYFRAME_EVERY, kf)
+            body = desc + rng.integers(0, 256, 80 + 120 * layer, dtype=np.uint8).tobytes()
+            hdr = bytes([0x80, 0x80 | 96]) + sn.to_bytes(2, "big") + \
+                ((3000 * tick + 90 * r) & 0xFFFFFFFF).to_bytes(4, "big") + bytes(4)
+            out.append((r, 0, layer, hdr + body))
+        sn = (int(base[r, VP8_LAYERS]) + tick) & 0xFFFF
+        ext = udp_mod.build_ext_section([(udp_mod.AUDIO_LEVEL_EXT_ID, bytes([30]))])
+        hdr = bytes([0x90, udp_mod.OPUS_PT]) + sn.to_bytes(2, "big") + \
+            (960 * tick).to_bytes(4, "big") + bytes(4)
+        out.append((r, 1, 0, hdr + ext + rng.integers(0, 256, 60, dtype=np.uint8).tobytes()))
+    return out
+
+
+def express_config(express: bool) -> Config:
+    """udp_config at EXPRESS_DIMS, the express lane on or off."""
+    cfg = udp_config(dense_dims=EXPRESS_DIMS)
+    cfg.plane.express_max_subs = EXPRESS_MAX_SUBS if express else 0
+    cfg.plane.express_max_rooms = EXPRESS_MAX_ROOMS
+    return cfg
+
+
+class ExpressRig(UdpRig):
+    """A UdpRig (its node, publisher socket and UDP_VOID_SINKS sink
+    sockets, every subscriber on one of them) with phase 5c's rooms: p0
+    publishes VP8 simulcast (`transport: udp`, VP8_LAYERS layers), p1
+    Opus; everyone subscribes over UDP. With `relay_rooms`, the node
+    runs its media relay (RoomManager.start_relay) and those rooms'
+    publishers reach it only through the relay: each asks for an
+    allocation with `request_relay` over its signal channel and BINDs a
+    socket of its own with the token it gets back."""
+
+    def __init__(self, rm: RoomManager, sizes):
+        super().__init__(rm, sizes, [2] * len(sizes), 0)
+        self.rt = rm.runtime
+        self.resps: dict = {}       # (room, identity) → response channel
+        self.route: dict = {}       # (room, track) → (socket, address)
+        self.layer_ssrc: dict = {}  # (room, track, layer) → ssrc
+
+    async def join(self, relay_rooms=()) -> float:
+        rm = self.rm
+        t0 = time.perf_counter()
+        for r, size in enumerate(self.sizes):
+            for t in range(size):
+                req, resp = MessageChannel(), MessageChannel()
+                init = {"identity": f"p{t}", "name": f"p{t}", "auto_subscribe": True,
+                        "grants": {"video": {"roomJoin": True, "room": f"room{r}"}}}
+                task = asyncio.ensure_future(rm.start_session(f"room{r}", init, req, resp))
+                self.sessions[(r, f"p{t}")] = (req, task)
+                self.resps[(r, f"p{t}")] = resp
+        want = sum(self.sizes)
+        await wait_until(lambda: sum(len(x.participants) for x in rm.rooms.values()) >= want
+                         or any(task.done() for _, task in self.sessions.values()), "the joins")
+        if any(task.done() for _, task in self.sessions.values()):
+            raise AssertionError("a session ended during the joins")
+        join_s = time.perf_counter() - t0
+        rooms = [rm.rooms[f"room{r}"] for r in range(len(self.sizes))]
+        tracks = ({"cid": "v", "name": "v", "type": 1, "mime_type": "video/vp8",
+                   "transport": "udp", "layers": [{"quality": q} for q in range(VP8_LAYERS)]},
+                  {"cid": "a", "name": "a", "type": 0, "mime_type": "audio/opus",
+                   "transport": "udp"})
+        for t, msg in enumerate(tracks):    # video in every room, then audio
+            for r in range(len(rooms)):
+                self.sessions[(r, f"p{t}")][0].write_message(json.dumps({"add_track": msg}))
+            await wait_until(lambda: all(len(room.tracks) > t for room in rooms),
+                             f"track {t} in every room")
+        for ssrc, b in self.udp.bindings.items():
+            self.layer_ssrc[(b.room, b.track, b.layer)] = ssrc
+            self.pub_client[(b.room, b.track)] = self.client(b.session)
+            self.route[(b.room, b.track)] = (self.pub_sock, ("127.0.0.1", self.port))
+        if len(self.layer_ssrc) != len(rooms) * (VP8_LAYERS + 1):
+            raise AssertionError(f"{len(self.layer_ssrc)} SSRCs bound")
+        for r, room in enumerate(rooms):
+            for t in range(2):
+                col = room.participants[f"p{t}"].published
+                if [tr.track_col for tr in col.values()] != [t]:
+                    raise AssertionError(f"room{r}: p{t} published {list(col)}")
+        for req, _task in self.sessions.values():
+            req.write_message(json.dumps({"subscription": {"udp": True}}))
+        await wait_until(lambda: len(self.udp._punch_by_sub) >= want, "the punch ids")
+        for r, room in enumerate(rooms):
+            for p in room.participants.values():
+                pid = self.udp._punch_by_sub[(r, p.sub_col)]
+                c = self.sub_client[(r, p.sub_col)] = self.client(p.crypto_session)
+                d = udp_mod.PUNCH_REQ + pid.to_bytes(4, "big")
+                self.sink_of(r).sendto(c.seal(d) if c is not None else d,
+                                       ("127.0.0.1", self.port))
+        await wait_until(lambda: len(self.udp.sub_addrs) >= want, "the punches")
+        for r in relay_rooms:
+            for t in range(2):
+                await self.via_relay(r, t)
+        self.drain()
+        return join_s
+
+    async def via_relay(self, r: int, t: int) -> None:
+        """Route publisher p{t} of room r through the node's media relay:
+        `request_relay` over its signal channel, then a BIND from a socket
+        of its own with the token it got back."""
+        req, _task = self.sessions[(r, f"p{t}")]
+        resp = self.resps[(r, f"p{t}")]
+        while not resp._q.empty():          # what the joins left
+            resp._q.get_nowait()
+        req.write_message(json.dumps({"request_relay": {}}))
+        info: list = []
+
+        def answered() -> bool:
+            while not resp._q.empty():
+                msg = decode_signal_response(resp._q.get_nowait())
+                if msg.kind == "request_response" and "relay_info" in msg.data:
+                    info.append(msg.data["relay_info"])
+            return bool(info)
+
+        await wait_until(answered, "relay_info")
+        if info[0] is None:
+            raise AssertionError("request_relay answered without a relay")
+        sock = udp_socket()
+        addr = (info[0]["host"], info[0]["port"])
+        sock.sendto(RELAY_MAGIC + bytes([BIND_REQ]) + bytes.fromhex(info[0]["token"]), addr)
+        acks: list = []
+
+        def acked() -> bool:
+            try:
+                acks.append(sock.recv(64))
+            except BlockingIOError:
+                pass
+            return bool(acks)
+
+        await wait_until(acked, "the relay's BIND ack")
+        if acks[0][:5] != RELAY_MAGIC + bytes([BIND_ACK]):
+            raise AssertionError(f"relay BIND refused: {acks[0]!r}")
+        self.route[(r, t)] = (sock, addr)
+
+    def sealed(self, dgrams):
+        """(socket, address, datagram) for each (room, track, layer,
+        cleartext): the node's SSRC for the layer written in, sealed under
+        the publisher's client, on the publisher's route (direct or
+        through the relay)."""
+        for r, t, layer, d in dgrams:
+            d = d[:8] + self.layer_ssrc[(r, t, layer)].to_bytes(4, "big") + d[12:]
+            c = self.pub_client[(r, t)]
+            sock, addr = self.route[(r, t)]
+            yield sock, addr, c.seal(d) if c is not None else d
+
+    async def send(self, dgrams) -> None:
+        """Send each datagram on its route and wait until the node's
+        socket has taken them all."""
+        rx0 = self.udp.stats["rx"]
+        n = 0
+        for sock, addr, d in self.sealed(dgrams):
+            sock.sendto(d, addr)
+            n += 1
+            if n % UDP_SEND_CHUNK == 0:
+                await wait_until(lambda: self.udp.stats["rx"] >= rx0 + n, "the publishers")
+        await wait_until(lambda: self.udp.stats["rx"] >= rx0 + n, "the publishers")
+
+    def drain(self) -> dict:
+        return self.drain_checked(self.void_socks)
+
+    async def close(self) -> None:
+        await super().close()
+        for sock, _ in self.route.values():
+            if sock is not self.pub_sock:
+                sock.close()
+
+
+async def express_lockstep(x: ExpressRig, b: ExpressRig, ticks: int) -> dict:
+    """Step the lane's node `x` and the batched node `b` through step_once
+    on the same seeded datagrams; every subscriber's opened datagrams must
+    be equal on both, byte for byte but the SSRC (random per node; keyed
+    through the (row, sub, track) it names). Room EXPRESS_PIN[2] is pinned
+    to the batched tier on x for ticks EXPRESS_PIN[0]..[1] − 1."""
+    lo, hi, pin_room = EXPRESS_PIN
+    compared = 0
+    lane = x.rt.express
+    for i in range(ticks):
+        x.rt.set_express_pin(pin_room, False if lo <= i < hi else None)
+        dgrams = express_datagrams(len(x.sizes), i)
+        await x.send(dgrams)
+        await b.send(dgrams)
+        await x.rt.step_once()
+        await b.rt.step_once()
+        gx, gb = x.drain(), b.drain()
+        if gx.keys() != gb.keys():
+            raise AssertionError(f"express lockstep tick {i}: streams differ "
+                                 f"({len(gx)} with the lane, {len(gb)} batched)")
+        for key in gx:
+            if gx[key] != gb[key]:
+                raise AssertionError(f"express lockstep tick {i}: datagrams to {key} differ "
+                                     f"(express room: {bool(lane.active[key[0]])})")
+            compared += len(gx[key])
+        if lo <= i < hi and lane.active[pin_room]:
+            raise AssertionError(f"room {pin_room} still express while pinned to batched")
+    if not compared:
+        raise AssertionError("express lockstep: no egress datagram")
+    return {"ticks": ticks, "datagrams_compared": compared, "exact": True,
+            "express_rooms": int(lane.active.sum()),
+            "nonces_checked": sum(len(v) for v in x.counters.values())}
+
+
+async def express_loop(x: ExpressRig, seconds: float, first_tick: int) -> dict:
+    """The real-time loop on the lane's node: RoomManager.start →
+    PlaneRuntime._run, a feeder task sending the next tick's datagrams on
+    each loop tick; a thread counts what reaches the sinks. Checks the
+    launches; reports both tiers' forward latency from this run."""
+    rm, udp, rt = x.rm, x.udp, x.rt
+    ticked = asyncio.Event()
+    rt.on_tick(lambda _res: ticked.set())
+    received = [0]
+    stop = threading.Event()
+    sink = threading.Thread(target=sink_counter, args=(x.void_socks, stop, received),
+                            daemon=True)
+
+    async def feeder():
+        i = first_tick
+        while True:
+            await ticked.wait()
+            ticked.clear()
+            for sock, addr, d in x.sealed(express_datagrams(len(x.sizes), i)):
+                sock.sendto(d, addr)
+            i += 1
+
+    x.drain()
+    base = dict(rt.stats)
+    lane0 = dict(rt.express.stats)
+    udp.fwd_latency.reset()
+    udp.fwd_latency_express.reset()
+    sink.start()
+    cuda.reset_launches()
+    task = asyncio.ensure_future(feeder())
+    t0 = time.perf_counter()
+    try:
+        rm.start()
+        while time.perf_counter() - t0 < seconds:
+            await asyncio.sleep(0.05)
+            if task.done():
+                task.result()
+        await rt.stop()
+        wall_s = time.perf_counter() - t0
+        launches = dict(cuda.launches)
+    finally:
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+        await asyncio.sleep(0.2)
+        stop.set()
+        sink.join(10)
+    ticks = rt.stats["ticks"] - base["ticks"]
+    expected = {"decide_rooms": ticks, "allocate_budget_rooms": ticks, "paged_kernel": 0}
+    if launches != expected:
+        raise AssertionError(f"express loop launches {launches}, expected {expected}")
+    lane = {k: v - lane0.get(k, 0) for k, v in rt.express.stats.items()}
+    if lane["express_dgrams"] <= 0 or received[0] <= 0:
+        raise AssertionError(f"express loop: lane {lane}, {received[0]} received")
+    return {"ticks": ticks, "wall_s": wall_s, "wall_ms_per_tick": wall_s / ticks * 1e3,
+            "late_ticks": rt.stats["late_ticks"] - base["late_ticks"],
+            "lane": lane, "received": received[0], "launches": launches,
+            "forward_latency_batched": udp.fwd_latency.summary(),
+            "forward_latency_express": udp.fwd_latency_express.summary()}
+
+
+async def express_phase(dev, rooms: int = EXPRESS_ROOMS, lock_ticks: int = EXPRESS_LOCK_TICKS,
+                        seconds: float = EXPRESS_SECONDS) -> dict:
+    """The express lane and the media relay on the card (see the module
+    docstring, phase 5c)."""
+    sizes = np.random.default_rng(SEED).integers(2, 5, rooms).tolist()
+    x = ExpressRig(await udp_room_manager(dev, express_config(True)), sizes)
+    b = ExpressRig(await udp_room_manager(dev, express_config(False)), sizes)
+    if x.rt.express is None or b.rt.express is not None:
+        raise AssertionError("express lane on/off not as configured")
+    await x.rm.start_relay("127.0.0.1", 0)
+    relay = x.rm.media_relay
+    relay_rooms = tuple(r for r in RELAY_ROOMS if r < rooms)
+    join_s = await x.join(relay_rooms)
+    await b.join()
+    log(f"express: {sum(sizes)} participants in {rooms} rooms joined twice "
+        f"({join_s:.2f} s); {2 * len(relay_rooms)} publishers through the relay")
+    cuda.reset_launches()
+    lock = await express_lockstep(x, b, lock_ticks)
+    launches = dict(cuda.launches)
+    want = {"decide_rooms": 2 * lock_ticks, "allocate_budget_rooms": 2 * lock_ticks,
+            "paged_kernel": 0}
+    if launches != want:
+        raise AssertionError(f"express lockstep launches {launches}, expected {want}")
+    lane = dict(x.rt.express.stats)
+    if lane["promotes"] < 1 or lane["express_dgrams"] <= 0:
+        raise AssertionError(f"express lockstep: the lane never carried a room: {lane}")
+    await b.close()
+    mirrors = x.rt.stats["express_mirrors"]
+    mirror_ms = x.rt.stats["express_mirror_s"] / max(mirrors, 1) * 1e3
+    log(f"express lockstep exact: {lock['datagrams_compared']} datagrams over "
+        f"{lock_ticks} ticks, lane {lane}, mirror read {mirror_ms:.3f} ms "
+        f"({mirrors} reads), launches {launches}")
+    loop = await express_loop(x, seconds, lock_ticks)
+    fb, fe = loop["forward_latency_batched"], loop["forward_latency_express"]
+    log(f"express loop: {loop['ticks']} ticks, wall {loop['wall_ms_per_tick']:.2f} ms/tick; "
+        f"forward latency p50/p99 express {fe['p50_ms']}/{fe['p99_ms']} ms, batched "
+        f"{fb['p50_ms']}/{fb['p99_ms']} ms; launches {loop['launches']}")
+    relay_rep = {"allocations": len(relay.allocs), **relay.stats,
+                 "publishers": 2 * len(relay_rooms), "rooms": list(relay_rooms)}
+    if relay_rep["binds"] < 2 * len(relay_rooms) or relay_rep["up_fwd"] <= 0:
+        raise AssertionError(f"relay: {relay_rep}")
+    log(f"relay ok: {relay_rep}")
+    await x.close()
+    aead = crypto_mod.AESGCM.__module__.split(".")[0] if crypto_mod.HAVE_AEAD else None
+    return {"dims": list(EXPRESS_DIMS), "rooms": rooms, "participants": sum(sizes),
+            "sealed": REQUIRE_ENCRYPTION, "aead": aead,
+            "express_max_subs": EXPRESS_MAX_SUBS, "express_max_rooms": EXPRESS_MAX_ROOMS,
+            "lockstep": {**lock, "lane": lane, "launches": launches},
+            "mirror_read_ms": mirror_ms, "mirror_reads": mirrors,
+            "loop": loop, "relay": relay_rep}
+
+
+GOLDEN_DIMS = (64, 2, 8, 10)       # rooms, tracks, packets, subscribers
+GOLDEN_TICKS = 6
+
+
+def golden_scan_phase(dev) -> dict:
+    """The golden scans (ops/rtpmunger.py, ops/vp8.py, ops/svc.py
+    dd_select_tick) on CUDA tensors against the same calls on the CPU,
+    and the host munger's lane walk on the same seeded packets: every
+    output and state leaf equal, over GOLDEN_TICKS ticks near the 16-,
+    15- and 8-bit wraps, with drops, switches and chain breaks."""
+    R, T, K, S = GOLDEN_DIMS
+    rng = np.random.default_rng(SEED)
+    i32 = lambda x: np.asarray(x, np.int64).astype(np.uint32).view(np.int32)  # noqa: E731
+
+    def states(d):
+        tile = lambda st: type(st)(*(x.expand(R, T, S).clone() for x in st))  # noqa: E731
+        return (tile(rtpmunger.init_state(S, device=d)), tile(vp8.init_state(S, device=d)),
+                tile(svc.init_dd_state(S, target_dt=2, device=d)))
+
+    st = {d: states(d) for d in (dev, "cpu")}
+    host = HostMunger(plane.PlaneDims(R, T, K, S))
+    lanes = [a.reshape(-1) for a in np.meshgrid(np.arange(R), np.arange(T), np.arange(S),
+                                                 indexing="ij")]
+    sent = breaks = 0
+    t0 = time.perf_counter()
+    for tick in range(GOLDEN_TICKS):
+        sn = (65530 + tick * K + np.arange(K) + rng.integers(0, 3, (R, T, K))) & 0xFFFF
+        ts = rng.integers(0, 1 << 32, (R, T, 1)) + 3000 * np.arange(K)
+        pid = (32760 + tick * K + np.arange(K) + np.zeros((R, T, K), np.int64)) & 0x7FFF
+        tl0 = (250 + tick + np.arange(K) // 2 + np.zeros((R, T, K), np.int64)) & 0xFF
+        ki = rng.integers(0, 32, (R, T, K))
+        begin = rng.random((R, T, K)) < 0.5
+        valid = rng.random((R, T, K)) < 0.9
+        jump = np.where(rng.random((R, T, K)) < 0.4, -1, 3000)
+        fwd = rng.random((R, T, K, S)) < 0.6
+        drop = (rng.random((R, T, K, S)) < 0.3) & ~fwd
+        switch = (rng.random((R, T, K, S)) < 0.2) & fwd
+        dti = rng.integers(0, 16, (R, T, K))
+        swm = rng.integers(0, 16, (R, T, K))
+        frames = tick * 2 * K + np.cumsum(rng.integers(1, 3, (R, T, K)), axis=-1)
+        kf = rng.random((R, T, K)) < 0.1
+        outs = {}
+        for d in (dev, "cpu"):
+            a = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(d)  # noqa: E731
+            m, v, dd_st = st[d]
+            m, o_sn, o_ts, send = rtpmunger.munge_tick(
+                m, a(i32(sn)), a(i32(ts)), a(valid), a(fwd), a(drop), a(switch), a(i32(jump)))
+            v, o_pid, o_tl0, o_ki = vp8.munge_tick(
+                v, a(i32(pid)), a(i32(tl0)), a(i32(ki)), a(begin), a(valid), a(fwd), a(drop),
+                a(switch))
+            dd_st, d_fwd, d_drop, broken = svc.dd_select_tick(
+                dd_st, a(i32(dti)), a(i32(swm)), a(i32(frames)), a(kf), a(valid))
+            st[d] = (m, v, dd_st)
+            outs[d] = [x.cpu().numpy() for x in (o_sn, o_ts, send, o_pid, o_tl0, o_ki,
+                                                 d_fwd, d_drop, broken, *m, *v, *dd_st)]
+        torch.cuda.synchronize()
+        for i, (g, c) in enumerate(zip(outs[dev], outs["cpu"])):
+            if not np.array_equal(g, c):
+                raise AssertionError(f"golden scans: output {i} differs on the card at tick {tick}")
+        o_sn, o_ts, send, o_pid, o_tl0, o_ki = outs["cpu"][:6]
+        rr, tt, ss = lanes
+        lane = lambda x: x[rr, tt, :, ss]  # noqa: E731
+        h = host.apply_lanes(rr, tt, ss, sn, ts, jump, pid, tl0, ki, begin, valid,
+                             lane(fwd), lane(drop), lane(switch))
+        sl = lane(send)
+        for name, hv, sv, mask in (("sn", h[0], o_sn, 0xFFFF), ("ts", h[1], o_ts, 0xFFFFFFFF),
+                                   ("pid", h[2], o_pid, 0x7FFF), ("tl0", h[3], o_tl0, 0xFF),
+                                   ("keyidx", h[4], o_ki, 0x1F)):
+            if not np.array_equal(hv[sl], lane(sv.astype(np.int64) & mask)[sl]):
+                raise AssertionError(f"host munger {name} != the scan at tick {tick}")
+        sent += int(sl.sum())
+        breaks += int(outs["cpu"][8].sum())
+    m, v, _ = st["cpu"]
+    if not (np.array_equal(host.last_sn, m.last_sn.numpy().astype(np.int64) & 0xFFFF)
+            and np.array_equal(host.pid_offset, v.pid_offset.numpy().astype(np.int64) & 0x7FFF)
+            and np.array_equal(host.started, m.started.numpy())):
+        raise AssertionError("host munger state != the scans' state")
+    if not breaks:
+        raise AssertionError("golden scans: no chain break exercised")
+    return {"dims": list(GOLDEN_DIMS), "ticks": GOLDEN_TICKS, "sent_compared": sent,
+            "chain_breaks": breaks, "s": time.perf_counter() - t0, "exact": True}
 
 
 def paged_pool_state(pager: RoomPager, sizes, dims: paged.PagedDims, dev):
@@ -2580,13 +3052,16 @@ async def failure_phase(dev, ns_state, ns_tick: dict, pool_state, pool_tick: dic
 # ---------------------------------------------------------------------------
 
 MIG_DIMS = RUNTIME_DIMS            # the cfg4 plane on every node
-MIG_ROOMS = {"A": 512, "B": 256, "C": 0}
+# A's drain moves its own rooms and B's failed-over ones (0.4-0.55 s a
+# room on an H100 host): 256 on A keeps the run well inside its time
+# limit, and B's failover at 264 rooms (the checkpoint-TTL witness).
+MIG_ROOMS = {"A": 256, "B": 256, "C": 0}
 MIG_SAMPLE_ROOMS = 8               # rooms migrated A → B, one at a time
 MIG_AUDIO_COLS = tuple(range(RUNTIME_SPEC.video_tracks,
                              RUNTIME_SPEC.video_tracks + RUNTIME_SPEC.audio_tracks))
 MIG_AFTER_TICKS = 10               # target ticks that carry the sampled audio on
 MIG_WAIT_S = 180.0                 # bound on every wait on a node
-MIG_DRAIN_CAP_S = 600.0            # drains of 768 rooms took 317-392 s on an H100 host
+MIG_DRAIN_CAP_S = 600.0            # drains of 768 rooms took 317-414 s on an H100 host
 
 
 def migration_config(bus_port: int, dims: plane.PlaneDims = MIG_DIMS) -> Config:
@@ -3336,6 +3811,12 @@ def main() -> int:
     udp = asyncio.run(udp_phase(dev))
     print(json.dumps({"udp": udp}), flush=True)
     done("udp")
+    express = asyncio.run(express_phase(dev))
+    print(json.dumps({"express": express}), flush=True)
+    golden = golden_scan_phase(dev)
+    log(f"golden scans exact on the card: {golden}")
+    print(json.dumps({"golden_scans": golden}), flush=True)
+    done("express")
     tick, dense_t, ns_state = timing_phase(dev, args.profile)
     paged_tick, paged_t, pool_state = paged_timing_phase(dev, args.profile)
     done("timing")
@@ -3359,6 +3840,8 @@ def main() -> int:
                 "serving_paged": serving["paged"]["launches"],
                 "udp_dense": udp["dense"]["launches"],
                 "udp_paged": udp["paged"]["launches"],
+                "express_lockstep": express["lockstep"]["launches"],
+                "express": express["loop"]["launches"],
                 "migration": migration["launches"]}
     paged_t["paged_kernel"]["mix"] = mix_t
     timed = {"dense": dense_t, "paged": paged_t}

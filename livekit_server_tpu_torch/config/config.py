@@ -782,8 +782,6 @@ def _validate(cfg: Config) -> None:
 # enables it, the value that turns it off, the ROADMAP item that brings
 # it). RoomManager refuses a config that enables any of them.
 UNPORTED: tuple[tuple[str, Callable[[Any], bool], Any, str], ...] = (
-    ("relay.enabled", bool, False, "A12b (media relay, WebRTC gateway)"),
-    ("plane.express_max_subs", lambda v: v > 0, 0, "A15 (express lane)"),
     ("plane.mesh_devices", lambda v: v > 1, 1, "A10 (multi-GPU)"),
 )
 

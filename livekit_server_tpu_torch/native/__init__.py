@@ -515,6 +515,13 @@ class NativeEgress:
                ctypes.c_int32, ctypes.c_int]          # grp_slots, pace_us
             + [ctypes.c_void_p] * 3                   # shard sent/built/ns
         )
+        self.lib.egress_express_send.restype = ctypes.c_int64
+        self.lib.egress_express_send.argtypes = (
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_int32]  # fd, slab, n
+            + [ctypes.c_void_p] * 24                  # pay_off..out_len
+            + [ctypes.c_void_p, ctypes.c_void_p,      # rooms, grp
+               ctypes.c_int32, ctypes.c_void_p]       # grp_slots, built_out
+        )
         self.lib.egress_pool_ensure.restype = None
         self.lib.egress_pool_ensure.argtypes = [ctypes.c_int]
         self.lib.rx_batch.restype = ctypes.c_int32
@@ -559,6 +566,9 @@ class NativeEgress:
         frame = bytes(out[: out_len[0]])
         if sent != 1 or frame[0] != 0x01 or len(frame) != 14 + 12 + len(slab) + 16:
             raise OSError("egress self-test failed")
+        err = _express_smoke(self)
+        if err:
+            raise OSError(f"egress express self-test failed: {err}")
         from livekit_server_tpu_torch.runtime.crypto import HAVE_AEAD, MediaCryptoClient
 
         if not HAVE_AEAD:
@@ -734,6 +744,108 @@ class NativeEgress:
         )
         del keep
         return out, out_off, out_len, int(sent), shard_sent, shard_built, shard_ns
+
+    def send_express(self, fd, slab, pay_off, pay_len, marker, pt, vp8,
+                     sn, ts, ssrc, pid, tl0, kidx, ip, port, seal, key_idx,
+                     keys, key_ids, counters, ext_blob=b"", ext_off=None,
+                     ext_len=None):
+        """Express-lane path: assemble+seal(+send) a small batch inline on
+        the calling thread — no shard planning, no pool handoff, no
+        pacing, every entry built directly (no canonical-group staging).
+        Returns (out, out_off, out_len, sent, built); with fd < 0 nothing
+        hits the network and `sent` == built."""
+        n = len(pay_off)
+        if ext_off is None:
+            ext_off = np.zeros(n, np.int64)
+            ext_len = np.zeros(n, np.int32)
+        pay_len_c = np.ascontiguousarray(pay_len, np.int32)
+        ext_len_c = np.ascontiguousarray(ext_len, np.int32)
+        seal_c = np.ascontiguousarray(seal, np.uint8)
+        kix_c = np.ascontiguousarray(key_idx, np.int32)
+        clear_len = 12 + ext_len_c.astype(np.int64) + pay_len_c.astype(np.int64)
+        out_len = np.where(
+            (seal_c != 0) & (kix_c >= 0),
+            clear_len + self.SEAL_OVERHEAD, clear_len,
+        ).astype(np.int32)
+        out_off = np.zeros(n, np.int64)
+        np.cumsum(out_len[:-1], out=out_off[1:])
+        out = np.zeros(int(out_off[-1]) + int(out_len[-1]) if n else 0, np.uint8)
+        slab_arr = (
+            np.frombuffer(slab, np.uint8) if not isinstance(slab, np.ndarray)
+            else slab
+        )
+        if not len(slab_arr):
+            slab_arr = np.zeros(1, np.uint8)
+        ext_arr = (
+            np.frombuffer(ext_blob, np.uint8) if len(ext_blob)
+            else np.zeros(1, np.uint8)
+        )
+        built = np.zeros(1, np.int64)
+        # Bind every converted array to a keep-list: a temporary's buffer
+        # must outlive the C call (see open_batch's same caveat).
+        keep = []
+
+        def c(a, dt):
+            arr = np.ascontiguousarray(a, dt)
+            keep.append(arr)
+            return arr.ctypes.data
+
+        sent = self.lib.egress_express_send(
+            int(fd), slab_arr.ctypes.data, n,
+            c(pay_off, np.int64), pay_len_c.ctypes.data,
+            c(marker, np.uint8), c(pt, np.uint8), c(vp8, np.uint8),
+            ext_arr.ctypes.data, c(ext_off, np.int64), ext_len_c.ctypes.data,
+            c(sn, np.uint16), c(ts, np.uint32), c(ssrc, np.uint32),
+            c(pid, np.int32), c(tl0, np.int32), c(kidx, np.int32),
+            c(ip, np.uint32), c(port, np.uint16),
+            seal_c.ctypes.data, kix_c.ctypes.data,
+            c(keys, np.uint8), c(key_ids, np.uint32), c(counters, np.uint64),
+            out.ctypes.data, out_off.ctypes.data, out_len.ctypes.data,
+            None, None, 0,                            # rooms, grp, grp_slots
+            built.ctypes.data,
+        )
+        del keep
+        return out, out_off, out_len, int(sent), int(built[0])
+
+
+def _express_smoke(eg: "NativeEgress") -> str | None:
+    """Exercise egress_express_send build-only and require byte parity
+    with the batch path (egress_batch_send) for the same entries (one
+    sealed, one clear). Returns a failure string or None; the egress
+    library's load-time self-test refuses a library that fails it."""
+    slab = b"\x90\xe0\x80\x01\x02\x20\x00express-smoke"
+    kw = dict(
+        slab=slab,
+        pay_off=np.array([0, 0], np.int64),
+        pay_len=np.array([len(slab)] * 2, np.int32),
+        marker=np.array([1, 1], np.uint8),
+        pt=np.array([96, 96], np.uint8),
+        vp8=np.array([1, 1], np.uint8),
+        sn=np.array([7, 8], np.uint16),
+        ts=np.array([9, 9], np.uint32),
+        ssrc=np.array([3, 4], np.uint32),
+        pid=np.array([5, 5], np.int32),
+        tl0=np.array([6, 6], np.int32),
+        kidx=np.array([2, 2], np.int32),
+        ip=np.array([0x7F000001] * 2, np.uint32),
+        port=np.array([1, 1], np.uint16),
+        seal=np.array([1, 0], np.uint8),
+        key_idx=np.array([0, -1], np.int32),
+        keys=np.zeros((1, 16), np.uint8),
+        key_ids=np.array([42], np.uint32),
+        counters=np.array([0, 0], np.uint64),
+    )
+    try:
+        out_x, off_x, len_x, sent_x, built_x = eg.send_express(fd=-1, **kw)
+    except Exception as e:
+        return f"send_express crashed: {e!r}"
+    if sent_x != 2 or built_x != 2:
+        return f"send_express built {built_x}/2"
+    out_b, off_b, len_b, _ = eg.send(fd=-1, n_threads=1, **kw)
+    if not (np.array_equal(len_x, len_b) and np.array_equal(out_x, out_b)):
+        return "send_express output differs from the batch path"
+    return None
+
 
 def _build_munge() -> Path | None:
     return _compile("munge", "munge")

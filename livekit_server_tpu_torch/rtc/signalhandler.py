@@ -22,9 +22,8 @@ def handle_participant_signal(room, participant: Participant, req: SignalRequest
     kind, data = req.kind, req.data
 
     if kind == "offer":
-        # Publisher SDP: reflected, as the reference does without a media
-        # socket (its WebRTC gateway needs the UDP transport, which the
-        # port does not carry yet).
+        # Publisher SDP: reflected, as the reference does without its
+        # WebRTC gateway (ROADMAP A12c; the port does not carry it yet).
         sdp_text = data.get("sdp", "")
         participant.send("answer", {"type": "answer", "sdp": sdp_text})
     elif kind == "answer":
@@ -144,10 +143,26 @@ def handle_participant_signal(room, participant: Participant, req: SignalRequest
             {"last_ping_timestamp": data.get("timestamp", 0), "timestamp": int(time.time() * 1000)},
         )
     elif kind == "request_relay":
-        # Media-relay allocation (turn.go:47 capability) needs the UDP
-        # transport and the relay, which the port does not carry yet: the
-        # answer is the reference's "no relay" one.
-        participant.send("request_response", {"relay_info": None})
+        # Media-relay allocation (turn.go:47 capability): hand back the
+        # relay address + a token bound to this participant's media-crypto
+        # session. The relay is blind; the token only admits forwarding.
+        udp = getattr(room, "udp", None)
+        info = getattr(udp, "relay_info", None) if udp is not None else None
+        sess = participant.crypto_session
+        if info is not None and sess is not None:
+            from livekit_server_tpu_torch.runtime.relay import mint_relay_token
+
+            host, port, secret, ttl = info
+            token = mint_relay_token(secret, sess.key_id, ttl)
+            participant.send(
+                "request_response",
+                {"relay_info": {
+                    "host": host, "port": port, "token": token.hex(),
+                    "ttl_s": ttl,
+                }},
+            )
+        else:
+            participant.send("request_response", {"relay_info": None})
     elif kind == "update_metadata":
         if participant.permission.can_update_metadata:
             participant.metadata = data.get("metadata", participant.metadata)

@@ -40,8 +40,9 @@ per-shard timing/throughput out of the native calls for telemetry
 (/debug/egress, livekit_host_egress_pps). One instance is shared by
 PlaneRuntime (munge sharding) and UDPMediaTransport (send sharding).
 
-A copy of the JAX package's runtime/egress_plane.py without the express
-lane's send accounting (ROADMAP A15) and the plane microbench.
+A copy of the JAX package's runtime/egress_plane.py, with the express
+lane's send accounting (`record_express`) and without the plane
+microbench.
 """
 
 from __future__ import annotations
@@ -86,7 +87,13 @@ class EgressPlane:
         self.stats: dict[str, float] = {
             "ticks": 0, "entries": 0, "datagrams": 0, "grouped_entries": 0,
             "send_ns": 0, "munge_ns": 0, "munge_entries": 0,
+            "express_datagrams": 0, "express_ns": 0,
         }
+        # Express-lane sends land between ticks; record_express accumulates
+        # them here and record_send folds them into the next tick's EMA
+        # sample, so host_egress_pps covers both tiers.
+        self._express_pending_dgrams = 0
+        self._express_pending_ns = 0
         self.shard_sent_total = np.zeros(self.shards, np.int64)
         self.shard_ns_total = np.zeros(self.shards, np.int64)
         self.munge_shard_ns_total = np.zeros(self.shards, np.int64)
@@ -180,10 +187,17 @@ class EgressPlane:
             w = len(shard_sent)
             self.shard_sent_total[:w] += shard_sent
             self.shard_ns_total[:w] += shard_ns
+            # Fold the express sends of the window that just closed into
+            # this tick's EMA sample (both tiers' work over both tiers'
+            # wall), then reset the accumulators.
+            ema_n = n_entries + self._express_pending_dgrams
+            ema_ns = ns + self._express_pending_ns
+            self._express_pending_dgrams = 0
+            self._express_pending_ns = 0
             self._ema_entries = (
-                _PPS_ALPHA * n_entries + (1 - _PPS_ALPHA) * self._ema_entries
+                _PPS_ALPHA * ema_n + (1 - _PPS_ALPHA) * self._ema_entries
             )
-            self._ema_ns = _PPS_ALPHA * max(ns, 1) + (1 - _PPS_ALPHA) * self._ema_ns
+            self._ema_ns = _PPS_ALPHA * max(ema_ns, 1) + (1 - _PPS_ALPHA) * self._ema_ns
             if self._ema_ns > 0:
                 self._pps_ema = self._ema_entries / (self._ema_ns * 1e-9)
             self.last_send = {
@@ -214,6 +228,16 @@ class EgressPlane:
                 "ms": [round(int(n) / 1e6, 3) for n in shard_ns],
             }
 
+    def record_express(self, sent: int, ns: int) -> None:
+        """Express-lane send accounting (udp._send_express): datagrams and
+        send wall, folded into the pps EMA at the next tick's record_send
+        so the gauge reflects both tiers."""
+        with self._lock:
+            self.stats["express_datagrams"] += sent
+            self.stats["express_ns"] += ns
+            self._express_pending_dgrams += sent
+            self._express_pending_ns += ns
+
     @property
     def host_egress_pps(self) -> float:
         """Datagrams/s through the native send walk, EMA over recent
@@ -236,6 +260,8 @@ class EgressPlane:
                 "send_ms_total": round(send_s * 1000.0, 3),
                 "munge_ms_total": round(munge_s * 1000.0, 3),
                 "munge_entries": int(self.stats["munge_entries"]),
+                "express_datagrams": int(self.stats["express_datagrams"]),
+                "express_ms_total": round(self.stats["express_ns"] / 1e6, 3),
                 "shard_sent": [int(x) for x in self.shard_sent_total],
                 "shard_send_ms": [
                     round(int(x) / 1e6, 3) for x in self.shard_ns_total

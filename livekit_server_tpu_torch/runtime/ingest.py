@@ -14,9 +14,8 @@ stamps (`t_arr`); drops split by cause (capacity, fault, policed); the
 governor's per-(room, track) ingress policer (scalar and batch paths);
 and the fault injector's seams (drop / delay / duplicate / flood, with
 delayed packets re-entering at drain); the migration freeze
-(`frozen_rows`, the `freeze_sinks` bridge taps, `extract_row`). The
-arrival hook `on_put` (set only by the express lane, ROADMAP A15) is not
-carried.
+(`frozen_rows`, the `freeze_sinks` bridge taps, `extract_row`); and
+the arrival hook `on_put`, set by the express lane (runtime/express.py).
 """
 
 from __future__ import annotations
@@ -238,6 +237,13 @@ class IngestBuffer:
         self._police_burst = 0.0
         self._police_tokens = np.zeros((R, T), np.float64)
         self._police_video = None
+        # Arrival hook: called with the (rooms, tracks, ks) staging
+        # coordinates after EVERY successful staging, vectorized
+        # (push_batch) and per packet (push) alike, so the express lane
+        # sees TCP and bridge-replayed packets too, not only the UDP fast
+        # path. The fan-out masks express rooms' rows wholesale; an ingest
+        # path that bypassed this hook would silently drop their media.
+        self.on_put = None
         self._sets = (_StagingSet(dims), _StagingSet(dims))
         self._active = 0
         self._bind(self._sets[0])
@@ -372,6 +378,9 @@ class IngestBuffer:
             self.marker[r, t, k] = pkt.marker
             self._slab += pkt.payload
         self.t_arr[r, t, k] = t_rx
+        if self.on_put is not None:
+            self.on_put(np.array([r], np.int64), np.array([t], np.int64),
+                        np.array([k], np.int64))
         return True
 
     def extract_row(self, room: int) -> list:
@@ -567,6 +576,8 @@ class IngestBuffer:
             self._slab += _gather_ranges(blob_arr, dstarts, dlens)
         uniq_rt = sorted_rt[grp_start]
         self._count.reshape(-1)[uniq_rt] = np.minimum(K, base[order][grp_start] + sizes)
+        if self.on_put is not None:
+            self.on_put(r_, t_, k_)
         return len(r_)
 
     def push_twcc_feedback(self, room: int, sub: int, delay_sum_ms: float,

@@ -10,9 +10,12 @@ masks); this module rewrites SN/TS/VP8 fields with host-owned state.
 As in the JAX package's runtime/munge.py, `apply_columns` runs the
 native C++ walker (native/csrc/munge.cpp; `walk_multi` over the egress
 plane's room shards) when the library is loaded. `apply_columns_plain`
-is the numpy path (`apply_dense` of the reference is its spec), run over
-the active (room, track, subscriber) lanes only: the fallback, and the
-plain version the tests hold the walker against.
+is the numpy path, run over the active (room, track, subscriber) lanes
+only: the fallback, and the plain version the tests hold the walker
+against. `apply_arrivals` is the express lane's entry (runtime/
+express.py): the same scan over one receive batch's lanes. The semantics
+are the golden scans' (ops/rtpmunger.py, ops/vp8.py), to which
+tests/test_torch_golden_scans.py holds this walk.
 """
 
 from __future__ import annotations
@@ -90,15 +93,50 @@ class HostMunger:
         valid packet, so lanes with neither may be left out. Returns
         (out_sn, out_ts, out_pid, out_tl0, out_ki) [N, K] (defined where
         `send`; zero elsewhere)."""
+        return self._walk(
+            rr, tt, ss,
+            *(np.asarray(a)[rr, tt] for a in (sn, ts, ts_jump, pid, tl0, keyidx,
+                                              begin_pic, valid)),
+            send, drop, switch,
+        )
+
+    def apply_arrivals(
+        self,
+        gr, gt,                                               # [G] lane coords
+        sn, ts, ts_jump, pid, tl0, keyidx, begin_pic, valid,  # [G, Kb]
+        send, drop, switch,                                   # [G, Kb, S] bool
+    ):
+        """Express-lane munging: the same scan applied to G gathered
+        (room, track) lanes over one receive batch, in arrival order. It
+        advances the SAME per-(room, track, sub) state the batched
+        fan-out walks, which keeps a subscriber's SN/TS space continuous
+        across tier promotion and demotion. (gr, gt) must name distinct
+        lanes. Returns (out_sn, out_ts, out_pid, out_tl0, out_ki)
+        [G, Kb, S] (defined where `send & valid`; zero elsewhere)."""
+        G, Kb = np.asarray(sn).shape
+        S = send.shape[-1]
+        rr, tt = np.repeat(gr, S), np.repeat(gt, S)
+        ss = np.tile(np.arange(S), G)
+        per_lane = (np.repeat(np.asarray(a), S, axis=0)
+                    for a in (sn, ts, ts_jump, pid, tl0, keyidx, begin_pic, valid))
+        masks = (np.asarray(m).transpose(0, 2, 1).reshape(G * S, Kb)
+                 for m in (send, drop, switch))
+        outs = self._walk(rr, tt, ss, *per_lane, *masks)
+        return tuple(o.reshape(G, S, Kb).transpose(0, 2, 1) for o in outs)
+
+    def _walk(self, rr, tt, ss, sn, ts, ts_jump, pid, tl0, keyidx, begin_pic,
+              valid, send, drop, switch):
+        """The scan over lanes (rr, tt, ss) with per-lane packet fields
+        and masks [N, K]; writes the lanes' state back."""
         st = {name: getattr(self, name)[rr, tt, ss] for name in self.FIELDS}
-        sn = np.asarray(sn, np.int64)[rr, tt] & M16
-        ts = np.asarray(ts, np.int64)[rr, tt] & M32
-        pid = np.asarray(pid, np.int64)[rr, tt] & M15
-        tl0 = np.asarray(tl0, np.int64)[rr, tt] & M8
-        ki = np.asarray(keyidx, np.int64)[rr, tt] & M5
-        jump = np.asarray(ts_jump, np.int64)[rr, tt]
-        bp = np.asarray(begin_pic, bool)[rr, tt]
-        val = np.asarray(valid, bool)[rr, tt]
+        sn = np.asarray(sn, np.int64) & M16
+        ts = np.asarray(ts, np.int64) & M32
+        pid = np.asarray(pid, np.int64) & M15
+        tl0 = np.asarray(tl0, np.int64) & M8
+        ki = np.asarray(keyidx, np.int64) & M5
+        jump = np.asarray(ts_jump, np.int64)
+        bp = np.asarray(begin_pic, bool)
+        val = np.asarray(valid, bool)
         N, K = sn.shape
 
         out_sn = np.zeros((N, K), np.int32)

@@ -43,8 +43,17 @@ so a device step works on the state it found when it started, and every
 full restore binds freshly allocated tensors: a step a supervisor
 restart abandoned cannot reach what the restarted loop uses.
 
+The express lane (runtime/express.py; `express_max_subs` > 0) hooks in
+as in the reference: its tier boundary runs in `_stage_host` right
+before the drain, the device step posts it the selector mirror after
+the commit, and the fan-out clears the express rooms' fast-path
+subscriber bits and records the window's express sends in the replay
+ring. The mirror is posted under the commit lock and only while the
+step's run is current, like the audit: a step a restart left behind
+never hands the lane a mirror of the state it abandoned.
+
 Not carried yet (see ROADMAP.md): pinned host buffers and graph capture
-of the tick, the device mesh, the express lane and the compile ledger.
+of the tick, the device mesh and the compile ledger.
 """
 
 from __future__ import annotations
@@ -258,9 +267,18 @@ class StagedTick:
     deadline: float = 0.0  # owning-tick egress deadline; 0 = unaccounted
     depth: int = 0         # pipeline depth this tick ran at
     edge_over_us: float = 0.0  # wake overshoot past the dispatch edge
-    # Span start stamps for the trace ring: staging start, the ctrl-upload
-    # window and the device dispatch time.
+    # Express-lane handoff (runtime/express.py): rooms whose fast-path
+    # subscribers were already served on arrival during this tick's
+    # window (their bits are masked at fan-out), the packed sub-bit
+    # words to clear, and the window's send log for the replay ring.
+    express_rows: Any = None
+    express_words: Any = None
+    express_log: Any = None
+    # Span start stamps for the trace ring: staging start, the express
+    # retier's slice of it, the ctrl-upload window and the device
+    # dispatch time.
     stage_t0: float = 0.0
+    retier_s: float = 0.0
     upload_t0: float = 0.0
     upload_s: float = 0.0
     device_t0: float = 0.0
@@ -274,7 +292,8 @@ class PlaneRuntime:
                  low_latency: bool = False, trace_enabled: bool = True,
                  trace_ring_ticks: int = 512, trace_sample_every: int = 64,
                  blackbox_events: int = 64, egress_shards: int = 0,
-                 egress_multicast: bool = True, device="cuda"):
+                 egress_multicast: bool = True, express_max_subs: int = 0,
+                 express_max_rooms: int = 16, device="cuda"):
         self.device = resolve(device)
         # The ctrl upload (event-loop thread) and the device step (the
         # executor's thread) both enqueue on this one stream, in the order
@@ -352,6 +371,15 @@ class PlaneRuntime:
         self.state = self._init_device_state()
         self._init_step()
         self.munger = HostMunger(dims)
+        # Two-tier latency plane (runtime/express.py): small rooms forward
+        # on packet arrival against the last device selector mirror
+        # instead of waiting for the batched tick. None when
+        # express_max_subs == 0 (the default).
+        self.express = None
+        if express_max_subs > 0:
+            from livekit_server_tpu_torch.runtime.express import ExpressLane
+
+            self.express = ExpressLane(self, express_max_subs, express_max_rooms)
         # Sharded native egress plane: one instance plans the room-aligned
         # shard cuts of both the munge walk (_fan_out) and the send walk
         # (the UDP transport attaches it) and aggregates per-shard stats.
@@ -384,6 +412,10 @@ class PlaneRuntime:
             # never completes: abandoned after the tick ran, or committed
             # just before a restart whose loop dropped their outputs.
             "dropped_steps": 0,
+            # The express lane's post-commit selector reads: count and
+            # cumulative seconds (each a device read of four [R, T, S]
+            # leaves on the runtime's stream).
+            "express_mirrors": 0, "express_mirror_s": 0.0,
         }
         self.recent_tick_s: deque = deque(maxlen=120)  # /debug/ticks window
         # Per-tick stage records (idx/depth/stage_ms/device_ms/fanout_ms/
@@ -533,6 +565,14 @@ class PlaneRuntime:
             max_temporal=self.ctrl.max_temporal,
         )
 
+    def set_express_pin(self, room: int, pin: bool | None) -> None:
+        """Pin one room's latency tier: True = express lane, False =
+        batched tick, None = automatic (subscriber-count eligibility).
+        No-op when the express lane is off. Takes effect at the next
+        tick boundary."""
+        if self.express is not None:
+            self.express.set_pin(room, pin)
+
     def clear_room(self, room: int) -> None:
         self.meta.published[room, :] = False
         self.meta.pub_muted[room, :] = False
@@ -542,6 +582,10 @@ class PlaneRuntime:
         self.ingest.sub_reset[room, :] = True  # next tenant: fresh BWE state
         self.host_seq.clear_room(room)
         self.munger.clear_room(room)
+        if self.express is not None:
+            # Tier state (pin, activation, selector mirror) must not leak
+            # into the next tenant or past a migration snapshot.
+            self.express.clear_room(room)
         self._dirty_rows.add(room)
 
     def on_tick(self, cb: Callable[[TickResult], Awaitable[None] | None]) -> None:
@@ -613,6 +657,18 @@ class PlaneRuntime:
                     return None  # restarted mid-step: the result belongs to a dead run
                 self.state = state
             out = self._unpack_outputs(buf)
+            if self.express is not None and self.express.wants_mirror():
+                # The express lane's selector mirror of the committed
+                # state, consumed at the next retier (decisions made from
+                # it are at most one tick stale). Posted under the commit
+                # lock, and only while this step's run is current.
+                m0 = time.perf_counter()
+                mirror = self._sel_mirror(state)
+                with self._commit_lock:
+                    if epoch == self.run_epoch:
+                        self.express.post_mirror(*mirror)
+                self.stats["express_mirrors"] += 1
+                self.stats["express_mirror_s"] += time.perf_counter() - m0
             if self.integrity is not None:
                 # Audit the committed state on the cadence; the fetched
                 # mask is a few dozen bytes. Under the commit lock, and
@@ -638,11 +694,25 @@ class PlaneRuntime:
         # Close the quality/stats window about once per second.
         q_ticks = max(1, 1000 // self.tick_ms)
         roll = (idx + 1) % q_ticks == 0
+        ex_rows = ex_words = ex_log = None
+        retier_s = 0.0
+        if self.express is not None:
+            # Tier boundary, in the same event-loop slice as the drain
+            # (atomic with respect to arrivals and migration freezes):
+            # close the ending window, re-tier, and take over the closing
+            # window for freshly promoted rooms. Returns the rooms whose
+            # fast-path subscriber bits this tick's fan-out must skip.
+            r0 = time.perf_counter()
+            ex_rows, ex_words, ex_log = self.express.tick_boundary(self.ingest)
+            retier_s = time.perf_counter() - r0
         inp, payloads = self.ingest.drain(roll_quality=roll, tick_index=idx)
         self._slab_history[idx % plane.SLAB_WINDOW] = payloads
         wire = self._pack_inputs(inp)
-        st = StagedTick(inp=inp, payloads=payloads, idx=idx, roll=roll, wire=wire)
+        st = StagedTick(inp=inp, payloads=payloads, idx=idx, roll=roll, wire=wire,
+                        express_rows=ex_rows, express_words=ex_words,
+                        express_log=ex_log)
         st.stage_t0 = t0
+        st.retier_s = retier_s
         st.stage_s = time.perf_counter() - t0
         return st
 
@@ -676,7 +746,10 @@ class PlaneRuntime:
         deadline (dispatch edge + (1 + depth) periods), after the delivery
         callbacks have run."""
         c0 = time.perf_counter()
-        result = self._fan_out(out, st.payloads, st.inp, 0.0, st.idx)
+        result = self._fan_out(
+            out, st.payloads, st.inp, 0.0, st.idx,
+            express=(st.express_rows, st.express_words, st.express_log),
+        )
         fanout_s = time.perf_counter() - c0
         # Attribution stamps for the wire-latency decomposition: the UDP
         # transport reads them off the batch inside the callbacks below.
@@ -724,7 +797,7 @@ class PlaneRuntime:
         self.recent_ticks.append(tick_rec)
         if self.trace is not None:
             slot = self.trace.record_tick(
-                st.idx, st.edge, st.stage_t0, st.stage_s, 0.0,
+                st.idx, st.edge, st.stage_t0, st.stage_s, st.retier_s,
                 st.upload_t0, st.upload_s, st.device_t0, st.device_s,
                 c0, fanout_s, send_s, st.edge_over_us, st.depth, late,
                 kernel_s=st.kernel_s,
@@ -906,10 +979,12 @@ class PlaneRuntime:
         ]
 
     def _fan_out(self, out: plane.TickOutputs, payloads, inp, tick_s: float,
-                 tick_idx: int | None = None) -> TickResult:
+                 tick_idx: int | None = None,
+                 express: tuple | None = None) -> TickResult:
         """Bit-packed egress masks → host munge (the native walker, sharded
         by the egress plane's room plan) → column arrays, plus the speaker
-        / keyframe / congestion / quality views of the tick's outputs."""
+        / keyframe / congestion / quality views of the tick's outputs.
+        `express` = (rows, words, log) of the express lane's window."""
         send_bits, drop_bits, switch_bits = out.send_bits, out.drop_bits, out.switch_bits
         if self.integrity is not None and self.integrity.quarantined:
             # Same-tick quarantine: a room flagged by THIS tick's audit
@@ -924,6 +999,19 @@ class PlaneRuntime:
                 send_bits[rows] = 0
                 drop_bits[rows] = 0
                 switch_bits[rows] = 0
+        ex_rows, ex_words, ex_log = express if express is not None else (None,) * 3
+        if ex_rows is not None and len(ex_rows):
+            # Express-handled rooms: their fast-path subscribers were
+            # served (and their munger lanes advanced) on arrival during
+            # this tick's window, so clear exactly those subscriber bits:
+            # the batched walk neither re-sends nor re-advances them.
+            # WS/TCP/RED subscribers of the same rooms keep their bits.
+            send_bits, drop_bits, switch_bits = (
+                np.array(send_bits), np.array(drop_bits), np.array(switch_bits))
+            clear = ~ex_words[:, None, None, :]
+            send_bits[ex_rows] &= clear
+            drop_bits[ex_rows] &= clear
+            switch_bits[ex_rows] &= clear
         rr, tt, kk, ss, b_sn, b_ts, b_pid, b_tl0, b_ki = self.munger.apply_columns(
             inp.sn, inp.ts, inp.ts_jump, inp.pid, inp.tl0, inp.keyidx,
             inp.begin_pic, inp.valid, send_bits, drop_bits, switch_bits,
@@ -949,6 +1037,21 @@ class PlaneRuntime:
             congested.setdefault(int(r), []).append(int(s))
         eff_idx = self.tick_index if tick_idx is None else tick_idx
         self.host_seq.record(batch, eff_idx)
+        if ex_log is not None and len(ex_log):
+            # Express sends of this window, recorded against the same slab
+            # now that it is kept in _slab_history. The drain's reorder
+            # pass can permute staging slots within a (room, track) after
+            # the log was written, so entries whose slot no longer holds
+            # their wire SN are dropped: a replay miss the client
+            # re-NACKs, never a wrong payload.
+            T, K = self.dims.tracks, self.dims.pkts
+            lflat = (ex_log.rooms.astype(np.int64) * T + ex_log.tracks) * K + ex_log.ks
+            ok = (np.asarray(inp.sn).reshape(-1)[lflat] & 0xFFFF) == ex_log.orig_sn
+            if not ok.all():
+                if self.express is not None:
+                    self.express.stats["replay_drops"] += int((~ok).sum())
+                ex_log = ex_log.take(ok)
+            self.host_seq.record(ex_log, eff_idx)
         padding = self._assemble_padding(inp)
         if padding:
             self.stats["pad_packets"] = self.stats.get("pad_packets", 0) + len(padding)

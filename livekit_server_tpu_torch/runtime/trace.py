@@ -16,10 +16,10 @@ dict/f-string/list construction):
   whose arrival stamp is decomposed at the wire into staging / device /
   egress stage latencies, plus the express tier's arrival→wire latency.
   Feeds `livekit_wire_latency_stage_ms` and `livekit_forward_latency_ms`.
-  Its feeder is the UDP transport (runtime/udp.py `send_egress_batch`
-  observes each tick's sent entries against the batch's dispatch and
-  device-end stamps); the port has no express tier, so that half stays
-  empty.
+  Its feeders are the UDP transport's two send paths (runtime/udp.py
+  `send_egress_batch` observes each tick's sent entries against the
+  batch's dispatch and device-end stamps; `_send_express` the express
+  tier's arrival→wire latency).
 - **BlackBox** — per-room ring of the last M lifecycle / governor /
   integrity / migration / express events, dumped to the log (and kept
   for /debug/blackbox/{room}) on quarantine, repair failure, supervisor

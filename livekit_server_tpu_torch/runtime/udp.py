@@ -14,11 +14,12 @@ A client's source address latches on first packet per SSRC (ICE-lite-ish
 latching, like the reference's UDP mux address learning).
 
 Port of the JAX package's runtime/udp.py. The native libraries load on
-first use (livekit_server_tpu_torch.native). The hooks into subsystems
-the port does not carry raise an error naming their ROADMAP item:
-`enable_gateway` (the WebRTC gateway, A12b), `enable_audio_mixer` (the
-MCU mixer, A8), `attach_express` (the express lane, A15) and setting
-`relay_info` (the media relay, A12b).
+first use (livekit_server_tpu_torch.native). `attach_express` binds the
+express lane (runtime/express.py) and `_send_express` carries its sends;
+`relay_info` is set by the room manager when the media relay
+(runtime/relay.py) runs. The hooks into subsystems the port does not
+carry raise an error naming their ROADMAP item: `enable_gateway` (the
+WebRTC gateway, A12c) and `enable_audio_mixer` (the MCU mixer, A8).
 """
 
 from __future__ import annotations
@@ -524,10 +525,18 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         # Always-on packet-in→wire-out latency histogram (stamps: rx_batch
         # return → native egress send return; includes tick-queue wait).
         self.fwd_latency = ForwardLatencyProbe()
+        # Express-lane twin: arrival-driven sends skip the tick queue, so
+        # their latency distribution answers a different question (decide
+        # + munge + seal cost); kept separate or the batched tail would
+        # bury the express p99 (and vice versa).
+        self.fwd_latency_express = ForwardLatencyProbe()
         # Sampled wire-latency stage decomposer (runtime/trace.py
         # LatencyAttribution); attached by the server/bench alongside the
         # egress plane. None = no per-stage attribution.
         self.wire_stages = None
+        # Media-relay advertisement (host, port, secret, ttl_s) for the
+        # request_relay signal, set when the embedded relay runs.
+        self.relay_info = None
         # config rtc.congestion_control.send_side_bwe — set ONCE at
         # startup (before any subscriber registers): flipping it later
         # does not refresh already-registered subscribers' fb_enabled
@@ -604,24 +613,13 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         """The standards-lane WebRTC gateway (ICE-lite, DTLS-SRTP, SDP) is
         not carried by the port."""
         raise NotImplementedError(
-            "the WebRTC gateway is not ported yet (ROADMAP A12b)"
+            "the WebRTC gateway is not ported yet (ROADMAP A12c)"
         )
 
     def enable_audio_mixer(self):
         """The MCU-seat audio mixer is not carried by the port."""
         raise NotImplementedError(
             "the MCU audio mixer is not ported yet (ROADMAP A8)"
-        )
-
-    @property
-    def relay_info(self):
-        """Media-relay allocation info: none, the port has no relay."""
-        return None
-
-    @relay_info.setter
-    def relay_info(self, value) -> None:
-        raise NotImplementedError(
-            "the embedded media relay is not ported yet (ROADMAP A12b)"
         )
 
     def _set_track_media(
@@ -1813,11 +1811,202 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
             plane.warm()
 
     def attach_express(self, lane) -> None:
-        """The express lane (arrival-driven forwarding) is not carried by
-        the port."""
-        raise NotImplementedError(
-            "the express lane is not ported yet (ROADMAP A15)"
+        """Bind an ExpressLane (runtime/express.py): this transport
+        supplies its UDP-fast-path subscriber set and carries its wire
+        sends; the lane takes each staged receive batch through the
+        ingest's arrival hook."""
+        lane.sub_provider = self._express_sub_provider
+        lane.sender = self._send_express
+
+    def _express_sub_provider(self) -> np.ndarray:
+        """[R, S] bool — subscribers the express lane may own: plain UDP
+        fast-path only. TCP-fallback, SRTP-gateway, WebSocket, and RED
+        subscribers keep riding the batched tick (their egress paths
+        re-encapsulate per frame and don't fit the small-batch seal)."""
+        self._maybe_resync_subs()
+        return (self._sub_port != 0) & ~self._sub_tcp & ~self._sub_red_arr
+
+    def _send_express(self, cols) -> int:
+        """Express-lane egress: one receive batch's forwarding decisions
+        → wire, now.
+
+        The small-batch twin of send_egress_batch: same destination
+        gathers, seal/counter discipline, TWCC stamping, and SR/tx
+        bookkeeping, but no shard planning, no pacer gate, and no RED/DD
+        handling (RED subs and SVC rooms are express-ineligible). The
+        native egress_express_send entry reuses the persistent worker
+        pool, key-schedule cache, and P3FA staging of the batch path.
+        Returns datagrams handed to the kernel."""
+        n = len(cols)
+        if n == 0:
+            return 0
+        self._maybe_resync_subs()
+        r, t, s = cols.rooms, cols.tracks, cols.subs
+        e_port = self._sub_port[r, s]
+        # Re-filter against live destination state: a sub can churn (or
+        # flip to TCP fallback) between the lane's retier and this
+        # arrival; the batched tier will NOT cover it (the room row is
+        # masked), so a dropped entry here is at worst one lost datagram
+        # to a disconnecting sub.
+        idx = np.nonzero(
+            (e_port != 0) & ~self._sub_tcp[r, s] & (cols.pay_len > 0)
+        )[0]
+        if not len(idx):
+            return 0
+        use_native = (
+            native.egress is not None and self.transport is not None
         )
+        if not use_native:
+            # Toolchain-free fallback: per-packet Python path (sealing
+            # and protection happen inside send_egress).
+            from livekit_server_tpu_torch.runtime.plane_runtime import EgressPacket
+
+            slab = cols.slab
+            pkts = []
+            for j in idx:
+                off, ln = int(cols.pay_off[j]), int(cols.pay_len[j])
+                pkts.append(EgressPacket(
+                    room=int(r[j]), track=int(t[j]), sub=int(s[j]),
+                    sn=int(cols.sn[j]) & 0xFFFF,
+                    ts=int(cols.ts[j]) & 0xFFFFFFFF,
+                    pid=int(cols.pid[j]), tl0=int(cols.tl0[j]),
+                    keyidx=int(cols.keyidx[j]), size=ln,
+                    payload=bytes(slab[off:off + ln]),
+                    marker=bool(cols.marker[j]),
+                    t_arr=float(cols.t_arr[j]),
+                ))
+            _t_send0 = time.perf_counter()
+            self.send_egress(pkts)
+            send_now = time.perf_counter()
+            if self._egress_plane is not None:
+                self._egress_plane.record_express(
+                    len(pkts), int((send_now - _t_send0) * 1e9)
+                )
+            if self.wire_stages is not None:
+                self.wire_stages.observe_express(
+                    cols.sn[idx], cols.t_arr[idx], send_now
+                )
+            return len(pkts)
+        # Destination-major stable order (GSO runs in the native sender);
+        # entries arrive in k-order per stream, the stable sort keeps it.
+        _S = self._sub_port.shape[1]
+        _T = self.ingest.dims.tracks
+        composite = (r[idx].astype(np.int64) * _S + s[idx]) * _T + t[idx]
+        idx = idx[np.argsort(composite, kind="stable")]
+        rr_, tt_, ss_ = r[idx], t[idx], s[idx]
+        ssrc = self._egress_ssrc_arr[rr_, ss_, tt_].copy()
+        for m_ in np.nonzero(ssrc == 0)[0]:  # first send of a new sub only
+            ssrc[m_] = self.subscriber_ssrc(
+                int(rr_[m_]), int(ss_[m_]), int(tt_[m_])
+            )
+        try:
+            now_ms = asyncio.get_event_loop().time() * 1000.0
+        except RuntimeError:
+            now_ms = time.monotonic() * 1000.0
+        # Seal + per-session counter blocks: identical discipline to the
+        # batch path — counters come from the SAME per-session array, so
+        # express and batched sends never collide on a nonce.
+        e_sess = self._sub_sess_idx[rr_, ss_]
+        n_sess = len(self._sessions)
+        if n_sess:
+            seal = (e_sess >= 0) & (
+                self.require_encryption
+                | (self._sess_active[np.maximum(e_sess, 0)] > 0)
+            )
+        else:
+            seal = np.zeros(len(idx), bool)
+        key_idx = np.where(seal, e_sess, -1).astype(np.int32)
+        ctr = np.zeros(len(idx), np.uint64)
+        if seal.any():
+            sealed_pos = np.nonzero(seal)[0]
+            es = e_sess[sealed_pos]
+            u, cnts = np.unique(es, return_counts=True)
+            base = np.zeros(n_sess, np.uint64)
+            base[u] = self._sess_ctr[u]
+            self._sess_ctr[u] += cnts.astype(np.uint64)
+            order = np.argsort(es, kind="stable")
+            sorted_es = es[order]
+            grp_start = np.r_[0, np.nonzero(np.diff(sorted_es))[0] + 1]
+            sizes = np.diff(np.r_[grp_start, len(es)])
+            ranks = np.empty(len(es), np.int64)
+            ranks[order] = np.arange(len(es)) - np.repeat(grp_start, sizes)
+            ctr[sealed_pos] = base[es] + ranks.astype(np.uint64)
+            sp_r, sp_s = rr_[sealed_pos], ss_[sealed_pos]
+            sp_slot = (ctr[sealed_pos] & np.uint64(TWCC_RING - 1)).astype(np.int64)
+            self._twcc_ms[sp_r, sp_s, sp_slot] = now_ms
+            self._twcc_ctr[sp_r, sp_s, sp_slot] = ctr[sealed_pos].astype(np.int64)
+            self._twcc_len[sp_r, sp_s, sp_slot] = (
+                cols.pay_len[idx][sealed_pos] + WIRE_OVERHEAD_BYTES
+            )
+        keys = self._sess_keys if n_sess else np.zeros((1, 16), np.uint8)
+        key_ids = self._sess_keyids if n_sess else np.zeros(1, np.uint32)
+        # Header extensions: playout-delay only (one shared 3-byte
+        # section). SVC rooms are express-ineligible, so no DD patching.
+        ext_blob, ext_off, ext_len = b"", None, None
+        if self.playout_delay is not None:
+            is_vid = self._track_is_video[rr_, tt_]
+            if is_vid.any():
+                mn, mx = self.playout_delay
+                val = (min(mn // 10, 4095) << 12) | min(mx // 10, 4095)
+                sec = build_ext_section(
+                    [(PLAYOUT_DELAY_EXT_ID, val.to_bytes(3, "big"))]
+                )
+                ext_blob = sec
+                ext_off = np.zeros(len(idx), np.int64)
+                ext_len = np.where(is_vid, len(sec), 0).astype(np.int32)
+        fd = self.transport.get_extra_info("socket").fileno()
+        _t_send0 = time.perf_counter()
+        _, _, _, sent, _ = native.egress.send_express(
+            fd=fd, slab=cols.slab,
+            pay_off=cols.pay_off[idx], pay_len=cols.pay_len[idx],
+            marker=cols.marker[idx],
+            pt=self._track_pt[rr_, tt_],
+            vp8=(
+                self._track_is_video[rr_, tt_] & ~self._track_svc[rr_, tt_]
+            ).astype(np.uint8),
+            sn=(cols.sn[idx] & 0xFFFF).astype(np.uint16),
+            ts=(cols.ts[idx].astype(np.int64) & 0xFFFFFFFF).astype(np.uint32),
+            ssrc=ssrc,
+            pid=cols.pid[idx], tl0=cols.tl0[idx], kidx=cols.keyidx[idx],
+            ip=self._sub_ip[rr_, ss_], port=e_port[idx],
+            seal=seal.astype(np.uint8), key_idx=key_idx,
+            keys=keys, key_ids=key_ids, counters=ctr,
+            ext_blob=ext_blob, ext_off=ext_off, ext_len=ext_len,
+        )
+        self.stats["tx"] += sent
+        if sent < len(idx):
+            self.stats["tx_drop"] = (
+                self.stats.get("tx_drop", 0) + len(idx) - sent
+            )
+        send_now = time.perf_counter()
+        if self._egress_plane is not None:
+            # Express sends count toward the host-egress pps/wall stats.
+            self._egress_plane.record_express(
+                int(sent), int((send_now - _t_send0) * 1e9)
+            )
+        t_arr = cols.t_arr[idx]
+        stamped = t_arr[t_arr > 0.0]
+        if stamped.size:
+            self.fwd_latency_express.observe(send_now - stamped)
+        if self.wire_stages is not None:
+            self.wire_stages.observe_express(cols.sn[idx], t_arr, send_now)
+        # SR/tx bookkeeping (add.at — express batches are tiny relative
+        # to the plane, bincount temporaries never pay off here).
+        S = self.ingest.dims.subs
+        flat = (rr_.astype(np.int64) * S + ss_) * _T + tt_
+        np.add.at(self._txsr_pkts.reshape(-1), flat, 1)
+        np.add.at(self._txsr_oct.reshape(-1), flat, cols.pay_len[idx])
+        self._txsr_ts[rr_, ss_, tt_] = (
+            cols.ts[idx].astype(np.int64) & 0xFFFFFFFF
+        ).astype(np.uint32)
+        self._txsr_ms[rr_, ss_, tt_] = now_ms
+        flat_rs = rr_.astype(np.int64) * S + ss_
+        np.add.at(self.tx_pkts.reshape(-1), flat_rs, 1)
+        np.add.at(
+            self.tx_bytes.reshape(-1), flat_rs,
+            cols.pay_len[idx].astype(np.int64) + WIRE_OVERHEAD_BYTES,
+        )
+        return int(sent)
 
     def send_egress_batch(self, batch, red_plan=None, layer_caps=None,
                           pacer_allowed=None) -> np.ndarray:

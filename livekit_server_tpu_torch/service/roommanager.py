@@ -21,15 +21,19 @@ plane is wired as in the reference too: per-room KV checkpoints in a
 generation ring (one device gather per round, `snapshot_rooms`), the live
 migration plane (two-phase handoff, node drain), the fleet plane (epoch
 fences, self-fencing, elected failover) and the dead-node failover
-worker. The subsystems the port does not carry yet (config.UNPORTED: the
-relay, the express lane, a device mesh) are refused at construction with
-a ConfigError naming the ROADMAP item that brings each; none is skipped
-in silence.
+worker. The express lane (plane.express_max_subs > 0) and the embedded
+media relay (relay.enabled) are off by default, as in the reference; when
+on, the runtime builds the lane and `start_transports` attaches it to the
+UDP transport and starts the relay beside it. The subsystem the port
+does not carry yet (config.UNPORTED: a device mesh) is refused at
+construction with a ConfigError naming the ROADMAP item that brings it;
+nothing is skipped in silence.
 """
 
 from __future__ import annotations
 
 import asyncio
+import secrets
 import time
 
 import numpy as np
@@ -57,6 +61,7 @@ from livekit_server_tpu_torch.runtime.faultinject import FaultInjector
 from livekit_server_tpu_torch.runtime.governor import OverloadGovernor
 from livekit_server_tpu_torch.runtime.integrity import IntegrityMonitor
 from livekit_server_tpu_torch.runtime.plane_runtime import TickResult
+from livekit_server_tpu_torch.runtime.relay import start_media_relay
 from livekit_server_tpu_torch.runtime.supervisor import PlaneSupervisor
 from livekit_server_tpu_torch.utils.backoff import BackoffPolicy
 from livekit_server_tpu_torch.service.store import ObjectStore
@@ -146,11 +151,14 @@ class RoomManager:
             blackbox_events=config.trace.blackbox_events,
             egress_shards=config.egress.shards,
             egress_multicast=config.egress.multicast_seal,
+            express_max_subs=p.express_max_subs,
+            express_max_rooms=p.express_max_rooms,
             device=device,
         )
         self.rooms: dict[str, Room] = {}
         self.udp = None     # UDPMediaTransport (start_transports / attach_udp)
         self.tcp_media = None  # TCPMediaTransport, the TCP fallback
+        self.media_relay = None  # MediaRelay (relay.enabled), beside the UDP port
         self._row_to_room: dict[int, Room] = {}
         self._create_locks: dict[str, asyncio.Lock] = {}
         # Media-wire key registry (the DTLS-SRTP key-exchange seat): one
@@ -754,11 +762,11 @@ class RoomManager:
     async def start_transports(self) -> None:
         """Open the native UDP media transport on rtc.udp_port (0 = none)
         and, when the node has an AEAD backend, the TCP fallback on
-        rtc.tcp_port (0 = none), and wire them to the runtime and rooms
-        (the reference server's start sequence, without the express lane
-        and the relay, which the port does not carry). To serve on an
-        ephemeral port, start the transport with port 0 and hand it to
-        `attach_udp` instead."""
+        rtc.tcp_port (0 = none), and the embedded media relay when
+        relay.enabled, and wire them to the runtime and rooms (the
+        reference server's start sequence). To serve on an ephemeral
+        port, start the transport with port 0 and hand it to `attach_udp`
+        (and the relay to `start_relay`) instead."""
         cfg = self.config
         if not cfg.rtc.udp_port or self.udp is not None:
             return
@@ -783,6 +791,40 @@ class RoomManager:
             except OSError as e:    # port busy: the UDP path still works
                 self.log.warn("TCP media fallback not started",
                               port=cfg.rtc.tcp_port, error=str(e))
+        if cfg.relay.enabled:
+            await self.start_relay(cfg.bind_addresses[0], cfg.relay.udp_port)
+
+    async def start_relay(self, host: str, port: int) -> None:
+        """Start the embedded media relay (turn.go:47 seat) on (host,
+        port), forwarding to this node's UDP media port, and advertise it
+        through the transport's `relay_info` for request_relay. Relay
+        tokens are minted and verified only by this process, so the HMAC
+        secret is fresh and random per process (a config-derived secret
+        would be the constant "dev" in keyless dev mode). A wildcard bind
+        is never advertised: clients cannot route to it, so the relay then
+        runs unadvertised unless relay.external_host names an address."""
+        rcfg, udp = self.config.relay, self.udp
+        up_host, up_port = udp.transport.get_extra_info("sockname")[:2]
+        if up_host in ("", "0.0.0.0", "::"):
+            up_host = "127.0.0.1"   # the relay's upstream sockets dial loopback
+        secret = secrets.token_bytes(32)
+        try:
+            self.media_relay = await start_media_relay(
+                host, port, (up_host, up_port), secret,
+                ttl_s=float(rcfg.allocation_ttl_s),
+                max_allocations=rcfg.max_allocations,
+            )
+        except OSError as e:    # relay port busy: the direct path still works
+            self.log.warn("media relay not started", port=port, error=str(e))
+            return
+        advert = rcfg.external_host or host
+        if advert in ("", "0.0.0.0", "::"):
+            self.log.warn("relay enabled but bind address is a wildcard and "
+                          "relay.external_host is unset; not advertising relay "
+                          "to clients")
+            return
+        udp.relay_info = (advert, self.media_relay.transport.get_extra_info(
+            "sockname")[1], secret, float(rcfg.allocation_ttl_s))
 
     def attach_udp(self, udp) -> None:
         """Wire a started UDPMediaTransport to the runtime and the rooms:
@@ -792,6 +834,10 @@ class RoomManager:
         udp.on_pli = self.handle_pli
         udp.attach_egress_plane(self.runtime.egress_plane)
         udp.wire_stages = self.runtime.wire_stages
+        if self.runtime.express is not None:
+            # Express lane: interactive rooms forward on packet arrival
+            # through this transport instead of the batched tick.
+            udp.attach_express(self.runtime.express)
         udp.send_side_bwe = cfg.rtc.congestion_control.send_side_bwe
         if cfg.rtc.pacer == "no-queue":
             udp.pacer_spread_ms = cfg.plane.tick_ms / 2.0
@@ -808,7 +854,11 @@ class RoomManager:
             room.udp = udp
 
     def close_transports(self) -> None:
-        """Close the UDP socket and the TCP listener, if open."""
+        """Close the media relay, the UDP socket and the TCP listener, if
+        open."""
+        if self.media_relay is not None:
+            self.media_relay.close()
+            self.media_relay = None
         if self.udp is not None and self.udp.transport is not None:
             self.udp.transport.close()
         if self.tcp_media is not None:

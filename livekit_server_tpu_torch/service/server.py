@@ -15,9 +15,10 @@ default) and, with `kv.kind: tcp` (or an injected `bus`), the multi-node
 router, store and planes over the shared bus (`connect_bus`). Routes
 whose subsystem the port does not carry yet are left out (ROADMAP A): the
 agents, egress, ingress and SIP services, ioinfo, /debug/compiles and
-/debug/trace; so is the relay, which RoomManager refuses to configure. The UDP media transport and the TCP
-fallback open at start (RoomManager.start_transports) on rtc.udp_port
-and rtc.tcp_port.
+/debug/trace. The UDP media transport and the TCP fallback open at start
+(RoomManager.start_transports) on rtc.udp_port and rtc.tcp_port, with
+the express lane attached (plane.express_max_subs > 0) and the embedded
+media relay beside them (relay.enabled); both are off by default.
 """
 
 from __future__ import annotations
@@ -197,6 +198,11 @@ class LivekitServer:
             # Measured wall-clock packet-in→wire-out latency (includes
             # tick-queueing wait) — the probe in runtime/udp.py.
             body["forward_latency"] = udp.fwd_latency.summary()
+        if rt.express is not None:
+            body["express"] = rt.express.debug()
+            if udp is not None:
+                # Express twin: arrival-driven, no tick-queue wait.
+                body["forward_latency_express"] = udp.fwd_latency_express.summary()
         return web.json_response(body)
 
     async def debug_blackbox(self, request: web.Request) -> web.Response:

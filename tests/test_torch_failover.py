@@ -516,8 +516,13 @@ async def test_node_death_failover_restores_room_on_survivor():
                    and asyncio.get_running_loop().time() < deadline):
                 await asyncio.sleep(0.05)
             assert "chaos" in srv_b.room_manager.rooms, "failover never happened"
-            assert (await srv_b.router.get_node_for_room("chaos")
-                    == srv_b.router.local_node.node_id)
+            # The adoption lists the room before it writes the pin (two bus
+            # round trips later): wait for the pin within the same deadline.
+            b_id = srv_b.router.local_node.node_id
+            while (await srv_b.router.get_node_for_room("chaos") != b_id
+                   and asyncio.get_running_loop().time() < deadline):
+                await asyncio.sleep(0.05)
+            assert await srv_b.router.get_node_for_room("chaos") == b_id
 
             rt_b = srv_b.room_manager.runtime
             row_b = srv_b.room_manager.rooms["chaos"].slots.row

@@ -1,6 +1,6 @@
 """The whole slice against the reference: the JAX package's server and the
 port's server (device="cpu"), built from the same config (the port
-overlay: migration, fleet, relay and the express lane off; the
+overlay; the relay and the express lane off, as by default; the
 supervisor and the integrity audit on, as the reference's defaults have
 them; rtc.udp_port 0), each driven over real WebSockets by the same
 three-party audio script. Every subscriber must receive the same

@@ -345,8 +345,9 @@ async def test_udp_media_through_the_server():
 
 def test_unported_subsystems_raise_config_error():
     """Each subsystem the port does not carry, turned on, is refused at
-    construction with the ROADMAP item that brings it."""
-    enabling = {"plane.express_max_subs": 2, "plane.mesh_devices": 2}
+    construction with the ROADMAP item that brings it; the relay and the
+    express lane are carried and build, off by default."""
+    enabling = {"plane.mesh_devices": 2}
     for path, _enabled, _off, item in UNPORTED:
         section, leaf = path.split(".")
         cfg = make_config(_free_port())
@@ -354,10 +355,14 @@ def test_unported_subsystems_raise_config_error():
         with pytest.raises(ConfigError, match=item.split(" ")[0]) as err:
             create_server(cfg, device="cpu")
         assert path in str(err.value)
-    # The media relay stays refused; the UDP/TCP media ports are ported
-    # and their defaults (7882, 7881) build.
-    assert "relay.enabled" in [u[0] for u in UNPORTED]
-    assert "rtc.udp_port" not in [u[0] for u in UNPORTED]
+    # Only a device mesh stays refused; the relay, the express lane and
+    # the UDP/TCP media ports are ported, and their defaults build.
+    assert [u[0] for u in UNPORTED] == ["plane.mesh_devices"]
+    cfg = make_config(_free_port())
+    assert not cfg.relay.enabled and cfg.plane.express_max_subs == 0
+    cfg.relay.enabled, cfg.plane.express_max_subs = True, 4
+    rm = create_server(cfg, device="cpu").room_manager
+    assert rm.runtime.express is not None and rm.runtime.express.max_subs == 4
     cfg = make_config(_free_port())
     cfg.rtc.udp_port, cfg.rtc.tcp_port = 7882, 7881
     assert create_server(cfg, device="cpu").room_manager.udp is None  # opens at start
@@ -405,9 +410,9 @@ def test_serve_refuses_without_a_card_or_aiohttp(monkeypatch, capsys):
     assert "aiohttp" in capsys.readouterr().err
     # An explicit YAML/flag enabling an unported subsystem is refused too.
     monkeypatch.setattr(cli.importlib.util, "find_spec", real)
-    with pytest.raises(ConfigError, match="relay.enabled"):
+    with pytest.raises(ConfigError, match="plane.mesh_devices"):
         cli.main(["serve", "--dev", "--device", "cpu", "--port", port,
-                  "--relay.enabled", "true"])
+                  "--plane.mesh-devices", "2"])
 
 
 @contextlib.contextmanager
@@ -448,7 +453,7 @@ def test_serve_dev_cpu_answers_health():
     with _serve_dev_cpu() as (_base, out):
         pass
     text = "".join(out)
-    assert "port overlay" in text and '"relay": {"enabled": false}' in text
+    assert "port overlay" in text and '"mesh_devices": 1' in text
     assert '"migration"' not in text and '"fleet"' not in text
     assert '"supervisor"' not in text and '"integrity"' not in text
 

@@ -118,6 +118,38 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
                 the golden scans (ops/rtpmunger.py, ops/vp8.py, ops/svc.py
                 dd_select_tick) on CUDA tensors against their CPU runs and
                 the host munger on the same seeded packets, all equal;
+  5d. gateway — the WebRTC gateway (runtime/webrtc_gateway.py, interop/):
+                a RoomManager on the card at cfg4's PlaneDims(1024, 10, 8,
+                10) with its UDP transport on loopback, media sealed as in
+                5b; GATEWAY_ROOMS rooms joined through start_session, each
+                with a stock publisher and a stock subscriber built from
+                the port's interop modules (their own certificates, ICE
+                credentials, the OpenSSL DTLS client role, RFC 7714 SRTP)
+                whose SDP offers (`offer` over the signal channel) go
+                through the gateway, and a sealed UDP subscriber; the
+                publisher offers Opus and VP8, simulcast (a=ssrc-group:SIM
+                of VP8_LAYERS SSRCs) in the first GATEWAY_SIM_ROOMS rooms.
+                Every answer must be ICE-lite and every subscriber answer
+                must declare the SSRCs the node sends it; all 16 STUN +
+                DTLS handshakes must complete; then the real-time loop for
+                GATEWAY_TICKS ticks with seeded SRTP media (a VP8 gap at
+                GATEWAY_GAP_TICK for an upstream NACK, SRTCP receiver
+                reports from the subscribers). Checks: per room, the
+                gateway subscriber's SRTP-opened RTP equal to the sealed
+                subscriber's AEAD-opened RTP byte for byte but the SSRC,
+                which must be the declared one; srtp_bad, stun_bad and
+                plaintext_drop 0; every SRTCP report opened; each
+                publisher opens SRTCP from the node; B1 and B2 once per
+                tick; after the leaves, no peer, binding or SRTP
+                subscriber left. Reports handshake ms and the gateway's
+                handle_datagram ms a handshake, srtp_rx, srtp_tx,
+                srtcp_rx, host µs per protect and unprotect, and forward
+                latency (publisher send → subscriber receive, on the
+                host's clock) of the gateway lane beside the sealed
+                lane's from the same run. Before the phases, the
+                `libraries` line names libssl.so.3, libcrypto.so.3 and
+                libopus.so.0 as mapped, the OpenSSL version and
+                `cryptography`'s; without libssl.so.3 the run fails;
   6. timing   — the dense runtime's device step (plane.device_tick: upload,
                 tick, fetch) at the north-star PlaneDims(10240, 8, 16, 50),
                 median and p90 of TIMED_TICKS ticks after warm-up; the paged
@@ -200,6 +232,7 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
 
 Output: JSON lines per phase (the serving phase's under "serving", the
 UDP phase's under "udp", phase 5c's under "express" and "golden_scans",
+the gateway's under "gateway" (the libraries under "libraries"),
 the failure phase's under "failure", the
 multi-node plane's under "migration"), a
 `{"kernels": [...]}` JSON line (each kernel's numbers on its own path,
@@ -236,6 +269,7 @@ import torch
 
 from livekit_server_tpu_torch import native
 from livekit_server_tpu_torch.config.config import Config, load_config, port_overlay
+from livekit_server_tpu_torch.interop import dtls as dtls_mod, sdp as sdp_mod, stun as stun_mod
 from livekit_server_tpu_torch.models import paged, plane, synth
 from livekit_server_tpu_torch.ops import (
     allocation, bwe, cuda, pacer, paged_kernel, rtpmunger, selector, svc, vp8,
@@ -2371,6 +2405,501 @@ async def express_phase(dev, rooms: int = EXPRESS_ROOMS, lock_ticks: int = EXPRE
             "loop": loop, "relay": relay_rep}
 
 
+# ---------------------------------------------------------------------------
+# The WebRTC gateway (phase 5d)
+# ---------------------------------------------------------------------------
+
+GATEWAY_DIMS = RUNTIME_DIMS        # cfg4's plane
+GATEWAY_ROOMS = 8
+GATEWAY_SIM_ROOMS = 4              # rooms whose VP8 is simulcast (a=ssrc-group:SIM of 3)
+GATEWAY_TICKS = 100
+GATEWAY_GAP_TICK = 40              # every publisher skips a VP8 SN here: an upstream NACK
+GATEWAY_RR_EVERY = 20              # ticks between the gateway subscribers' receiver reports
+GATEWAY_WAIT_S = 30.0
+
+
+def library_report() -> dict:
+    """The shared libraries of the gateway lane as this process maps them
+    (libssl.so.3 and libcrypto.so.3 through the gateway's own loader), the
+    OpenSSL version string, `cryptography`'s version, and libopus.so.0,
+    which the MCU mixer needs (None where absent)."""
+    import ctypes
+
+    rep: dict = {}
+    try:
+        lib = dtls_mod._Lib.get()
+        lib.crypto.OpenSSL_version.restype = ctypes.c_char_p
+        lib.crypto.OpenSSL_version.argtypes = [ctypes.c_int]
+        rep["openssl_version"] = lib.crypto.OpenSSL_version(0).decode()
+    except OSError as e:
+        rep["openssl_error"] = str(e)
+    try:
+        ctypes.CDLL("libopus.so.0")
+    except OSError:
+        pass
+    for stem in ("libssl", "libcrypto", "libopus"):
+        rep[stem] = native.loaded_library(stem) or None
+    try:
+        import cryptography
+
+        rep["cryptography"] = cryptography.__version__
+    except ImportError:
+        rep["cryptography"] = None
+    return rep
+
+
+class GatewayClient:
+    """A stock WebRTC endpoint built from the port's interop modules (its
+    own certificate and ICE credentials, the OpenSSL DTLS client role, RFC
+    7714 SRTP), speaking only STUN, DTLS, SRTP and SDP at the server's
+    media socket. A publisher offers Opus and VP8 (simulcast when `sim`),
+    a subscriber two recv-only sections (audio, video)."""
+
+    def __init__(self, room: int, publisher: bool, sim: bool = False):
+        self.room, self.publisher = room, publisher
+        self.sock = udp_socket()
+        self.cert, self.key, self.fp = dtls_mod.generate_certificate("client")
+        self.ufrag, self.pwd = f"c{room}{int(publisher)}", f"client-pwd-{room:04d}-{int(publisher)}xxxxxx"
+        self.audio_ssrc = 0x1A000000 + 16 * room
+        self.video_ssrcs = [0x2B000000 + 16 * room + i for i in range(VP8_LAYERS if sim else 1)]
+        self.dtls = self.tx = self.rx = self.server = None
+
+    def offer(self) -> str:
+        out = ("v=0\r\no=- 1 2 IN IP4 127.0.0.1\r\ns=-\r\nt=0 0\r\na=group:BUNDLE 0 1\r\n"
+               f"a=ice-ufrag:{self.ufrag}\r\na=ice-pwd:{self.pwd}\r\n"
+               f"a=fingerprint:sha-256 {self.fp}\r\na=setup:actpass\r\n")
+        way = "sendonly" if self.publisher else "recvonly"
+        out += (f"m=audio 9 UDP/TLS/RTP/SAVPF 109\r\na=mid:0\r\na={way}\r\na=rtcp-mux\r\n"
+                "a=rtpmap:109 opus/48000/2\r\n"
+                f"a=extmap:{udp_mod.AUDIO_LEVEL_EXT_ID} urn:ietf:params:rtp-hdrext:ssrc-audio-level\r\n")
+        if self.publisher:
+            out += f"a=ssrc:{self.audio_ssrc} cname:c{self.room}\r\n"
+        out += (f"m=video 9 UDP/TLS/RTP/SAVPF 120\r\na=mid:1\r\na={way}\r\na=rtcp-mux\r\n"
+                "a=rtpmap:120 VP8/90000\r\n")
+        if self.publisher:
+            if len(self.video_ssrcs) > 1:
+                out += f"a=ssrc-group:SIM {' '.join(map(str, self.video_ssrcs))}\r\n"
+            out += "".join(f"a=ssrc:{s} cname:c{self.room}\r\n" for s in self.video_ssrcs)
+        return out
+
+    async def recv(self) -> bytes:
+        deadline = time.perf_counter() + GATEWAY_WAIT_S
+        while time.perf_counter() < deadline:
+            try:
+                return self.sock.recv(65536)
+            except BlockingIOError:
+                await asyncio.sleep(0.0005)
+        raise AssertionError(f"gateway client of room {self.room}: no datagram")
+
+    async def connect(self, answer: str) -> float:
+        """STUN binding → DTLS handshake → SRTP sessions; → handshake ms."""
+        ans = sdp_mod.parse_sdp(answer)
+        m = ans.media[0]
+        pwd = ans.media_pwd(m).encode()
+        cand = [ln for ln in answer.split("\r\n") if ln.startswith("a=candidate:")][0].split()
+        self.server = (cand[4], int(cand[5]))
+        t0 = time.perf_counter()
+        self.sock.sendto(stun_mod.build_binding_request(f"{ans.media_ufrag(m)}:{self.ufrag}", pwd),
+                         self.server)
+        resp = stun_mod.parse_stun(await self.recv(), integrity_key=pwd)
+        if resp is None or resp.msg_type != stun_mod.BINDING_SUCCESS or not resp.integrity_ok:
+            raise AssertionError(f"room {self.room}: bad STUN answer")
+        self.dtls = dtls_mod.DtlsEndpoint("client", self.cert, self.key,
+                                          peer_fingerprint=ans.media_fingerprint(m).split()[1])
+        for d in self.dtls.pump():
+            self.sock.sendto(d, self.server)
+        while not self.dtls.handshake_complete:
+            data = await self.recv()
+            if dtls_mod.is_dtls(data):
+                for d in self.dtls.feed(data):
+                    self.sock.sendto(d, self.server)
+        ms = (time.perf_counter() - t0) * 1e3
+        from livekit_server_tpu_torch.interop.srtp import SrtpSession
+
+        (lk, ls), (rk, rs) = self.dtls.export_srtp_keys()
+        self.tx = SrtpSession(master_key=lk, master_salt=ls)
+        self.rx = SrtpSession(master_key=rk, master_salt=rs)
+        return ms
+
+    def open(self, data: bytes):
+        """→ ("rtcp" | "rtp", cleartext) or None."""
+        if len(data) >= 2 and 192 <= data[1] <= 223:
+            return "rtcp", self.rx.unprotect_rtcp(data)
+        return "rtp", self.rx.unprotect_rtp(data)
+
+    def close(self) -> None:
+        if self.dtls is not None:
+            self.dtls.close()
+        self.sock.close()
+
+
+class HostTimer:
+    """Seconds and calls of bound methods, wrapped in place on their objects."""
+
+    def __init__(self):
+        self.s: dict[str, list[float]] = {}
+
+    def wrap(self, obj, attr: str, key: str) -> None:
+        fn = getattr(obj, attr)
+        acc = self.s.setdefault(key, [])
+
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc.append(time.perf_counter() - t0)
+
+        setattr(obj, attr, run)
+
+    def us(self, key: str) -> dict:
+        xs = sorted(self.s.get(key, []))
+        if not xs:
+            return {"calls": 0}
+        return {"calls": len(xs), "mean_us": sum(xs) / len(xs) * 1e6,
+                "p50_us": xs[len(xs) // 2] * 1e6}
+
+
+def gateway_datagrams(rooms: int, tick: int) -> list[tuple[int, str, int, bytes]]:
+    """express_datagrams' seeded tick for the gateway phase: (room, kind,
+    layer, datagram), Opus, and VP8 on every layer in the simulcast rooms
+    and on layer 0 elsewhere; layer 0's packet is left out at
+    GATEWAY_GAP_TICK (upstream NACKs are video-only)."""
+    out = []
+    for r, t, layer, d in express_datagrams(rooms, tick):
+        if t == 0 and (layer == 0 or r < GATEWAY_SIM_ROOMS):
+            if not (layer == 0 and tick == GATEWAY_GAP_TICK):
+                out.append((r, "video", layer, d))
+        elif t == 1:
+            out.append((r, "audio", 0, d))
+    return out
+
+
+def percentiles(xs) -> dict:
+    xs = sorted(xs)
+    if not xs:
+        return {"n": 0}
+    return {"n": len(xs), "p50_ms": xs[len(xs) // 2], "p90_ms": xs[int(0.9 * (len(xs) - 1))],
+            "p99_ms": xs[int(0.99 * (len(xs) - 1))]}
+
+
+class GatewayRig:
+    """A RoomManager on the card with its UDP transport on loopback and
+    GATEWAY_ROOMS rooms joined through start_session, each with a stock
+    publisher ("pub"), a stock subscriber ("gsub", recv-only sections),
+    both through the WebRTC gateway, and a sealed UDP subscriber ("ssub",
+    a punch from a socket of its own)."""
+
+    def __init__(self, rm: RoomManager, rooms: int):
+        self.rm, self.udp, self.rt = rm, rm.udp, rm.runtime
+        self.rooms = rooms
+        self.pubs = [GatewayClient(r, True, sim=r < GATEWAY_SIM_ROOMS) for r in range(rooms)]
+        self.gsubs = [GatewayClient(r, False) for r in range(rooms)]
+        self.ssub_socks = [udp_socket() for _ in range(rooms)]
+        self.sessions: dict = {}        # (room, identity) → (request, response, task)
+        self.ssub_client: dict = {}
+        self.declared: dict = {}        # room → {kind: the gsub SSRC its answer declared}
+        self.timer = HostTimer()
+
+    async def answer_of(self, r: int, ident: str, offer: str) -> str:
+        req, resp, _task = self.sessions[(r, ident)]
+        req.write_message(json.dumps({"offer": {"type": "offer", "sdp": offer}}))
+        got: list = []
+
+        def answered() -> bool:
+            while not resp._q.empty():
+                msg = decode_signal_response(resp._q.get_nowait())
+                if msg.kind == "answer":
+                    got.append(msg.data["sdp"])
+            return bool(got)
+
+        await wait_until(answered, f"room{r} {ident}'s answer", GATEWAY_WAIT_S)
+        if "a=ice-lite" not in got[0]:
+            raise AssertionError(f"room{r} {ident}: the answer is not ICE-lite (reflected?)")
+        return got[0]
+
+    async def join(self) -> dict:
+        rm, udp = self.rm, self.udp
+        for r in range(self.rooms):
+            for ident in ("pub", "gsub", "ssub"):
+                req, resp = MessageChannel(), MessageChannel()
+                init = {"identity": ident, "name": ident, "auto_subscribe": True,
+                        "grants": {"video": {"roomJoin": True, "room": f"gw{r}"}}}
+                task = asyncio.ensure_future(rm.start_session(f"gw{r}", init, req, resp))
+                self.sessions[(r, ident)] = (req, resp, task)
+        await wait_until(lambda: all(len(rm.rooms[f"gw{r}"].participants) == 3
+                                     for r in range(self.rooms) if f"gw{r}" in rm.rooms)
+                         and len(rm.rooms) >= self.rooms, "the joins", GATEWAY_WAIT_S)
+        gw = udp.gateway if udp.gateway is not None else udp.enable_gateway()
+        self.timer.wrap(gw, "handle_datagram", "handle_datagram")
+        answers = {}
+        for r in range(self.rooms):
+            answers[(r, "pub")] = await self.answer_of(r, "pub", self.pubs[r].offer())
+        for r in range(self.rooms):
+            room = rm.rooms[f"gw{r}"]
+            pub = room.participants["pub"]
+            kinds = {t.is_video: t.track_col for t in pub.published.values()}
+            if sorted(kinds) != [False, True] or not all(t.via_gateway for t in pub.published.values()):
+                raise AssertionError(f"gw{r}: the offer published {list(pub.published)}")
+            bound = {s for s, b in udp.bindings.items() if b.room == room.slots.row}
+            want = {self.pubs[r].audio_ssrc, *self.pubs[r].video_ssrcs}
+            if bound != want:
+                raise AssertionError(f"gw{r}: bound SSRCs {bound}, offered {want}")
+            answers[(r, "gsub")] = ans = await self.answer_of(r, "gsub", self.gsubs[r].offer())
+            gsub = room.participants["gsub"]
+            parsed = sdp_mod.parse_sdp(ans)
+            self.declared[r] = {}
+            for m in parsed.media:
+                col = kinds[m.kind == "video"]
+                want = udp.subscriber_ssrc(room.slots.row, gsub.sub_col, col)
+                if m.ssrcs != [want]:
+                    raise AssertionError(f"gw{r}: the {m.kind} recv section declares {m.ssrcs}, "
+                                         f"the node sends {want}")
+                self.declared[r][m.kind] = want
+        # The sealed subscribers: UDP media, a sealed punch each.
+        for r in range(self.rooms):
+            self.sessions[(r, "ssub")][0].write_message(json.dumps({"subscription": {"udp": True}}))
+        keys = {}
+        for r in range(self.rooms):
+            room = rm.rooms[f"gw{r}"]
+            p = room.participants["ssub"]
+            keys[r] = (room.slots.row, p.sub_col)
+        await wait_until(lambda: all(k in udp._punch_by_sub for k in keys.values()),
+                         "the punch ids", GATEWAY_WAIT_S)
+        for r, key in keys.items():
+            p = rm.rooms[f"gw{r}"].participants["ssub"]
+            c = None
+            if p.crypto_session is not None:
+                c = crypto_mod.MediaCryptoClient(p.crypto_session.key_id, p.crypto_session.key)
+            self.ssub_client[r] = c
+            d = udp_mod.PUNCH_REQ + udp._punch_by_sub[key].to_bytes(4, "big")
+            self.ssub_socks[r].sendto(c.seal(d) if c is not None else d, ("127.0.0.1", self.port))
+        await wait_until(lambda: all(k in udp.sub_addrs for k in keys.values()), "the punches",
+                         GATEWAY_WAIT_S)
+        for s in self.ssub_socks:
+            while True:
+                try:
+                    s.recv(4096)
+                except BlockingIOError:
+                    break
+        # The 16 handshakes, one at a time; the gateway's time in
+        # handle_datagram is summed per handshake.
+        hs_ms, hd_ms = [], []
+        for r in range(self.rooms):
+            for cli, ident in ((self.pubs[r], "pub"), (self.gsubs[r], "gsub")):
+                n0 = len(self.timer.s["handle_datagram"])
+                hs_ms.append(await cli.connect(answers[(r, ident)]))
+                hd_ms.append(sum(self.timer.s["handle_datagram"][n0:]) * 1e3)
+        if gw.stats["dtls_done"] != 2 * self.rooms:
+            raise AssertionError(f"gateway: {gw.stats['dtls_done']} DTLS handshakes completed")
+        for peer in gw.peers_by_ufrag.values():
+            self.timer.wrap(peer.srtp_tx, "protect_rtp", "protect")
+            self.timer.wrap(peer.srtp_tx, "protect_rtcp", "protect")
+            self.timer.wrap(peer.srtp_rx, "unprotect_rtp", "unprotect")
+            self.timer.wrap(peer.srtp_rx, "unprotect_rtcp", "unprotect")
+        return {"handshake_ms": percentiles(hs_ms), "handle_datagram_ms_per_handshake":
+                percentiles(hd_ms), "handshakes": len(hs_ms)}
+
+    @property
+    def port(self) -> int:
+        return self.udp.transport.get_extra_info("sockname")[1]
+
+    async def loop(self, ticks: int) -> dict:
+        """RoomManager.start → PlaneRuntime._run; a feeder sends tick i's
+        SRTP datagrams on the loop's i-th tick, a thread takes every
+        datagram off the clients' and sinks' sockets with its arrival
+        time. Checks the launches."""
+        rm, rt = self.rm, self.rt
+        ticked = asyncio.Event()
+        rt.on_tick(lambda _res: ticked.set())
+        sent_at: dict = {}            # (room, payload tail) → send time
+        socks = ([c.sock for c in self.gsubs] + self.ssub_socks + [c.sock for c in self.pubs])
+        got: list = []                # (socket index, arrival time, datagram)
+        stop = threading.Event()
+
+        def receiver():
+            while not stop.is_set():
+                ready, _, _ = select.select(socks, [], [], 0.05)
+                for s in ready:
+                    i = socks.index(s)
+                    while True:
+                        try:
+                            d = s.recv(65536)
+                        except BlockingIOError:
+                            break
+                        got.append((i, time.perf_counter(), d))
+
+        fed, rrs = [0], [0]
+
+        async def feeder():
+            for i in range(ticks):
+                await ticked.wait()
+                ticked.clear()
+                for r, kind, layer, d in gateway_datagrams(self.rooms, i):
+                    pub = self.pubs[r]
+                    ssrc = pub.audio_ssrc if kind == "audio" else pub.video_ssrcs[layer]
+                    wire = pub.tx.protect_rtp(d[:8] + ssrc.to_bytes(4, "big") + d[12:])
+                    sent_at[(r, d[-16:])] = time.perf_counter()
+                    pub.sock.sendto(wire, pub.server)
+                if i % GATEWAY_RR_EVERY == GATEWAY_RR_EVERY // 2:
+                    for r, sub in enumerate(self.gsubs):
+                        rr = udp_mod.build_rr(0x5EED0000 + r, self.declared[r]["video"], 0)
+                        sub.sock.sendto(sub.tx.protect_rtcp(rr), sub.server)
+                        rrs[0] += 1
+                fed[0] += 1
+
+        thread = threading.Thread(target=receiver, daemon=True)
+        thread.start()
+        base = dict(rt.stats)
+        cuda.reset_launches()
+        task = asyncio.ensure_future(feeder())
+        t0 = time.perf_counter()
+        try:
+            rm.start()
+            await wait_until(lambda: task.done(), "the feeder", GATEWAY_WAIT_S + ticks * 0.1)
+            task.result()
+            t_fed = rt.stats["ticks"]
+            await wait_until(lambda: rt.stats["ticks"] >= t_fed + 3, "the last ticks")
+            await rt.stop()
+            wall_s = time.perf_counter() - t0
+            launches = dict(cuda.launches)
+        finally:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+            await asyncio.sleep(0.3)
+            stop.set()
+            thread.join(10)
+        n_ticks = rt.stats["ticks"] - base["ticks"]
+        want = {"decide_rooms": n_ticks, "allocate_budget_rooms": n_ticks, "paged_kernel": 0}
+        if launches != want:
+            raise AssertionError(f"gateway loop launches {launches}, expected {want}")
+        return {"ticks": n_ticks, "fed": fed[0], "receiver_reports": rrs[0], "wall_s": wall_s,
+                "wall_ms_per_tick": wall_s / max(n_ticks, 1) * 1e3,
+                "late_ticks": rt.stats["late_ticks"] - base["late_ticks"],
+                "launches": launches, "received": got, "sent_at": sent_at}
+
+    def check(self, got: list, sent_at: dict) -> dict:
+        """Open everything the clients and sinks received: per room, the
+        gateway subscriber's SRTP-opened RTP equal to the sealed
+        subscriber's AEAD-opened RTP byte for byte but the SSRC, the SSRC
+        the one its answer declared; each publisher opened SRTCP."""
+        n = self.rooms
+        rtp: dict = {}                # (lane, room, kind) → [datagram with its SSRC zeroed]
+        lat: dict = {"gateway": [], "sealed": []}
+        srtcp_pub = [0] * n
+        srtcp_sub = 0
+        for i, t_rx, d in got:
+            lane, r = ("gateway", "sealed", "pub")[i // n], i % n
+            if lane == "pub":
+                kind, clear = self.pubs[r].open(d)
+                if kind != "rtcp" or clear is None:
+                    raise AssertionError(f"gw{r}: the publisher got a datagram it cannot open")
+                srtcp_pub[r] += 1
+                continue
+            if lane == "gateway":
+                kind, clear = self.gsubs[r].open(d)
+                if clear is None:
+                    raise AssertionError(f"gw{r}: an SRTP datagram did not open")
+                if kind == "rtcp":
+                    srtcp_sub += 1
+                    continue
+                ssrc = int.from_bytes(clear[8:12], "big")
+                kinds = [k for k, v in self.declared[r].items() if v == ssrc]
+                if not kinds:
+                    raise AssertionError(f"gw{r}: SSRC {ssrc} was not declared in the answer")
+                key = kinds[0]
+            else:
+                c = self.ssub_client[r]
+                clear = c.open(d) if c is not None else d
+                if clear is None:
+                    raise AssertionError(f"gw{r}: a sealed datagram did not open")
+                if clear[:8] == udp_mod.PUNCH_ACK or 192 <= clear[1] <= 223:
+                    continue
+                rst = self.udp.egress_rev.get(int.from_bytes(clear[8:12], "big"))
+                if rst is None:
+                    raise AssertionError(f"gw{r}: sealed egress with an unknown SSRC")
+                key = "video" if self.udp.track_kind.get((rst[0], rst[2])) else "audio"
+            rtp.setdefault((lane, r, key), []).append(clear[:8] + bytes(4) + clear[12:])
+            t_tx = sent_at.get((r, clear[-16:]))
+            if t_tx is not None:
+                lat[lane].append((t_rx - t_tx) * 1e3)
+        compared = 0
+        for r in range(n):
+            for kind in ("audio", "video"):
+                g, s = rtp.get(("gateway", r, kind), []), rtp.get(("sealed", r, kind), [])
+                if not g or g != s:
+                    diff = next((j for j, (a, b) in enumerate(zip(g, s)) if a != b), None)
+                    raise AssertionError(f"gw{r} {kind}: {len(g)} gateway and {len(s)} sealed "
+                                         f"packets, first difference at {diff}")
+                compared += len(g)
+        if min(srtcp_pub) < 1:
+            raise AssertionError(f"publishers' opened SRTCP: {srtcp_pub}")
+        return {"rtp_compared_per_lane": compared, "exact_but_ssrc": True,
+                "publisher_srtcp_opened": srtcp_pub, "subscriber_srtcp_opened": srtcp_sub,
+                "forward_latency_gateway": percentiles(lat["gateway"]),
+                "forward_latency_sealed": percentiles(lat["sealed"])}
+
+    async def leave(self) -> dict:
+        """Every session closes; the gateway must hold no peer, binding or
+        SRTP subscriber address of them afterwards."""
+        udp, gw = self.udp, self.udp.gateway
+        for req, _resp, _task in self.sessions.values():
+            req.close()
+        await asyncio.wait_for(asyncio.gather(*(t for _, _, t in self.sessions.values()),
+                                              return_exceptions=True), 60)
+        ssrcs = {c.audio_ssrc for c in self.pubs} | {s for c in self.pubs for s in c.video_ssrcs}
+        left = {"peers": len(gw.peers_by_ufrag), "latched": len(gw.peers_by_addr),
+                "tuples": len(gw.peers_by_tuple),
+                "bindings": len(ssrcs & set(udp.bindings)),
+                "srtp_subscribers": sum(1 for a in udp.sub_addrs.values() if a[0] == "srtp")}
+        if any(left.values()):
+            raise AssertionError(f"gateway state left after the leaves: {left}")
+        return left
+
+    async def close(self) -> None:
+        await self.rm.stop()
+        self.rm.close_transports()
+        for c in (*self.pubs, *self.gsubs):
+            c.close()
+        for s in self.ssub_socks:
+            s.close()
+
+
+async def gateway_phase(dev, rooms: int = GATEWAY_ROOMS, ticks: int = GATEWAY_TICKS) -> dict:
+    """The WebRTC gateway on the card (see the module docstring, phase 5d)."""
+    t0 = time.perf_counter()
+    cfg = udp_config(dense_dims=GATEWAY_DIMS)
+    rig = GatewayRig(await udp_room_manager(dev, cfg), rooms)
+    try:
+        hs = await rig.join()
+        log(f"gateway: {2 * rooms} handshakes, handshake ms {hs['handshake_ms']}, "
+            f"handle_datagram ms a handshake {hs['handle_datagram_ms_per_handshake']}")
+        loop = await rig.loop(ticks)
+        got, sent_at = loop.pop("received"), loop.pop("sent_at")
+        res = rig.check(got, sent_at)
+        gw = rig.udp.gateway
+        stats = dict(gw.stats)
+        bad = {k: v for k, v in (("srtp_bad", stats["srtp_bad"]), ("stun_bad", stats["stun_bad"]),
+                                 ("plaintext_drop", rig.udp.stats["plaintext_drop"])) if v}
+        if bad or stats["srtcp_rx"] != loop["receiver_reports"]:
+            raise AssertionError(f"gateway: {bad}, {stats['srtcp_rx']} SRTCP opened of "
+                                 f"{loop['receiver_reports']} sent")
+        left = await rig.leave()
+    finally:
+        await rig.close()
+    out = {"dims": list(GATEWAY_DIMS), "rooms": rooms, "simulcast_rooms": GATEWAY_SIM_ROOMS,
+           "sealed": REQUIRE_ENCRYPTION, **hs, "loop": loop, **res,
+           "srtp_rx": stats["srtp_rx"], "srtp_tx": stats["srtp_tx"],
+           "srtcp_rx": stats["srtcp_rx"], "gateway_stats": stats,
+           "protect": rig.timer.us("protect"), "unprotect": rig.timer.us("unprotect"),
+           "after_leave": left, "phase_s": time.perf_counter() - t0}
+    log(f"gateway ok: {ticks} ticks, {res['rtp_compared_per_lane']} RTP a lane equal; forward "
+        f"latency gateway {res['forward_latency_gateway']}, sealed "
+        f"{res['forward_latency_sealed']}; protect {out['protect']}, unprotect "
+        f"{out['unprotect']}")
+    return out
+
+
 GOLDEN_DIMS = (64, 2, 8, 10)       # rooms, tracks, packets, subscribers
 GOLDEN_TICKS = 6
 
@@ -3793,6 +4322,12 @@ def main() -> int:
     print(json.dumps({"ptxas": ptxas}), flush=True)
     card = card_line()
     log(f"build ok in {time.perf_counter() - t0:.1f} s; card: {card}")
+    libs = library_report()
+    print(json.dumps({"libraries": libs}), flush=True)
+    if not libs["libssl"]:
+        print("chip_smoke: libssl.so.3 is missing; the WebRTC gateway cannot run",
+              file=sys.stderr)
+        return 3
 
     ends: dict[str, float] = {"build": time.perf_counter() - t0}   # s into the run
 
@@ -3817,6 +4352,9 @@ def main() -> int:
     log(f"golden scans exact on the card: {golden}")
     print(json.dumps({"golden_scans": golden}), flush=True)
     done("express")
+    gateway = asyncio.run(gateway_phase(dev))
+    print(json.dumps({"gateway": gateway}), flush=True)
+    done("gateway")
     tick, dense_t, ns_state = timing_phase(dev, args.profile)
     paged_tick, paged_t, pool_state = paged_timing_phase(dev, args.profile)
     done("timing")
@@ -3842,6 +4380,7 @@ def main() -> int:
                 "udp_paged": udp["paged"]["launches"],
                 "express_lockstep": express["lockstep"]["launches"],
                 "express": express["loop"]["launches"],
+                "gateway": gateway["loop"]["launches"],
                 "migration": migration["launches"]}
     paged_t["paged_kernel"]["mix"] = mix_t
     timed = {"dense": dense_t, "paged": paged_t}

@@ -1019,13 +1019,14 @@ def __getattr__(name: str):
     return globals()[name]
 
 
-def loaded_libcrypto() -> str:
-    """The libcrypto file this process has mapped ('' if none)."""
+def loaded_library(stem: str = "libcrypto") -> str:
+    """The file of the shared library `stem` (libcrypto unless told
+    otherwise) this process has mapped ('' if none)."""
     try:
         with open("/proc/self/maps") as f:
             for line in f:
                 path = line.split()[-1]
-                if "libcrypto" in os.path.basename(path):
+                if stem in os.path.basename(path):
                     return path
     except OSError:
         pass
@@ -1044,5 +1045,5 @@ def status() -> dict:
     return {
         "loaded": loaded,
         "builds": {k: dict(v) for k, v in build_log.items()},
-        "libcrypto": loaded_libcrypto(),
+        "libcrypto": loaded_library(),
     }

@@ -141,6 +141,12 @@ class Room:
                 self.udp.release_subscriber(self.slots.row, p.sub_col)
         if self.crypto is not None and getattr(p, "crypto_session", None) is not None:
             self.crypto.remove(p.crypto_session.key_id)
+        peer = getattr(p, "gateway_peer", None)
+        if peer is not None and self.udp is not None and self.udp.gateway is not None:
+            # Standards-lane client: tear down the DTLS association and
+            # its SSRC bindings with the participant.
+            self.udp.gateway.close_peer(peer)
+            p.gateway_peer = None
         del self.participants[p.identity]
         self.by_sid.pop(p.sid, None)
         self.info.num_participants = len(self.participants)

@@ -22,9 +22,23 @@ def handle_participant_signal(room, participant: Participant, req: SignalRequest
     kind, data = req.kind, req.data
 
     if kind == "offer":
-        # Publisher SDP: reflected, as the reference does without its
-        # WebRTC gateway (ROADMAP A12c; the port does not carry it yet).
+        # Publisher SDP. A real SDP (carries ICE credentials) negotiates
+        # through the standards-lane WebRTC gateway: ICE-lite + DTLS-SRTP
+        # on the media socket (runtime/webrtc_gateway.py; the reference's
+        # Pion seat, pkg/rtc/transport.go + participant_sdp.go). Anything
+        # else keeps the legacy reflect behavior for the slot-addressed
+        # sealed transport's protocol-conformant SDKs.
         sdp_text = data.get("sdp", "")
+        udp = getattr(room, "udp", None)
+        sealed_active = (
+            participant.crypto_session is not None
+            and getattr(participant.crypto_session, "client_active", False)
+        )
+        if udp is not None and "a=ice-ufrag" in sdp_text and not sealed_active:
+            answer = _negotiate_gateway_offer(room, participant, sdp_text)
+            if answer is not None:
+                participant.send("answer", {"type": "answer", "sdp": answer})
+                return
         participant.send("answer", {"type": "answer", "sdp": sdp_text})
     elif kind == "answer":
         pass  # subscriber-side answer: nothing to reconcile host-side
@@ -172,6 +186,104 @@ def handle_participant_signal(room, participant: Participant, req: SignalRequest
             room.broadcast_participant_state(participant)
     elif kind == "leave":
         room.remove_participant(participant, pm.DisconnectReason.CLIENT_INITIATED)
+
+
+def _negotiate_gateway_offer(room, participant: Participant, offer_text: str):
+    """SDP offer → gateway peer + ICE-lite answer (participant_sdp.go
+    seat). Send-capable m-sections bind to plane track columns: pending
+    tracks (announced via add_track) are matched by media kind in order;
+    sections with no matching announce auto-publish a track named after
+    their mid. recv-capable sections register the participant's
+    subscriber column for SRTP egress."""
+    from livekit_server_tpu_torch.interop import sdp as sdp_mod
+
+    udp = room.udp
+    gw = udp.enable_gateway()
+    try:
+        offer = sdp_mod.parse_sdp(offer_text)
+    except Exception:  # noqa: BLE001 — malformed SDP: fall back to legacy
+        return None
+    if not offer.media:
+        return None
+    old = getattr(participant, "gateway_peer", None)
+    if old is not None:
+        # Renegotiation: the old association's keys die with it.
+        gw.close_peer(old)
+        participant.gateway_peer = None
+
+    # Tracks claimed by a previous gateway negotiation: reuse them by
+    # kind on renegotiation (onnegotiationneeded fires for ICE restarts
+    # and device changes — duplicating columns each time would exhaust
+    # the room after a handful of re-offers).
+    prior = {
+        sid: t for sid, t in participant.published.items()
+        if getattr(t, "via_gateway", False)
+    }
+    reused: set = set()
+    publish = []
+    for m in offer.media:
+        if m.kind not in ("audio", "video"):
+            continue
+        if m.direction not in ("sendonly", "sendrecv") or not m.ssrcs:
+            continue
+        want_video = m.kind == "video"
+        track = None
+        for sid, t in prior.items():
+            if sid not in reused and t.is_video == want_video:
+                track = t
+                reused.add(sid)
+                break
+        if track is None:
+            for cid, info in list(participant.pending_tracks.items()):
+                if (info.type == pm.TrackType.VIDEO) == want_video:
+                    track = participant.publish_pending(cid)
+                    break
+        if track is None:
+            cid = f"sdp-{m.mid or len(publish)}"
+            codec = next(iter(m.codecs.values()), "")
+            info = participant.add_track_request({
+                "cid": cid,
+                "type": int(pm.TrackType.VIDEO if want_video
+                            else pm.TrackType.AUDIO),
+                "name": cid,
+                "mime_type": f"{m.kind}/{codec}" if codec else "",
+            })
+            if info is None:
+                continue
+            track = participant.publish_pending(cid)
+        if track is None:
+            continue
+        track.via_gateway = True
+        mime = next(
+            (c for c in ("vp8", "vp9", "av1", "h264", "opus")
+             if c in m.codecs.values()),
+            "vp8" if want_video else "opus",
+        )
+        publish.append({
+            "mid": m.mid, "room": room.slots.row,
+            "track": track.track_col, "mime": mime,
+            "svc": mime in ("vp9", "av1") and not any(
+                g[0] == "SIM" for g in m.ssrc_groups
+            ),
+        })
+    # Gateway tracks from the previous negotiation that this offer no
+    # longer carries: unpublish, or they linger as ghost columns.
+    for sid in list(prior):
+        if sid not in reused:
+            participant.unpublish_track(sid)
+    subscribe = None
+    if participant.sub_col >= 0 and any(
+        m.direction in ("recvonly", "sendrecv") for m in offer.media
+    ):
+        subscribe = (room.slots.row, participant.sub_col)
+    try:
+        answer, peer = gw.create_peer(
+            offer_text, publish=publish, subscribe=subscribe
+        )
+    except Exception:  # noqa: BLE001
+        return None
+    participant.gateway_peer = peer
+    return answer
 
 
 def _handle_subscription_permission(room, participant: Participant, data: dict) -> None:

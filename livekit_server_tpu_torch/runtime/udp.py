@@ -17,9 +17,10 @@ Port of the JAX package's runtime/udp.py. The native libraries load on
 first use (livekit_server_tpu_torch.native). `attach_express` binds the
 express lane (runtime/express.py) and `_send_express` carries its sends;
 `relay_info` is set by the room manager when the media relay
-(runtime/relay.py) runs. The hooks into subsystems the port does not
-carry raise an error naming their ROADMAP item: `enable_gateway` (the
-WebRTC gateway, A12c) and `enable_audio_mixer` (the MCU mixer, A8).
+(runtime/relay.py) runs. `enable_gateway` attaches the standards-lane
+WebRTC gateway (runtime/webrtc_gateway.py). `enable_audio_mixer`, the
+hook of a subsystem the port does not carry, raises an error naming its
+ROADMAP item (the MCU mixer, A8).
 """
 
 from __future__ import annotations
@@ -415,6 +416,9 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         # NACK → replay-packet resolver (PlaneRuntime.resolve_nacks);
         # None = RTX disabled (bare-ingest tooling/tests).
         self.nack_resolver = nack_resolver
+        # Standards-lane WebRTC gateway (ICE-lite + DTLS-SRTP); created on
+        # demand by enable_gateway() — the sealed lane needs none of it.
+        self.gateway = None
         # MCU seat (runtime/mixer.py in the JAX package): not carried by
         # the port, so always None (enable_audio_mixer raises).
         self.audio_mixer = None
@@ -610,11 +614,15 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         return ssrc
 
     def enable_gateway(self):
-        """The standards-lane WebRTC gateway (ICE-lite, DTLS-SRTP, SDP) is
-        not carried by the port."""
-        raise NotImplementedError(
-            "the WebRTC gateway is not ported yet (ROADMAP A12c)"
-        )
+        """Create (or return) the standards-lane WebRTC gateway: ICE-lite
+        STUN on this socket, DTLS-SRTP termination, SDP negotiation
+        (runtime/webrtc_gateway.py; the reference's Pion seat,
+        pkg/rtc/transport.go:253-374)."""
+        if self.gateway is None:
+            from livekit_server_tpu_torch.runtime.webrtc_gateway import WebRtcGateway
+
+            self.gateway = WebRtcGateway(self)
+        return self.gateway
 
     def enable_audio_mixer(self):
         """The MCU-seat audio mixer is not carried by the port."""
@@ -622,11 +630,28 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
             "the MCU audio mixer is not ported yet (ROADMAP A8)"
         )
 
+    def bind_client_ssrc(
+        self, ssrc: int, room: int, track: int, is_video: bool,
+        layer: int = 0, session: MediaCryptoSession | None = None,
+        svc: bool = False, mime: str = "",
+    ) -> bool:
+        """Bind a CLIENT-chosen SSRC (from a gateway peer's SDP offer) to a
+        plane track — assign_ssrc's twin for the standards lane, where the
+        publisher picks its own SSRCs. Collisions with existing bindings
+        are rejected (first owner wins, matching the latching rule for
+        addresses); returns whether the bind took, so the caller never
+        claims — or later releases — another publisher's SSRC."""
+        if ssrc in self.bindings:
+            return False
+        self.bindings[ssrc] = SSRCBinding(room, track, is_video, layer, session, svc)
+        self._set_track_media(room, track, is_video, svc, mime)
+        return True
+
     def _set_track_media(
         self, room: int, track: int, is_video: bool, svc: bool, mime: str
     ) -> None:
-        """Track-level media metadata of assign_ssrc: kind, SVC flag, and
-        the egress payload type."""
+        """Track-level media metadata shared by assign_ssrc and
+        bind_client_ssrc: kind, SVC flag, and the egress payload type."""
         self.track_kind[(room, track)] = is_video
         if svc:
             self._svc_tracks.add((room, track))
@@ -667,7 +692,10 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         self.ingest.fb_enabled[room, sub] = (
             self.send_side_bwe
             and addr is not None
-            and not (isinstance(addr, tuple) and addr and addr[0] == "tcp")
+            and not (
+                isinstance(addr, tuple) and addr
+                and addr[0] in ("tcp", "srtp")
+            )
             and sess is not None
             and (self.require_encryption or sess.client_active)
         )
@@ -682,7 +710,17 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         has ever spoken sealed frames (session.client_active) gets sealed
         egress; a legacy cleartext client gets cleartext. In
         require_encryption mode everything is sealed. TCP is ALWAYS
-        sealed — its framing carries nothing else."""
+        sealed — its framing carries nothing else. Gateway peers
+        (standards lane) always get SRTP/SRTCP."""
+        if isinstance(addr, tuple) and addr and addr[0] == "srtp":
+            if self.gateway is not None:
+                self.gateway.protect_and_send(data, addr[1])
+            return
+        if self.gateway is not None and isinstance(addr, tuple):
+            # Server-originated RTCP toward a gateway publisher's latched
+            # address (PLI/NACK/RR) must ride SRTCP, never cleartext.
+            if self.gateway.send_to_peer_addr(data, addr):
+                return
         if isinstance(addr, tuple) and addr and addr[0] == "tcp":
             if session is None:
                 return
@@ -994,27 +1032,74 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         clear = valid & ~sealed
         nclear = int(clear.sum())
         if nclear:
-            if self.require_encryption:
+            if self.require_encryption and self.gateway is None:
                 # Secure mode: the cleartext media wire does not exist —
                 # but punch probes ride sealed frames only, so anything
                 # cleartext here is droppable wholesale.
                 self.stats["plaintext_drop"] += nclear
             else:
+                # With a gateway, "cleartext" includes STUN/DTLS/SRTP
+                # (their own crypto); _classify_and_process drops the
+                # rest when gateway_only is set — mirroring the
+                # per-datagram path, which demuxes gateway traffic
+                # BEFORE the require_encryption drop.
                 ci = np.nonzero(clear)[0]
                 self._classify_and_process(
                     blob, offs[ci], lens[ci], addr_code[ci],
                     np.zeros(len(ci), np.int64), None, None, now_ms, t_rx,
+                    gateway_only=self.require_encryption,
                 )
 
     def _classify_and_process(self, blob, offs, lens, addr_code, sess_code,
-                              sessions, kid, now_ms, t_rx: float = 0.0) -> None:
+                              sessions, kid, now_ms, t_rx: float = 0.0,
+                              gateway_only: bool = False) -> None:
         """Split one (possibly decrypted) datagram batch into punch / RTCP
-        (cold, per-packet) and RTP media (hot, one vectorized pass)."""
+        (cold, per-packet) and RTP media (hot, one vectorized pass).
+        `gateway_only` (require_encryption + gateway): gateway traffic is
+        processed, every other cleartext datagram is dropped."""
         b0 = blob[np.minimum(offs.astype(np.int64), len(blob) - 1)]
         b1 = blob[np.minimum(offs.astype(np.int64) + 1, len(blob) - 1)]
         maybe_punch = (b0 == PUNCH_REQ[0]) & (lens >= 12)
         is_rtcp = ~maybe_punch & (b1 >= 192) & (b1 <= 223) & (lens >= 8)
         media = ~maybe_punch & ~is_rtcp
+        if self.gateway is not None and sessions is None:
+            # Standards-lane demux on the cleartext batch (RFC 7983):
+            # STUN/DTLS control per-packet (low rate); SRTP *and* SRTCP
+            # from latched gateway addresses go through the unprotect
+            # lane — SRTCP's cleartext first 8 bytes would otherwise
+            # satisfy the plain-RTCP byte1 test and feed the RTCP handler
+            # ciphertext.
+            gw_ctl = ((b0 < 4) & (b0 != CRYPTO_MAGIC)) | ((b0 >= 20) & (b0 <= 63))
+            for i in np.nonzero(gw_ctl)[0]:
+                oo = int(offs[i])
+                self.gateway.handle_datagram(
+                    bytes(blob[oo : oo + int(lens[i])]),
+                    self._tuple_of_code(int(addr_code[i])),
+                )
+            gw_media = np.zeros(len(offs), bool)
+            if self.gateway.peers_by_addr:
+                owned = np.isin(
+                    addr_code,
+                    np.fromiter(self.gateway.peers_by_addr, np.int64,
+                                len(self.gateway.peers_by_addr)),
+                )
+                gw_media = ~gw_ctl & ~maybe_punch & owned & (b0 >= 128)
+                if gw_media.any():
+                    pkts = [
+                        (bytes(blob[int(offs[i]) : int(offs[i]) + int(lens[i])]),
+                         int(addr_code[i]))
+                        for i in np.nonzero(gw_media)[0]
+                    ]
+                    self._gateway_media(pkts, t_rx)
+            media = media & ~gw_ctl & ~gw_media
+            is_rtcp = is_rtcp & ~gw_media
+        if gateway_only:
+            leftover = int(media.sum()) + int(is_rtcp.sum()) + int(
+                maybe_punch.sum()
+            )
+            if leftover:
+                self.stats["plaintext_drop"] += leftover
+            return
         for i in np.nonzero(maybe_punch)[0]:
             oo = int(offs[i])
             d = bytes(blob[oo : oo + int(lens[i])])
@@ -1040,6 +1125,18 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         self.stats["rx"] += 1
         if not data:
             return
+        if self.gateway is not None:
+            b0 = data[0]
+            # RFC 7983 demux: STUN (0-3, requests are 0x00 so the sealed
+            # magic 0x01 never collides), DTLS (20-63). SRTP media shares
+            # the RTP first-byte range and demuxes by latched address.
+            if (b0 < 4 and b0 != CRYPTO_MAGIC) or 20 <= b0 <= 63:
+                if self.gateway.handle_datagram(data, addr):
+                    return
+            elif b0 >= 128 and self.gateway.owns_addr(self._addr_code_of(addr)):
+                self._gateway_media([(data, self._addr_code_of(addr))],
+                                    time.perf_counter())
+                return
         # Sealed frames lead with the crypto magic (0x01 — impossible as an
         # RTP/RTCP version byte or the punch magic 'L').
         if data[0] == CRYPTO_MAGIC and self.crypto is not None:
@@ -1402,6 +1499,18 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         self._process_media_arrays(
             blob, offsets, lengths, addr_code, sess_code, now_ms
         )
+
+    def _gateway_media(self, pkts: list, t_rx: float) -> None:
+        """SRTP datagrams from latched gateway peers → per-packet
+        unprotect (interop lane) → the SAME vectorized ingest stage the
+        sealed lane uses, pinned by the peer's session code."""
+        blob, offs, lens, codes, scodes = self.gateway.unprotect_media(pkts)
+        if len(offs):
+            now_ms = asyncio.get_event_loop().time() * 1000.0
+            self._process_media_arrays(
+                blob, offs.astype(np.int32), lens, codes, scodes, now_ms,
+                t_rx,
+            )
 
     def _process_media_arrays(
         self, blob, offsets, lengths, addr_code, sess_code, now_ms,
@@ -2262,10 +2371,12 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
                 pl[idx].astype(np.int64) + WIRE_OVERHEAD_BYTES,
             )
         if (e_tcp & (po >= 0)).any():
-            # TCP-fallback subscribers: cold path, per-frame sealing via
-            # _sendto.
+            # TCP-fallback + SRTP-gateway subscribers: cold path,
+            # per-frame sealing/protection via _sendto.
             self.send_egress(batch.to_packets(e_tcp & (po >= 0)))
         self._send_srs(now_ms)
+        if self.gateway is not None:
+            self.gateway.service_timers()
         return has_dest
 
     def _maybe_resync_subs(self) -> None:
@@ -2286,9 +2397,9 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         for (room, sub), addr in self.sub_addrs.items():
             if not (0 <= room < R and 0 <= sub < S):
                 continue
-            if addr[0] == "tcp":
-                # TCP fallback: egress rides the per-packet cold path via
-                # _sendto.
+            if addr[0] in ("tcp", "srtp"):
+                # Non-UDP-fast-path lanes (TCP fallback, SRTP gateway):
+                # egress rides the per-packet cold path via _sendto.
                 self._sub_tcp[room, sub] = True
             else:
                 try:

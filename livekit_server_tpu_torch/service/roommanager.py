@@ -748,6 +748,7 @@ class RoomManager:
                 })
             if self.integrity is not None:
                 self.telemetry.observe_integrity(self.integrity_stats())
+            self.telemetry.observe_egress(self.runtime.egress_plane.observe())
             pager_stats = getattr(self.runtime, "pager_stats", None)
             if pager_stats is not None:
                 self.telemetry.observe_pager(pager_stats())

@@ -188,6 +188,21 @@ class TelemetryService:
         self.set_gauge("livekit_ckpt_generation_fallbacks_total",
                        snap.get("generation_fallbacks", 0))
 
+    def observe_egress(self, snap: dict[str, Any]) -> None:
+        """Sharded egress plane (runtime/egress_plane.py observe()):
+        host-side datagram throughput over critical-path send time, total
+        volumes, and per-shard sent/busy breakdowns."""
+        self.set_gauge("livekit_host_egress_pps", snap.get("host_egress_pps", 0.0))
+        self.set_gauge("livekit_egress_shards", snap.get("shards", 0))
+        for k in ("entries", "grouped_entries", "datagrams", "express_datagrams"):
+            self.set_gauge(f"livekit_egress_{k}_total", snap.get(k, 0))
+        self.set_gauge("livekit_egress_send_ms_total", snap.get("send_ms_total", 0.0))
+        self.set_gauge("livekit_egress_munge_ms_total", snap.get("munge_ms_total", 0.0))
+        for i, sent in enumerate(snap.get("shard_sent", [])):
+            self.set_gauge("livekit_egress_shard_sent_total", sent, shard=str(i))
+        for i, ms in enumerate(snap.get("shard_send_ms", [])):
+            self.set_gauge("livekit_egress_shard_busy_ms_total", ms, shard=str(i))
+
     def observe_pager(self, snap: dict[str, Any]) -> None:
         """Paged room-state plane (runtime/pager.py stats()): device page
         pool occupancy, fragmentation, and churn counters. Only emitted

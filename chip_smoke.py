@@ -150,6 +150,27 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
                 `libraries` line names libssl.so.3, libcrypto.so.3 and
                 libopus.so.0 as mapped, the OpenSSL version and
                 `cryptography`'s; without libssl.so.3 the run fails;
+  5e. mixer   — the MCU seat's device programs (ops/mix.py decode_tick and
+                encode_ulaw, runtime/mixer.py _device_mix) on the card,
+                each held to the same function on a CPU copy of the same
+                seeded inputs, bit for bit: decode_tick on every byte under
+                each codec and on a seeded [1000, 4, 960] payload of mixed
+                codec ids; encode_ulaw on seeded PCM carrying every µ-law
+                segment edge ±1 LSB and ±full scale, then decode_tick of
+                its bytes; _device_mix at bench.py's audio_mix_1kroom
+                shape MIXER_SHAPE (seed 3, tracks present with p 0.8,
+                exclusions in 0..T), rounded, clipped and cast to int16,
+                equal to the numpy int32 sum with self-exclusion. Reports
+                each one's device ms (a CUDA graph, as the kernels), call
+                ms with its operands' copies both ways, and its byte bound.
+                The Opus seat: without libopus.so.0 the transport's
+                enable_audio_mixer must raise OpusError, as the
+                reference's does, and the line says "not run: libopus.so.0
+                absent"; with it, an AudioMixer on MIXER_OPUS_ROOMS rooms
+                takes the device path and must emit the datagrams of the
+                host path byte for byte. The services (agents, egress,
+                ingress, SIP, ioinfo) import aiohttp, which the card's
+                machine lacks: no phase runs them, as none runs the server;
   6. timing   — the dense runtime's device step (plane.device_tick: upload,
                 tick, fetch) at the north-star PlaneDims(10240, 8, 16, 50),
                 median and p90 of TIMED_TICKS ticks after warm-up; the paged
@@ -233,6 +254,7 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
 Output: JSON lines per phase (the serving phase's under "serving", the
 UDP phase's under "udp", phase 5c's under "express" and "golden_scans",
 the gateway's under "gateway" (the libraries under "libraries"),
+phase 5e's under "mixer",
 the failure phase's under "failure", the
 multi-node plane's under "migration"), a
 `{"kernels": [...]}` JSON line (each kernel's numbers on its own path,
@@ -2983,6 +3005,191 @@ def golden_scan_phase(dev) -> dict:
             "chain_breaks": breaks, "s": time.perf_counter() - t0, "exact": True}
 
 
+MIXER_SHAPE = (1000, 4, 4, 960)    # bench.py audio_mix_1kroom: rooms, tracks, subs, samples
+MIXER_SEED = 3
+MIXER_PRESENT_P = 0.8
+MIXER_REPS = 20                    # replays of each graph; calls timed with their copies
+MIXER_OPUS_ROOMS = 64              # DEVICE_MIX_MIN_ROOMS: the Opus seat's device path
+MIXER_OPUS_FRAMES = 4
+
+
+def ulaw_boundaries() -> np.ndarray:
+    """Samples at every µ-law segment edge ±1 LSB (and inside the LSB),
+    both signs, and ±full scale, zero and past full scale."""
+    edges = [((1 << b) - 0x84 + d) / 32768.0 for b in range(8, 15) for d in (-1, 0, 1)]
+    edges += [e + 0.25 / 32768.0 for e in edges]
+    v = np.array(edges + [0.0, 1.0, 1.0 - 1 / 32768.0, 1.5, 0.5 / 32768.0], np.float32)
+    return np.concatenate([v, -v])
+
+
+def host_room_mix(pcm: np.ndarray, present: np.ndarray, exclude: np.ndarray) -> np.ndarray:
+    """The mixer's host path arithmetic for every room at once: the int32
+    sum of a room's present tracks minus the subscriber's own (column
+    `exclude`; T = none), clipped to int16."""
+    R, T, N = pcm.shape
+    x = np.where(present[:, :, None], pcm.astype(np.int32), 0)
+    padded = np.concatenate([x, np.zeros((R, 1, N), np.int32)], axis=1)
+    own = np.take_along_axis(padded, exclude.astype(np.int64)[:, :, None], axis=1)
+    return np.clip(x.sum(axis=1)[:, None, :] - own, -32768, 32767).astype(np.int16)
+
+
+def timed_program(fn, dev_args, cpu_args, dev, in_bytes: int, out_bytes: int) -> dict:
+    """Device ms of fn as a CUDA graph (as `graph_ms` times the kernels),
+    call ms of one call with its operands' copies to the card and its
+    result's back (host clock, median), and the byte bound at
+    HBM_BYTES_PER_S with each input read and each output written once."""
+    ms = graph_ms(lambda: fn(*dev_args), MIXER_REPS)
+    calls = []
+    for _ in range(MIXER_REPS):
+        t = time.perf_counter()
+        fn(*(a.to(dev) for a in cpu_args)).cpu()
+        calls.append((time.perf_counter() - t) * 1e3)
+    return {"ms": ms, "call_ms": statistics.median(calls),
+            "bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes_in": in_bytes, "bytes_out": out_bytes}
+
+
+class MixStub:
+    """The transport surface AudioMixer uses: SSRC mint, address book and
+    the `_sendto` chokepoint, whose datagrams it keeps."""
+
+    def __init__(self):
+        self.sent, self.sub_addrs, self.sub_sessions = [], {}, {}
+        self.stats = {"tx": 0}
+        self._ssrc = 100
+
+    def _new_ssrc(self):
+        self._ssrc += 1
+        return self._ssrc
+
+    def _sendto(self, data, addr, session):
+        self.sent.append((addr, data))
+
+
+def opus_seat(dev) -> dict | str:
+    """UDPMediaTransport.enable_audio_mixer on the card. Without
+    libopus.so.0 it must raise the reference's OpusError, and the seat is
+    reported as not run; with it, an AudioMixer over MixStub on
+    MIXER_OPUS_ROOMS rooms (the device path) must emit the datagrams the
+    host path emits."""
+    from livekit_server_tpu_torch.interop import opus
+    from livekit_server_tpu_torch.runtime.ingest import IngestBuffer
+    from livekit_server_tpu_torch.runtime.mixer import AudioMixer
+
+    udp = udp_mod.UDPMediaTransport(IngestBuffer(plane.PlaneDims(2, 4, 8, 4), 20))
+    udp.mixer_device = dev
+    if not opus.available():
+        try:
+            udp.enable_audio_mixer()
+        except opus.OpusError:
+            return "not run: libopus.so.0 absent"
+        raise AssertionError("enable_audio_mixer built a mixer without libopus")
+    if udp.enable_audio_mixer().device != dev:
+        raise AssertionError("the transport's mixer is not on the card")
+    rng = np.random.default_rng(MIXER_SEED)
+    frames = {}
+    for room in range(MIXER_OPUS_ROOMS):
+        for track in range(2):
+            enc, f = opus.OpusEncoder(), rng.uniform(150, 2500)
+            t = np.arange(960 * MIXER_OPUS_FRAMES) / 48000.0
+            pcm = (np.sin(2 * np.pi * f * t) * 8000).astype(np.int16).reshape(-1, 960)
+            frames[room, track] = [enc.encode(x) for x in pcm]
+            enc.close()
+    runs = {}
+    for path, min_rooms in (("device", MIXER_OPUS_ROOMS), ("host", MIXER_OPUS_ROOMS + 1)):
+        stub = MixStub()
+        m = AudioMixer(stub, device=dev)
+        m.device_mix_min_rooms = min_rooms
+        for room in range(MIXER_OPUS_ROOMS):
+            for sub, excl in ((0, 0), (1, -1)):
+                stub.sub_addrs[room, sub] = ("127.0.0.1", 4000 + 2 * room + sub)
+                m.enable_sub(room, sub, exclude_track=excl)
+        now = 100.0
+        for k in range(MIXER_OPUS_FRAMES):
+            for (room, track), seq in frames.items():
+                m.push(room, track, 960 * k, seq[k])
+            m.tick(now)
+            now += 0.02
+        runs[path] = (stub.sent, dict(m.stats))
+        m.close()
+    if runs["device"][1]["device_mix_frames"] != MIXER_OPUS_FRAMES or runs["device"][0] != runs[
+            "host"][0] or runs["host"][1]["device_mix_frames"]:
+        raise AssertionError("the Opus seat's device path differs from its host path")
+    return {"rooms": MIXER_OPUS_ROOMS, "frames": MIXER_OPUS_FRAMES,
+            "packets_equal": len(runs["device"][0]), "stats": runs["device"][1]}
+
+
+def mixer_phase(dev) -> dict:
+    """Phase 5e: the MCU seat's device programs on the card (see the
+    module docstring). The services (agents, egress, ingress, SIP, ioinfo)
+    import aiohttp, which the card's machine lacks, so they are not run
+    here, as the server is not."""
+    from livekit_server_tpu_torch.ops import mix
+    from livekit_server_tpu_torch.runtime.mixer import _device_mix
+
+    t0 = time.perf_counter()
+    R, T, S, N = MIXER_SHAPE
+    rng = np.random.default_rng(MIXER_SEED)
+    out: dict = {"shape": list(MIXER_SHAPE), "seed": MIXER_SEED}
+
+    def exact(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+        g, w = got.cpu().numpy(), want.numpy()
+        if g.dtype != w.dtype or g.shape != w.shape or g.tobytes() != w.tobytes():
+            raise AssertionError(f"mixer: {name} on the card differs from its CPU run")
+
+    # decode_tick: every byte under each codec, then a seeded payload.
+    every = torch.arange(256, dtype=torch.uint8).reshape(1, 1, 256)
+    for codec in (mix.CODEC_PCM16, mix.CODEC_PCMU, mix.CODEC_PCMA):
+        ids = torch.full((1, 1), codec, dtype=torch.int32)
+        exact(f"decode_tick of every byte, codec {codec}",
+              mix.decode_tick(every.to(dev), ids.to(dev)), mix.decode_tick(every, ids))
+    payload = torch.from_numpy(rng.integers(0, 256, (R, T, N), dtype=np.uint8))
+    codecs = torch.from_numpy(rng.integers(0, 3, (R, T)).astype(np.int32))
+    pay_d, cod_d = payload.to(dev), codecs.to(dev)
+    exact("decode_tick", mix.decode_tick(pay_d, cod_d), mix.decode_tick(payload, codecs))
+    out["decode_tick"] = timed_program(
+        mix.decode_tick, (pay_d, cod_d), (payload, codecs), dev,
+        payload.numel() + codecs.numel() * 4 + 512 * 4, payload.numel() * 4)
+
+    # encode_ulaw: seeded PCM with the segment edges, then the round trip.
+    pcm = rng.uniform(-1.05, 1.05, (R, T, N)).astype(np.float32)
+    edges = ulaw_boundaries()
+    pcm.reshape(-1)[:edges.size] = edges
+    pcm_c = torch.from_numpy(pcm)
+    pcm_d = pcm_c.to(dev)
+    code_d, code_c = mix.encode_ulaw(pcm_d), mix.encode_ulaw(pcm_c)
+    exact("encode_ulaw", code_d, code_c)
+    ulaw = torch.full((R, T), mix.CODEC_PCMU, dtype=torch.int32)
+    exact("decode_tick(encode_ulaw)", mix.decode_tick(code_d, ulaw.to(dev)),
+          mix.decode_tick(code_c, ulaw))
+    out["encode_ulaw"] = timed_program(mix.encode_ulaw, (pcm_d,), (pcm_c,), dev,
+                                       pcm_c.numel() * 4, pcm_c.numel())
+    out["encode_ulaw"]["codes_used"] = int(torch.unique(code_c).numel())
+
+    # _device_mix at bench.py's audio_mix_1kroom shape, held to the host sum.
+    samples = rng.integers(-32768, 32768, (R, T, N)).astype(np.float32)
+    present = rng.random((R, T)) < MIXER_PRESENT_P
+    exclude = rng.integers(0, T + 1, (R, S)).astype(np.int32)
+    args_c = (torch.from_numpy(samples), torch.from_numpy(present), torch.from_numpy(exclude))
+    args_d = tuple(a.to(dev) for a in args_c)
+    mixed = _device_mix(*args_d).cpu().numpy()
+    if not np.array_equal(np.clip(np.rint(mixed), -32768, 32767).astype(np.int16),
+                          host_room_mix(samples, present, exclude)):
+        raise AssertionError("mixer: _device_mix on the card differs from the host int32 sum")
+    exact("_device_mix", torch.from_numpy(mixed), _device_mix(*args_c))
+    out["device_mix"] = timed_program(
+        _device_mix, args_d, args_c, dev, sum(a.numel() * a.element_size() for a in args_c),
+        R * S * N * 4)
+    out["tf32"] = bool(torch.backends.cuda.matmul.allow_tf32)
+    out["exact"] = True
+    out["opus_seat"] = opus_seat(dev)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"mixer ok: decode_tick {out['decode_tick']['ms']:.4f} ms, encode_ulaw "
+        f"{out['encode_ulaw']['ms']:.4f} ms, _device_mix {out['device_mix']['ms']:.4f} ms "
+        f"(bound {out['device_mix']['bound_ms']:.4f}); opus seat: {out['opus_seat']}")
+    return out
+
+
 def paged_pool_state(pager: RoomPager, sizes, dims: paged.PagedDims, dev):
     """Device pool state and table for the pager's rooms (sizes[r]
     participants, each publishing one track and subscribed to all others),
@@ -4355,6 +4562,9 @@ def main() -> int:
     gateway = asyncio.run(gateway_phase(dev))
     print(json.dumps({"gateway": gateway}), flush=True)
     done("gateway")
+    mixer = mixer_phase(dev)
+    print(json.dumps({"mixer": mixer}), flush=True)
+    done("mixer")
     tick, dense_t, ns_state = timing_phase(dev, args.profile)
     paged_tick, paged_t, pool_state = paged_timing_phase(dev, args.profile)
     done("timing")

@@ -14,11 +14,13 @@ exercised against OpenSSL's independent stack (`openssl s_client
 -dtls1_2 -use_srtp`), SRTP against RFC 7714 test vectors, STUN against
 RFC 5769 test vectors.
 
-Port of the JAX package's interop package (stun, srtp, sdp, dtls), copied
-with its crypto as it is: DTLS through the system libssl/libcrypto by
-ctypes, certificates and SRTP through `cryptography`.
+Port of the JAX package's interop package (stun, srtp, sdp, dtls, opus),
+copied with its crypto as it is: DTLS through the system libssl/libcrypto
+by ctypes, certificates and SRTP through `cryptography`. `opus` is the MCU
+seat's codec, the system libopus by ctypes (runtime/mixer.py).
 """
 
+from livekit_server_tpu_torch.interop import opus  # noqa: F401
 from livekit_server_tpu_torch.interop.stun import (  # noqa: F401
     StunMessage,
     build_binding_response,

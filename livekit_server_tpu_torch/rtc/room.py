@@ -178,6 +178,16 @@ class Room:
         )
         if self.udp is not None:
             self.udp.set_track_kind(self.slots.row, col, info.type == pm.TrackType.VIDEO)
+            if (
+                self.udp.audio_mixer is not None
+                and info.type != pm.TrackType.VIDEO
+                and publisher.sub_col >= 0
+            ):
+                # Keep mixer self-exclusion current when the opt-in
+                # preceded the publish (or the mic republished).
+                self.udp.audio_mixer.set_publisher_track(
+                    self.slots.row, publisher.sub_col, col
+                )
         # Count distinct publishers from the track registry (the caller's
         # published dict is updated only after this returns).
         self.info.num_publishers = len({pub.sid for pub, _t in self.tracks.values()})

@@ -18,9 +18,9 @@ first use (livekit_server_tpu_torch.native). `attach_express` binds the
 express lane (runtime/express.py) and `_send_express` carries its sends;
 `relay_info` is set by the room manager when the media relay
 (runtime/relay.py) runs. `enable_gateway` attaches the standards-lane
-WebRTC gateway (runtime/webrtc_gateway.py). `enable_audio_mixer`, the
-hook of a subsystem the port does not carry, raises an error naming its
-ROADMAP item (the MCU mixer, A8).
+WebRTC gateway (runtime/webrtc_gateway.py). `enable_audio_mixer` builds
+the MCU seat (runtime/mixer.py) on `mixer_device`, which the room manager
+sets to its runtime's device when it attaches the transport.
 """
 
 from __future__ import annotations
@@ -419,9 +419,11 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         # Standards-lane WebRTC gateway (ICE-lite + DTLS-SRTP); created on
         # demand by enable_gateway() — the sealed lane needs none of it.
         self.gateway = None
-        # MCU seat (runtime/mixer.py in the JAX package): not carried by
-        # the port, so always None (enable_audio_mixer raises).
+        # MCU seat (runtime/mixer.py): per-room Opus decode → mix →
+        # per-sub re-encode. None until a subscriber opts in; its batched
+        # mix runs on mixer_device (RoomManager.attach_udp sets it).
         self.audio_mixer = None
+        self.mixer_device = "cuda"
         # AEAD media-wire crypto (runtime/crypto.py — the DTLS-SRTP seat).
         # require_encryption drops every plaintext RTP/RTCP/punch datagram;
         # False keeps the legacy cleartext path for in-process tooling.
@@ -625,10 +627,14 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         return self.gateway
 
     def enable_audio_mixer(self):
-        """The MCU-seat audio mixer is not carried by the port."""
-        raise NotImplementedError(
-            "the MCU audio mixer is not ported yet (ROADMAP A8)"
-        )
+        """Create (or return) the MCU-seat audio mixer (runtime/mixer.py;
+        BASELINE config 2's batched active-speaker mix). Raises
+        opus.OpusError where libopus is absent, as the reference does."""
+        if self.audio_mixer is None:
+            from livekit_server_tpu_torch.runtime.mixer import AudioMixer
+
+            self.audio_mixer = AudioMixer(self, device=self.mixer_device)
+        return self.audio_mixer
 
     def bind_client_ssrc(
         self, ssrc: int, room: int, track: int, is_video: bool,
@@ -759,6 +765,8 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         self._track_pt[room, track] = OPUS_PT
         self._track_is_video[room, track] = False
         self._track_svc[room, track] = False
+        if self.audio_mixer is not None:
+            self.audio_mixer.release_track(room, track)
 
     def set_track_kind(self, room: int, track: int, is_video: bool) -> None:
         """Record media kind for egress PT selection (any transport)."""
@@ -833,6 +841,8 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         pid = self._punch_by_sub.pop((room, sub), None)
         if pid is not None:
             self.punch_ids.pop(pid, None)
+        if self.audio_mixer is not None:
+            self.audio_mixer.enable_sub(room, sub, False)
 
     def release_room(self, room: int) -> None:
         """Room closed: drop every binding on its row."""
@@ -874,6 +884,8 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
             self.tcp_sinks.pop(sess.key_id, None)
         for key in [k for k in self._punch_by_sub if k[0] == room]:
             self.punch_ids.pop(self._punch_by_sub.pop(key), None)
+        if self.audio_mixer is not None:
+            self.audio_mixer.release_room(room)
 
     def subscriber_ssrc(self, room: int, sub: int, track: int) -> int:
         """Per-(subscriber, track) egress SSRC (DownTrack's own SSRC)."""
@@ -1790,6 +1802,19 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
                 dd_version=dd_ver,
                 t_rx=t_rx if t_rx else time.perf_counter(),
             )
+            # MCU tap: audio payloads of mix-enabled rooms feed the Opus
+            # decoders (per-packet work, gated to enabled rooms only).
+            if self.audio_mixer is not None and self.audio_mixer.rooms:
+                for j in np.nonzero(
+                    ~is_vid & self.audio_mixer.room_mask(u_room[e_inv])
+                )[0]:
+                    i = idx[j]
+                    st = int(offsets[i]) + int(parsed["payload_off"][i])
+                    self.audio_mixer.push(
+                        int(u_room[e_inv[j]]), int(u_track[e_inv[j]]),
+                        int(parsed["ts"][i]),
+                        bytes(blob[st : st + int(plen[i])]),
+                    )
         self._send_upstream_nacks(now_ms)
 
     def _send_srs(self, now_ms: float) -> None:
@@ -2377,6 +2402,8 @@ class UDPMediaTransport(asyncio.DatagramProtocol):
         self._send_srs(now_ms)
         if self.gateway is not None:
             self.gateway.service_timers()
+        if self.audio_mixer is not None:
+            self.audio_mixer.maybe_tick()
         return has_dest
 
     def _maybe_resync_subs(self) -> None:

@@ -8,8 +8,9 @@ for the node, and a tick dispatcher fans TickResults out to rooms — the
 reference instead wires per-room BufferFactories into Pion
 (roommanager.go:350).
 
-Only `server`, `rtcservice` and `roomservice` need aiohttp; this package
-imports none of them, so RoomManager and the stores load without it.
+Only `server`, `rtcservice`, `roomservice`, `agents`, `egress`, `ingress`
+and `sip` need aiohttp; this package imports none of them, so RoomManager
+and the stores load without it.
 """
 
 from livekit_server_tpu_torch.service.roommanager import RoomManager

@@ -172,6 +172,7 @@ class RoomManager:
         # Black-box dumps go to the manager's log (re-pointed alongside
         # self.log when the server installs the node-scoped logger).
         self.runtime.blackbox.log = self.log
+        self.agents = None  # AgentService; room/publisher job dispatch
         self.runtime.on_tick(self._dispatch_tick)
         self._reaper_task: asyncio.Task | None = None
         self._failover_task: asyncio.Task | None = None
@@ -334,6 +335,18 @@ class RoomManager:
         self.runtime.blackbox.emit(room.slots.row, trace.EV_ROOM_OPEN)
         self.log.info("room started", room=name, row=room.slots.row)
         self._notify("room_started", room=room.info.to_dict())
+        if self.agents is not None:
+            # room agent job on room start; publisher job on first publish
+            # (roommanager.go / rtc/agentclient.go launch points)
+            asyncio.ensure_future(self.agents.launch_room_job(name))
+
+            def on_publish(pub, _track, room_name=name):
+                if not pub.published:  # first track → becoming a publisher
+                    asyncio.ensure_future(
+                        self.agents.launch_publisher_job(room_name, pub.identity)
+                    )
+
+            room.on_track_published.append(on_publish)
         return room
 
     async def delete_room(self, name: str) -> None:
@@ -840,6 +853,8 @@ class RoomManager:
             # through this transport instead of the batched tick.
             udp.attach_express(self.runtime.express)
         udp.send_side_bwe = cfg.rtc.congestion_control.send_side_bwe
+        # The MCU seat's batched mix runs where the plane runs.
+        udp.mixer_device = self.runtime.device
         if cfg.rtc.pacer == "no-queue":
             udp.pacer_spread_ms = cfg.plane.tick_ms / 2.0
         elif cfg.rtc.pacer == "leaky-bucket":

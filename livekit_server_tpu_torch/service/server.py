@@ -4,6 +4,7 @@ Reference parity: pkg/service/server.go (LivekitServer :46-61, Start
 :170-293, Stop :295-316, health :351-364) and the Wire DI graph
 (wire_gen.go:38-138) — here plain constructor wiring in create_server().
 Endpoints: /rtc (WS signal+media), /twirp/livekit.RoomService/* (admin),
+/agent (agent workers' WS), /twirp/livekit.{Egress,Ingress,SIP}/*,
 / (health), /metrics (prometheus text format), /debug/rooms,
 /debug/overload (the governor), /debug/integrity (the audit, the repair
 ladder, the checkpoint codec, restart causes), /debug/migration and
@@ -12,10 +13,11 @@ ladder, the checkpoint codec, restart causes), /debug/migration and
 Port of the JAX package's service/server.py. `create_server(cfg,
 device=...)` builds the port's RoomManager on `device` ("cuda" by
 default) and, with `kv.kind: tcp` (or an injected `bus`), the multi-node
-router, store and planes over the shared bus (`connect_bus`). Routes
-whose subsystem the port does not carry yet are left out (ROADMAP A): the
-agents, egress, ingress and SIP services, ioinfo, /debug/compiles and
-/debug/trace. The UDP media transport and the TCP fallback open at start
+router, store and planes over the shared bus (`connect_bus`). The
+egress/ingress status aggregator (service/ioinfo.py) starts and stops
+with the server. Routes whose subsystem the port does not carry yet are
+left out (ROADMAP A11): /debug/compiles and /debug/trace. The UDP media
+transport and the TCP fallback open at start
 (RoomManager.start_transports) on rtc.udp_port and rtc.tcp_port, with
 the express lane attached (plane.express_max_subs > 0) and the embedded
 media relay beside them (relay.enabled); both are off by default.
@@ -53,10 +55,21 @@ class LivekitServer:
         self.store = store
         self.room_manager: RoomManager = room_manager
         self.telemetry: TelemetryService = telemetry
+        from livekit_server_tpu_torch.service.agents import AgentService
+        from livekit_server_tpu_torch.service.egress import EgressService
+        from livekit_server_tpu_torch.service.ingress import IngressService
+        from livekit_server_tpu_torch.service.ioinfo import IOInfoService
+        from livekit_server_tpu_torch.service.sip import SIPService
         from livekit_server_tpu_torch.utils.logger import Logger, configure
 
         self.rtc_service = RTCService(self)
         self.room_api = RoomServiceAPI(self)
+        self.egress = EgressService(self)
+        self.ingress = IngressService(self)
+        self.sip = SIPService(self)
+        self.ioinfo = IOInfoService(self)
+        self.agents = AgentService(self)
+        room_manager.agents = self.agents
         configure(config.log_level)
         self.log = Logger(node=router.local_node.node_id[:12])
         room_manager.log = self.log
@@ -65,9 +78,13 @@ class LivekitServer:
         self.app.router.add_get("/", self.health)
         self.app.router.add_get("/rtc", self.rtc_service.handle)
         self.app.router.add_get("/rtc/validate", self.validate)
+        self.app.router.add_get("/agent", self.agents.handle)
         self.app.router.add_post(
             "/twirp/livekit.RoomService/{method}", self.room_api.handle
         )
+        self.app.router.add_post("/twirp/livekit.Egress/{method}", self.egress.handle)
+        self.app.router.add_post("/twirp/livekit.Ingress/{method}", self.ingress.handle)
+        self.app.router.add_post("/twirp/livekit.SIP/{method}", self.sip.handle)
         self.app.router.add_get("/metrics", self.metrics)
         self.app.router.add_get("/debug/rooms", self.debug_rooms)
         self.app.router.add_get("/debug/analytics", self.debug_analytics)
@@ -416,6 +433,7 @@ class LivekitServer:
         self.room_manager.runtime.mark_warm()
         # Native UDP media transport on the RTC port, and the TCP fallback.
         await self.room_manager.start_transports()
+        await self.ioinfo.start()
         await self.room_api.start()
         self.room_manager.start()
         self._stats_task = asyncio.ensure_future(self._refresh_nodes())
@@ -450,6 +468,7 @@ class LivekitServer:
         if self._stats_task:
             self._stats_task.cancel()
         self.room_manager.close_transports()
+        await self.ioinfo.stop()
         await self.room_api.stop()
         await self.room_manager.stop()
         await self.router.unregister_node()

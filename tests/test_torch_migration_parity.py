@@ -86,6 +86,16 @@ def make_node(pkg, bus, tweak=None):
     return rm
 
 
+def patient(cfg):
+    """A source that waits for a slow target: under a loaded test run the
+    JAX target's first restore (its jit compiles) can outlast the default
+    2 s ACK timeout, and a retried PREPARE then replays the freeze window.
+    The same wait for both packages' nodes, and an adoption that outlives
+    a late COMMIT."""
+    cfg.migration.ack_timeout_s = 60.0
+    cfg.migration.adopt_ttl_s = 120.0
+
+
 def subscribe(rm, row):
     """Subscriptions never travel in a snapshot: the adopting node's
     subscribers re-subscribe (the clients' reconnect)."""
@@ -104,7 +114,7 @@ def push(pkg, rm, row, tick, rng_seed):
             audio_level=int(rng.integers(0, 127))))
 
 
-async def committed(rm, name, timeout=10.0):
+async def committed(rm, name, timeout=60.0):
     """Wait for the target's COMMIT handler (a spawned task) to unfreeze
     the adopted row, so the next packets stage instead of queueing in the
     adoption's bridge."""
@@ -126,7 +136,7 @@ def state_row(pkg, rm, row):
 
 async def cluster_run(pkg, seed=3, before=6, after=6):
     bus = pkg.routing.MemoryBus()
-    a, b = make_node(pkg, bus), make_node(pkg, bus)
+    a, b = make_node(pkg, bus, patient), make_node(pkg, bus, patient)
     try:
         room = await a.get_or_create_room("mig")
         row = room.slots.row
@@ -192,7 +202,7 @@ async def test_room_adopted_across_packages_over_one_tcp_bus():
     try:
         jcl = await jtcpbus.TCPBusClient.connect("127.0.0.1", srv.port)
         pcl = await ptcpbus.TCPBusClient.connect("127.0.0.1", srv.port)
-        j, p = make_node(JAX, jcl), make_node(PORT, pcl)
+        j, p = make_node(JAX, jcl, patient), make_node(PORT, pcl, patient)
         nodes = [j, p]
         room = await j.get_or_create_room("x")
         subscribe(j, room.slots.row)

@@ -271,7 +271,7 @@ async def test_metrics_and_debug_routes():
             async with s.get(f"{base}/debug/blackbox/m") as r:
                 assert [e["event"] for e in (await r.json())["events"]][:2] == [
                     "room_open", "join"]
-            for gone in ("/debug/compiles", "/debug/trace", "/agent"):
+            for gone in ("/debug/compiles", "/debug/trace"):
                 async with s.get(f"{base}{gone}") as r:
                     assert r.status == 404
             # Single node (kv.kind memory): the multi-node planes are off.

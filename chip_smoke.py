@@ -171,6 +171,22 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
                 host path byte for byte. The services (agents, egress,
                 ingress, SIP, ioinfo) import aiohttp, which the card's
                 machine lacks: no phase runs them, as none runs the server;
+  5f. shard   — room and page shards (parallel/mesh.py) on the one card:
+                SHARD_N = 8 shards of cuda:0 (and N = 1) at the north star,
+                SHARD_CHECK_TICKS seeded ticks against the unsharded device
+                step (integers and bools equal, floats within
+                plane.float_tolerance; whether they were bit-equal too is
+                reported), the sharded plane's snapshot frame against the
+                unsharded one and restored onto a fresh mesh that ticks on
+                equal, B1 and B2 timed at the shard launch shapes
+                [1280, 8, 16, 50] and [1280, 50, 8], and the three device
+                steps timed (median, p90); a cfg4 RoomManager over 8 room
+                shards and an unsharded one in lockstep for
+                SHARD_LOCK_TICKS ticks (every egress column equal; B1 and B2
+                launched SHARD_N times a tick); the stock pooled step at
+                PAGED_RUNTIME_DIMS over 8 page shards against the unsharded
+                stock step, with its cross-shard page copies counted. The
+                line carries the card and torch.cuda.device_count();
   6. timing   — the dense runtime's device step (plane.device_tick: upload,
                 tick, fetch) at the north-star PlaneDims(10240, 8, 16, 50),
                 median and p90 of TIMED_TICKS ticks after warm-up; the paged
@@ -254,7 +270,7 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
 Output: JSON lines per phase (the serving phase's under "serving", the
 UDP phase's under "udp", phase 5c's under "express" and "golden_scans",
 the gateway's under "gateway" (the libraries under "libraries"),
-phase 5e's under "mixer",
+phase 5e's under "mixer", phase 5f's under "shard",
 the failure phase's under "failure", the
 multi-node plane's under "migration"), a
 `{"kernels": [...]}` JSON line (each kernel's numbers on its own path,
@@ -297,6 +313,7 @@ from livekit_server_tpu_torch.ops import (
     allocation, bwe, cuda, pacer, paged_kernel, rtpmunger, selector, svc, vp8,
 )
 from livekit_server_tpu_torch.ops.mix import MIX_TOP_K
+from livekit_server_tpu_torch.parallel import mesh as mesh_mod
 from livekit_server_tpu_torch.protocol import decode_signal_response, packer
 from livekit_server_tpu_torch.routing import LocalNode, LocalRouter, MessageChannel
 from livekit_server_tpu_torch.runtime import PlaneRuntime, dd, integrity
@@ -1087,7 +1104,7 @@ def serving_config(paged_dims: paged.PagedDims | None = None,
                  pager_spage=paged_dims.spage, pager_pool_pages=paged_dims.pool_pages,
                  paged_kernel="on")
     base = port_overlay()
-    base["plane"].update(p)
+    base.setdefault("plane", {}).update(p)
     base.update(development=True, trace={"ring_ticks": SERVING_TRACE_TICKS})
     if not failure_plane:
         base.update(supervisor={"enabled": False}, integrity={"enabled": False},
@@ -3190,6 +3207,286 @@ def mixer_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 5f: room and page shards (parallel/mesh.py) on the card
+# ---------------------------------------------------------------------------
+
+SHARD_N = 8                        # shards of cuda:0 (the machine has one GPU)
+SHARD_CHECK_TICKS = 5              # seeded ticks held to the unsharded step
+SHARD_TIMED_TICKS = 30
+SHARD_RESTORE_TICKS = 3            # ticks after the snapshot's restore
+SHARD_LOCK_TICKS = 20              # cfg4 RoomManager lockstep
+SHARD_POOL_TICKS = 5
+
+
+def leaves_match(got, want, names, where: str, worst: dict) -> bool:
+    """Integer and bool leaves equal, float leaves within the leaf's
+    bound; `worst` keeps each float leaf's largest absolute difference.
+    Returns whether every float leaf was bit-equal too."""
+    bit_equal = True
+    for name, g, w in zip(names, got, want):
+        g = g.cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        w = w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{where}: {name} shape/dtype {g.shape} {g.dtype} "
+                                 f"!= {w.shape} {w.dtype}")
+        if g.dtype.kind == "f":
+            err = float(np.abs(g.astype(np.float64) - w).max(initial=0.0))
+            worst[name] = max(worst.get(name, 0.0), err)
+            rtol, atol = plane.float_tolerance(name)
+            if not np.allclose(g, w, rtol=rtol, atol=atol, equal_nan=True):
+                raise AssertionError(f"{where}: {name} beyond rtol={rtol} atol={atol} "
+                                     f"(max abs err {err})")
+            bit_equal &= g.tobytes() == w.tobytes()
+        elif g.tobytes() != w.tobytes():
+            raise AssertionError(f"{where}: {name} differs")
+    return bit_equal
+
+
+def time_steps(step, wires) -> dict:
+    """Host clock around `step(wire)` (a device step that ends in the
+    device→host copy of its outputs): WARMUP_TICKS, then
+    SHARD_TIMED_TICKS timed."""
+    for i in range(WARMUP_TICKS):
+        step(wires[i % len(wires)])
+    times = []
+    for i in range(SHARD_TIMED_TICKS):
+        t0 = time.perf_counter()
+        step(wires[i % len(wires)])
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return {"median_ms": statistics.median(times), "p90_ms": times[int(0.9 * len(times)) - 1],
+            "ticks": SHARD_TIMED_TICKS}
+
+
+def shard_north_star(dev, out: dict, worst: dict) -> dict:
+    """N = 1 and N = SHARD_N shards of `dev` at the north star against the
+    unsharded device step: SHARD_CHECK_TICKS seeded ticks, outputs and
+    state; the snapshot of the sharded plane against the unsharded one,
+    restored onto a fresh mesh that continues equal; then the three device
+    steps timed. Returns (the shard path's kernel timings, the N = SHARD_N
+    steps' kernel launches)."""
+    dims, spec = NORTH_STAR, NORTH_STAR_SPEC
+    traffic = synth.init_traffic(dims, spec, seed=SEED)
+    packed = []
+    for i in range(SHARD_CHECK_TICKS + SHARD_RESTORE_TICKS):
+        traffic, inp = synth.next_tick(traffic, dims, spec, i, seed=SEED)
+        packed.append(plane.pack_tick_inputs(inp))
+    flat = [plane.wire_inputs(p) for p in packed]
+    base = synth.make_state(dims, spec, device=dev)
+    names = plane.leaf_names(base)
+    meshes = {n: mesh_mod.make_mesh([dev] * n) for n in (1, SHARD_N)}
+    ticks = {n: mesh_mod.make_sharded_tick(m, donate=False) for n, m in meshes.items()}
+    sharded = {n: mesh_mod.shard_tree(base, m) for n, m in meshes.items()}
+    wires = {n: [mesh_mod.shard_wires(p, m) for p in packed] for n, m in meshes.items()}
+    state = base
+    bit_equal = {n: True for n in meshes}
+    launches = dict.fromkeys(cuda.launches, 0)      # the N = SHARD_N steps'
+    for i in range(SHARD_CHECK_TICKS):
+        state, want = plane.device_tick(state, flat[i], dims)
+        out_bytes = sum(np.asarray(x).nbytes for x in want)
+        for n in meshes:
+            before = dict(cuda.launches)
+            sharded[n], got = ticks[n].device_tick(sharded[n], wires[n][i], dims)
+            if n == SHARD_N:
+                for k in launches:
+                    launches[k] += cuda.launches[k] - before[k]
+            bit_equal[n] &= leaves_match(got, want, plane.TickOutputs._fields,
+                                         f"N={n} tick {i} outputs", worst)
+    for n in meshes:
+        bit_equal[n] &= leaves_match(plane.tree_leaves(mesh_mod.gather_tree(sharded[n])),
+                                     plane.tree_leaves(state), names, f"N={n} state", worst)
+    expected = {"decide_rooms": SHARD_N * SHARD_CHECK_TICKS,
+                "allocate_budget_rooms": SHARD_N * SHARD_CHECK_TICKS, "paged_kernel": 0}
+    if launches != expected:
+        raise AssertionError(f"north-star shard launches {launches}, expected {expected}")
+    out["north_star"] = {"dims": list(dims), "ticks": SHARD_CHECK_TICKS, "launches": launches,
+                         "bit_equal": {str(n): b for n, b in bit_equal.items()}}
+
+    # The snapshot frame of the sharded plane (the runtime's full-plane
+    # checkpoint format) against the unsharded plane's, and its restore
+    # onto a fresh mesh (fresh tensors on every shard).
+    n = SHARD_N
+    snap = {"tick_index": SHARD_CHECK_TICKS,
+            "arrays": plane.state_to_numpy(mesh_mod.gather_tree(sharded[n]))}
+    want_arrays = plane.state_to_numpy(state)
+    frame = PlaneRuntime.decode_snapshot(PlaneRuntime.encode_snapshot(snap))
+    byte_equal = all(a.tobytes() == b.tobytes() for a, b in zip(frame["arrays"], want_arrays))
+    leaves_match(frame["arrays"], want_arrays, names, "snapshot", worst)
+    restored = mesh_mod.shard_tree(
+        plane.tree_unflatten(base, [torch.from_numpy(a) for a in frame["arrays"]]), meshes[n])
+    for i in range(SHARD_CHECK_TICKS, SHARD_CHECK_TICKS + SHARD_RESTORE_TICKS):
+        state, want = plane.device_tick(state, flat[i], dims)
+        sharded[n], got = ticks[n].device_tick(sharded[n], wires[n][i], dims)
+        restored, again = ticks[n].device_tick(restored, wires[n][i], dims)
+        leaves_match(got, want, plane.TickOutputs._fields, f"after restore, tick {i}", worst)
+        if not all(a.tobytes() == b.tobytes() for a, b in zip(again, got)):
+            raise AssertionError(f"restored mesh, tick {i}: outputs differ from the mesh's")
+    if not all(torch.equal(a, b) for a, b in zip(plane.tree_leaves(restored.shards[3]),
+                                                  plane.tree_leaves(sharded[n].shards[3]))):
+        raise AssertionError("restored mesh: state differs from the mesh it was taken from")
+    out["snapshot"] = {"leaves": len(want_arrays), "byte_equal_to_unsharded": byte_equal,
+                       "restore_ticks_equal": SHARD_RESTORE_TICKS}
+    del restored, sharded[1]
+
+    # The kernels at the shard launch shapes, captured from one shard of a
+    # sharded tick (the last shard's launches).
+    (_, _), seen = capture_calls(
+        [(selector, "decide_rooms"), (allocation, "allocate_budget_rooms")],
+        lambda: ticks[n].device_tick(sharded[n], wires[n][0], dims))
+    a, kw, res = seen["decide_rooms"]
+    dec = time_kernel(selector.decide_rooms, selector.decide_rooms_plain, a, kw,
+                      decide_rooms_bytes(a, res))
+    dec["shape"] = list(a[3].shape[:2]) + list(a[4].shape[2:]) + [a[3].shape[2]]
+    a2, kw2, res2 = seen["allocate_budget_rooms"]
+    al = time_kernel(allocation.allocate_budget_rooms, allocation.allocate_budget_rooms_plain,
+                     a2, kw2, nbytes(a2, res2))
+    al["shape"] = list(a2[1].shape)
+
+    # The device steps: unsharded, one shard, SHARD_N shards of one card.
+    # A fresh unsharded state per step timing: device_tick returns new
+    # tensors each tick, as the sharded steps do (donate off).
+    timing = {}
+    holder = {"u": state}
+
+    def unsharded(wire):
+        holder["u"], _ = plane.device_tick(holder["u"], wire, dims)
+
+    timing["unsharded"] = time_steps(unsharded, flat)
+    del holder
+    for m in (1, SHARD_N):
+        held = {"s": mesh_mod.shard_tree(state, meshes[m])}
+
+        def stepped(w, m=m, held=held):
+            held["s"], _ = ticks[m].device_tick(held["s"], w, dims)
+
+        timing[f"N={m}"] = time_steps(stepped, wires[m])
+    out["north_star"]["device_step"] = timing
+    # The least bytes a step moves: the state read and written once, the
+    # wired inputs in and the flat outputs out, at the card's memory rate.
+    step_bytes = 2 * nbytes(state) + flat[0].nbytes + out_bytes
+    out["north_star"]["step_bytes"] = step_bytes
+    out["north_star"]["step_bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
+    return {"decide_rooms": dec, "allocate_budget_rooms": al}, launches
+
+
+async def shard_room_managers(dev, out: dict) -> dict:
+    """A cfg4 RoomManager over SHARD_N room shards of `dev` and an
+    unsharded one, fed the same seeded ticks for SHARD_LOCK_TICKS lockstep
+    steps: every forwarded (room, sub, sn, ts) equal. Returns the meshed
+    runtime's kernel launches (counted around its steps only)."""
+    spec, dims = RUNTIME_SPEC, RUNTIME_DIMS
+    cfg = serving_config(dense_dims=dims)
+    mesh = mesh_mod.make_mesh([dev] * SHARD_N)
+
+    def manager(**kw):
+        return RoomManager(cfg, LocalRouter(LocalNode()), LocalStore(),
+                           telemetry=TelemetryService(cfg), device=dev, **kw)
+
+    meshed, flat = manager(mesh=mesh), manager()
+    rts = (meshed.runtime, flat.runtime)
+    if not isinstance(rts[0].state, mesh_mod.Sharded) or len(rts[0].state.shards) != SHARD_N:
+        raise AssertionError("RoomManager(mesh=...) did not shard its runtime")
+    for rt in rts:
+        setup_rooms(rt, spec)
+        # No rtc room is joined, so the managers' tick dispatch would only
+        # build a Python packet per forwarded packet for WebSocket delivery
+        # (~80,000 a tick, most of the phase's time in the first proof):
+        # host work after the join, the same with or without shards.
+        rt._on_tick.clear()
+    rng = np.random.default_rng(SEED)
+    traffic = synth.init_traffic(dims, spec, seed=SEED)
+    launches = dict.fromkeys(cuda.launches, 0)
+    fwd = 0
+    for i in range(SHARD_LOCK_TICKS):
+        traffic, inp = synth.next_tick(traffic, dims, spec, i, seed=SEED)
+        batch, estimate = synth_packets(inp, rng), np.asarray(inp.estimate)
+        res = []
+        for rt in rts:
+            push(rt, batch, estimate)
+            before = dict(cuda.launches)
+            res.append(await rt.step_once())
+            if rt is rts[0]:
+                for k in launches:
+                    launches[k] += cuda.launches[k] - before[k]
+        for col in ("rooms", "subs", "sn", "ts", "tracks", "ks", "pid", "tl0", "keyidx"):
+            if not np.array_equal(getattr(res[0].egress_batch, col),
+                                  getattr(res[1].egress_batch, col)):
+                raise AssertionError(f"cfg4 lockstep tick {i}: egress {col} meshed != unsharded")
+        fwd += res[0].fwd_packets
+    for rt in rts:
+        await rt.stop()
+    if fwd <= 0:
+        raise AssertionError("cfg4 lockstep: nothing forwarded")
+    expected = {"decide_rooms": SHARD_N * SHARD_LOCK_TICKS,
+                "allocate_budget_rooms": SHARD_N * SHARD_LOCK_TICKS, "paged_kernel": 0}
+    if launches != expected:
+        raise AssertionError(f"meshed RoomManager launches {launches}, expected {expected}")
+    out["cfg4_room_managers"] = {"dims": list(dims), "shards": SHARD_N,
+                                 "ticks": SHARD_LOCK_TICKS, "fwd_packets": int(fwd),
+                                 "egress_equal": True, "launches": launches}
+    return launches
+
+
+def shard_pool_phase(dev, out: dict, worst: dict) -> None:
+    """The stock pooled step at PAGED_RUNTIME_DIMS, the pool filled from
+    the size mix, over SHARD_N page shards of `dev` against the unsharded
+    stock step, SHARD_POOL_TICKS ticks; the cross-shard page copies
+    counted."""
+    dims = PAGED_RUNTIME_DIMS
+    pooled = dims.pooled()
+    pager = RoomPager(dims.rooms, dims.tracks, dims.subs, tpage=dims.tpage,
+                      spage=dims.spage, pool_pages=dims.pool_pages)
+    sizes = admit_rooms(pager)
+    room_sizes = np.zeros(dims.rooms, np.int64)
+    room_sizes[:len(sizes)] = sizes
+    state, table = paged_pool_state(pager, sizes, dims, dev)
+    wires = paged_wires(pager, dims, room_sizes, SHARD_POOL_TICKS)
+    mesh = mesh_mod.make_mesh([dev] * SHARD_N)
+    sh, sh_table = mesh_mod.shard_pool(state, mesh), mesh_mod.shard_pool(table, mesh)
+    plan = mesh_mod.PoolPlan(mesh, pager.tmembers)
+    tick = mesh_mod.ShardedPoolTick(mesh)
+    bit_equal = True
+    names = plane.leaf_names(state)
+    for i, wire in enumerate(wires):
+        state, buf = paged.stock_step(state, table, wire, dims)
+        want = plane.unpack_tick_outputs(buf, pooled)
+        host = tuple(x.numpy() for x in plane.unwire_inputs(torch.from_numpy(wire), pooled))
+        inp = mesh_mod.upload_wires(mesh_mod.shard_wires(host, mesh), mesh, pooled)
+        sh, bufs = tick.step(sh, inp, sh_table, plan)
+        bit_equal &= leaves_match(mesh_mod.join_outputs(bufs, pooled), want,
+                                  plane.TickOutputs._fields, f"pool tick {i}", worst)
+    bit_equal &= leaves_match(plane.tree_leaves(mesh_mod.gather_tree(sh)),
+                              plane.tree_leaves(state), names, "pool state", worst)
+    out["pool"] = {"dims": list(dims), "rooms": len(sizes),
+                   "live_pages": int((pager.pg_room >= 0).sum()), "shards": SHARD_N,
+                   "ticks": SHARD_POOL_TICKS, "bit_equal": bit_equal,
+                   "cross_shard_pages_per_tick": plan.copies,
+                   "cross_shard_pages": tick.cross_shard_pages}
+
+
+def shard_phase(dev) -> tuple[dict, dict, dict, dict]:
+    """Phase 5f: room and page shards of the one card (see the module
+    docstring). Returns (report, the shard path's kernel timings at the
+    north star's shard shapes, their launches there, the meshed
+    RoomManager's launches)."""
+    t0 = time.perf_counter()
+    out: dict = {"card": card_line(), "device_count": torch.cuda.device_count(),
+                 "shards": SHARD_N}
+    worst: dict[str, float] = {}
+    timed, ns_launches = shard_north_star(dev, out, worst)
+    torch.cuda.empty_cache()
+    parts = {"north_star": time.perf_counter() - t0}
+    rm_launches = asyncio.run(shard_room_managers(dev, out))
+    parts["cfg4_room_managers"] = time.perf_counter() - t0 - sum(parts.values())
+    shard_pool_phase(dev, out, worst)
+    parts["pool"] = time.perf_counter() - t0 - sum(parts.values())
+    out["float_max_abs_err"] = worst
+    out["part_s"] = parts
+    out["phase_s"] = time.perf_counter() - t0
+    return out, timed, ns_launches, rm_launches
+
+
 def paged_pool_state(pager: RoomPager, sizes, dims: paged.PagedDims, dev):
     """Device pool state and table for the pager's rooms (sizes[r]
     participants, each publishing one track and subscribed to all others),
@@ -3817,9 +4114,9 @@ def migration_config(bus_port: int, dims: plane.PlaneDims = MIG_DIMS) -> Config:
     the clients' reconnect), so the idle reaper would close them after
     the default 300 s, in the middle of the drain."""
     base = port_overlay()
-    base["plane"].update(rooms=dims.rooms, tracks_per_room=dims.tracks,
-                         pkts_per_track=dims.pkts, subs_per_room=dims.subs,
-                         tick_ms=RUNTIME_SPEC.tick_ms)
+    base.setdefault("plane", {}).update(
+        rooms=dims.rooms, tracks_per_room=dims.tracks, pkts_per_track=dims.pkts,
+        subs_per_room=dims.subs, tick_ms=RUNTIME_SPEC.tick_ms)
     base.update(development=True, trace={"ring_ticks": SERVING_TRACE_TICKS},
                 kv={"kind": "tcp", "address": f"127.0.0.1:{bus_port}"},
                 limits={"governor_enabled": False}, room={"empty_timeout_s": 3600})
@@ -4565,6 +4862,12 @@ def main() -> int:
     mixer = mixer_phase(dev)
     print(json.dumps({"mixer": mixer}), flush=True)
     done("mixer")
+    shard, shard_t, shard_launches, shard_rm_launches = shard_phase(dev)
+    print(json.dumps({"shard": shard}), flush=True)
+    log(f"shards ok on {shard['card']} ({shard['device_count']} CUDA devices): north-star "
+        f"device step {json.dumps(shard['north_star']['device_step'])}; pool cross-shard "
+        f"pages {shard['pool']['cross_shard_pages']}")
+    done("shard")
     tick, dense_t, ns_state = timing_phase(dev, args.profile)
     paged_tick, paged_t, pool_state = paged_timing_phase(dev, args.profile)
     done("timing")
@@ -4591,16 +4894,18 @@ def main() -> int:
                 "express_lockstep": express["lockstep"]["launches"],
                 "express": express["loop"]["launches"],
                 "gateway": gateway["loop"]["launches"],
+                "shard": shard_launches,
+                "shard_cfg4": shard_rm_launches,
                 "migration": migration["launches"]}
     paged_t["paged_kernel"]["mix"] = mix_t
-    timed = {"dense": dense_t, "paged": paged_t}
+    timed = {"dense": dense_t, "paged": paged_t, "shard": shard_t}
     own = {"decide_rooms": "dense", "allocate_budget_rooms": "dense", "paged_kernel": "paged"}
     kernels = []
     for name, meta in KERNELS.items():
         main_t = timed[own[name]][name]
         paths = {
             path: {"launches": launches[path][name], **timed[path][name]}
-            for path in ("dense", "paged") if name in timed[path]
+            for path in ("dense", "paged", "shard") if name in timed[path]
         }
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],

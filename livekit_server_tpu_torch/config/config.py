@@ -780,10 +780,11 @@ def _validate(cfg: Config) -> None:
 
 # Subsystems the port does not carry yet: (config path, whether a value
 # enables it, the value that turns it off, the ROADMAP item that brings
-# it). RoomManager refuses a config that enables any of them.
-UNPORTED: tuple[tuple[str, Callable[[Any], bool], Any, str], ...] = (
-    ("plane.mesh_devices", lambda v: v > 1, 1, "A10 (multi-GPU)"),
-)
+# it). RoomManager refuses a config that enables any of them. Empty: the
+# last entry, `plane.mesh_devices` (A10), went when room shards were
+# ported; like the reference, the port reads that key nowhere (a mesh is
+# passed to `create_server`).
+UNPORTED: tuple[tuple[str, Callable[[Any], bool], Any, str], ...] = ()
 
 
 def _get_path(cfg: Config, path: str) -> Any:

@@ -43,6 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from livekit_server_tpu_torch.parallel.mesh import Sharded, locate
 
 
 @dataclass
@@ -219,7 +220,7 @@ class FaultInjector:
     # -- silent data corruption -------------------------------------------
     def maybe_bitflip(self, state, tick_index: int) -> None:
         """Flip bits in one room's row of the configured leaf of `state`
-        (a PlaneState of tensors) at the configured tick, in place on the
+        (a PlaneState of tensors, or its room shards) at the configured tick, in place on the
         leaf's device — the corruption the integrity audit exists to
         catch. Called from PlaneRuntime._device_step on the worker thread
         right before the step, with state_lock held and the runtime's
@@ -228,10 +229,14 @@ class FaultInjector:
         s = self.spec
         if s.bitflip_tick < 0 or tick_index != s.bitflip_tick:
             return
+        room = s.bitflip_room
+        if isinstance(state, Sharded):
+            # Room shards: the flip lands in the shard that owns the room.
+            state, room = locate(state, room)
         leaf = state
         for part in s.bitflip_leaf.split("."):
             leaf = getattr(leaf, part)
-        row = leaf[s.bitflip_room].cpu().numpy().copy()
+        row = leaf[room].cpu().numpy().copy()
         flat = row.reshape(-1)
         if flat.dtype.itemsize == 4:
             words = flat.view(np.uint32)
@@ -244,7 +249,7 @@ class FaultInjector:
         words[idx] ^= bit
         if row.dtype == np.bool_:
             row = row.view(np.uint8) != 0
-        leaf[s.bitflip_room] = torch.from_numpy(row).to(leaf.device)
+        leaf[room] = torch.from_numpy(row).to(leaf.device)
         self.stats.bitflips += n
 
     def corrupt_ckpt(self, blob):

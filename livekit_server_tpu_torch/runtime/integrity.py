@@ -12,7 +12,10 @@ by the fault injector). Two halves:
   commits. It emits a per-room violation bitmask [R] plus per-rule
   counters; only those few dozen bytes cross to the host. (The reference
   jits the same reduction as one XLA program; here the float leaves are
-  concatenated once so their two row reductions are two launches.)
+  concatenated once so their two row reductions are two launches.) On a
+  mesh (parallel/mesh.py) the reduction runs once per shard, on the
+  shard's device: the room masks join in room order and the per-rule
+  counters sum, which equals the unsharded audit.
 
 * ``IntegrityMonitor`` — the host-side repair ladder. A flagged room is
   quarantined the same tick (fan-out masked in ``_fan_out``, egress muted
@@ -47,6 +50,7 @@ import torch
 
 from livekit_server_tpu_torch.models import plane
 from livekit_server_tpu_torch.ops import selector
+from livekit_server_tpu_torch.parallel.mesh import Sharded
 from livekit_server_tpu_torch.runtime import trace
 from livekit_server_tpu_torch.utils.checksum import ChecksumError
 from livekit_server_tpu_torch.utils.logger import Logger
@@ -86,7 +90,9 @@ class AuditMirror(NamedTuple):
     received: torch.Tensor  # int32
 
 
-def init_mirror(state: plane.PlaneState) -> AuditMirror:
+def init_mirror(state: plane.PlaneState | Sharded) -> AuditMirror | Sharded:
+    if isinstance(state, Sharded):
+        return state.map(init_mirror)
     s = state.stats
     return AuditMirror(
         started=torch.zeros_like(s.started),
@@ -101,10 +107,16 @@ def _rows_any(bad: torch.Tensor, rooms: int) -> torch.Tensor:
 
 
 def audit_plane(
-    state: plane.PlaneState, mirror: AuditMirror
-) -> tuple[torch.Tensor, torch.Tensor, AuditMirror]:
+    state: plane.PlaneState | Sharded, mirror: AuditMirror | Sharded
+) -> tuple[torch.Tensor, torch.Tensor, AuditMirror | Sharded]:
     """Integrity reduction -> (mask [R] int32, counts [5] int32, new
-    mirror), all on the state's device."""
+    mirror), all on the state's device; for a sharded state, the mask and
+    counts on the host and the mirror sharded like the state."""
+    if isinstance(state, Sharded):
+        parts = [audit_plane(s, m) for s, m in zip(state.shards, mirror.shards)]
+        return (torch.cat([p[0].cpu() for p in parts]),
+                sum(p[1].cpu() for p in parts),
+                Sharded(state.mesh, [p[2] for p in parts]))
     rooms = state.audio_state.smoothed_level.shape[0]
 
     floats = [leaf.reshape(rooms, -1) for leaf in plane.tree_leaves(state)

@@ -37,7 +37,14 @@ audit runs over the pooled page rows; `map_audit_mask` folds its mask to
 rooms and adds the page-table check (BIT_TABLE) against the host copy of
 what the last page sync uploaded.
 
-Not carried yet (see ROADMAP.md): the pool mesh.
+Pool mesh (`mesh=`, parallel/mesh.py), as the reference's: the pooled
+state and the page table are split over the mesh's devices by page
+(`shard_pool`), the tick is the stock pooled one (`paged_kernel` forced
+"off", with the reference's warning when it was asked for), and each
+shard ticks its pages with copies of the pages its rooms hold on other
+shards (`PoolPlan`, rebuilt at each page sync; the copies count in
+`stats["cross_shard_pages"]`). Table, control and row writes land on the
+owning shard; a restore binds fresh tensors on every shard.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import numpy as np
 import torch
 
 from livekit_server_tpu_torch.models import paged, plane
+from livekit_server_tpu_torch.parallel import mesh as mesh_mod
 from livekit_server_tpu_torch.runtime import integrity
 from livekit_server_tpu_torch.runtime.munge import HostMunger
 from livekit_server_tpu_torch.runtime.pager import RoomPager
@@ -55,6 +63,7 @@ from livekit_server_tpu_torch.runtime.plane_runtime import (
     _to_device,
 )
 from livekit_server_tpu_torch.runtime.slots import PagedSlotAllocator
+from livekit_server_tpu_torch.utils.logger import Logger
 
 
 def _numpy(tree):
@@ -64,13 +73,28 @@ def _numpy(tree):
 class PagedPlaneRuntime(PlaneRuntime):
     """PlaneRuntime over the pooled paged device layout."""
 
-    def __init__(self, dims: paged.PagedDims, *, paged_kernel: str = "auto", **kwargs):
+    def __init__(self, dims: paged.PagedDims, *, mesh=None, paged_kernel: str = "auto",
+                 **kwargs):
         if not isinstance(dims, paged.PagedDims):
             raise TypeError("PagedPlaneRuntime requires paged.PagedDims")
         if isinstance(paged_kernel, bool):
             paged_kernel = "on" if paged_kernel else "off"
         if paged_kernel not in ("auto", "on", "off"):
             raise ValueError(f"paged_kernel must be auto|on|off, got {paged_kernel!r}")
+        if mesh is not None and paged_kernel != "off":
+            # The live-page kernel runs over the whole pool on one
+            # device; the page-sharded tick stays the stock one.
+            if paged_kernel != "auto":
+                Logger(plane="paged").warn(
+                    "paged_kernel forced off: pool-mesh sharding uses "
+                    "the stock pooled tick", requested=paged_kernel,
+                )
+            paged_kernel = "off"
+        # Pool-axis mesh, kept apart from the base class's room mesh (the
+        # dense tick's): the pooled tick couples pages across shards.
+        self._pmesh = mesh
+        if mesh is not None:
+            kwargs["device"] = mesh.devices[0]
         self.pdims = dims
         self._pk_mode = paged_kernel
         self._pk_enabled = paged_kernel != "off"
@@ -101,7 +125,7 @@ class PagedPlaneRuntime(PlaneRuntime):
         self._step_xlate = self._xlate_cached()
         self.stats.update({
             "page_delta_uploads": 0, "page_rows_uploaded": 0,
-            "pages_reinit": 0, "page_moves": 0,
+            "pages_reinit": 0, "page_moves": 0, "cross_shard_pages": 0,
             # Kernel accounting: steps == the padded live-page bucket per
             # tick (blocks the kernel launched).
             "paged_kernel_ticks": 0, "paged_kernel_steps": 0,
@@ -120,7 +144,23 @@ class PagedPlaneRuntime(PlaneRuntime):
         return plane.init_state(self.pdims.pooled(), device=self.device)
 
     def _init_step(self) -> None:
+        if self._pmesh is not None:
+            self.state = mesh_mod.shard_pool(self.state, self._pmesh)
+            self.table = mesh_mod.shard_pool(self.table, self._pmesh)
+            self._pool_tick = mesh_mod.ShardedPoolTick(
+                self._pmesh, self._ap, self._bp, self.red_enabled)
+            self._pool_plan = mesh_mod.PoolPlan(self._pmesh, self._dev_tables[3])
+            self._step = self._sharded_stock_step
+            return
         self._step = self._live_step if self._pk_enabled else self._stock_step
+
+    def _sharded_stock_step(self, state, wires):
+        """The stock pooled step over page shards: each shard's wire up,
+        the sharded tick, each shard's flat outputs down."""
+        inp = mesh_mod.upload_wires(wires, self._pmesh, self.pdims.pooled())
+        state, bufs = self._pool_tick.step(state, inp, self.table, self._pool_plan)
+        self.stats["cross_shard_pages"] += self._pool_plan.copies
+        return state, bufs
 
     def _stock_step(self, state, wire):
         return paged.stock_step(state, self.table, wire, self.pdims, self._ap, self._bp,
@@ -139,16 +179,24 @@ class PagedPlaneRuntime(PlaneRuntime):
     def _pack_inputs(self, inp: plane.TickInputs) -> np.ndarray:
         pkt, fb, tf, tick_ms, roll = plane.pack_tick_inputs(inp)
         pkt_p, fb_p, tf_p = self._xlate_cached().stage_inputs(pkt, fb, tf)
-        return plane.wire_inputs((pkt_p.astype(np.int32), fb_p.astype(np.float32),
-                                  tf_p.astype(np.float32), tick_ms, roll))
+        packed = (pkt_p.astype(np.int32), fb_p.astype(np.float32),
+                  tf_p.astype(np.float32), tick_ms, roll)
+        if self._pmesh is not None:
+            return mesh_mod.shard_wires(packed, self._pmesh)
+        return plane.wire_inputs(packed)
 
     def _unpack_outputs(self, buf) -> plane.TickOutputs:
-        out = plane.unpack_tick_outputs(buf, self.pdims.pooled(), self.red_enabled)
+        if self._pmesh is not None:
+            out = mesh_mod.join_outputs(buf, self.pdims.pooled(), self.red_enabled)
+        else:
+            out = plane.unpack_tick_outputs(buf, self.pdims.pooled(), self.red_enabled)
         # _step_xlate, not _xlate_cached(): the outputs belong to the table
         # the step actually saw.
         return self._step_xlate.outputs_to_logical(out)
 
     def _sel_mirror(self, state) -> tuple:
+        if self._pmesh is not None:
+            state = mesh_mod.gather_tree(state)
         return tuple(self._step_xlate.sel_to_logical(_numpy(state.sel),
                                                      self._logical_fill().sel))
 
@@ -208,10 +256,36 @@ class PagedPlaneRuntime(PlaneRuntime):
         table). Caller holds state_lock."""
         self._sync_pages()
         with self._on_stream():
-            pooled = _numpy(self.state)
+            pooled = _numpy(self._pooled_state())
         return self._xlate_cached().state_to_logical(pooled, self._logical_fill())
 
+    def _pooled_state(self) -> plane.PlaneState:
+        """The whole pooled state; on a pool mesh, its shards joined on
+        the host."""
+        return mesh_mod.gather_tree(self.state) if self._pmesh is not None else self.state
+
     # -- page-table delta lane --------------------------------------------
+
+    def _apply_table_delta(self, page_rows, tmember_rows, pg_room_rows, pg_tp_rows,
+                           pg_sp_rows, room_rows, rooms_pages_rows) -> None:
+        """`paged.apply_table_delta` onto the device table; on a pool mesh,
+        page rows onto the shard owning the page, room rows onto the shard
+        owning the room."""
+        if self._pmesh is None:
+            paged.apply_table_delta(self.table, page_rows, tmember_rows, pg_room_rows,
+                                    pg_tp_rows, pg_sp_rows, room_rows, rooms_pages_rows)
+            return
+        d, none = self.pdims, np.empty(0, np.int32)
+        W = d.max_tpages * d.max_spages
+        for i, pos, local in mesh_mod.split_rows(self._pmesh, d.pool_pages, page_rows):
+            paged.apply_table_delta(
+                self.table.shards[i], local, np.asarray(tmember_rows)[pos],
+                np.asarray(pg_room_rows)[pos], np.asarray(pg_tp_rows)[pos],
+                np.asarray(pg_sp_rows)[pos], none, np.empty((0, W), np.int32))
+        for i, pos, local in mesh_mod.split_rows(self._pmesh, d.rooms, room_rows):
+            paged.apply_table_delta(
+                self.table.shards[i], none, np.empty((0, d.max_tpages), np.int32),
+                none, none, none, local, np.asarray(rooms_pages_rows)[pos])
 
     def _sync_pages(self) -> None:
         """Drain the pager's pending page events into the device: table
@@ -222,13 +296,25 @@ class PagedPlaneRuntime(PlaneRuntime):
         delta = self.pager.drain_delta()
         if not delta.empty:
             rows = paged.pack_table_delta(self.pager, delta)
-            paged.apply_table_delta(self.table, *rows)
+            self._apply_table_delta(*rows)
             if len(delta.moves):
-                paged.move_state_rows(self.state, delta.moves[:, 0], delta.moves[:, 1])
+                if self._pmesh is None:
+                    paged.move_state_rows(self.state, delta.moves[:, 0], delta.moves[:, 1])
+                else:
+                    # Every source row is read before any destination is
+                    # written, across shards too.
+                    moved = mesh_mod.read_rows(self.state, delta.moves[:, 0])
+                    mesh_mod.write_rows(self.state, delta.moves[:, 1],
+                                        plane.tree_leaves(moved))
                 self.stats["page_moves"] += len(delta.moves)
             reinit = np.concatenate([delta.fresh_pages, delta.freed_pages])
             if len(reinit):
-                paged.reinit_pages(self.state, reinit, self._page_template)
+                if self._pmesh is None:
+                    paged.reinit_pages(self.state, reinit, self._page_template)
+                else:
+                    mesh_mod.write_rows(self.state, reinit, [
+                        np.broadcast_to(a[:1], (len(reinit),) + a.shape[1:])
+                        for a in plane.tree_leaves(self._pooled_fill())])
                 self.stats["pages_reinit"] += len(reinit)
             # Rooms whose grid changed re-assert control onto their
             # (possibly fresh or relocated) pages at this same edge.
@@ -237,6 +323,8 @@ class PagedPlaneRuntime(PlaneRuntime):
                 self.pager.pg_room.copy(), self.pager.pg_tp.copy(),
                 self.pager.pg_sp.copy(), self.pager.tmembers.copy(),
             )
+            if self._pmesh is not None:
+                self._pool_plan = mesh_mod.PoolPlan(self._pmesh, self._dev_tables[3])
             if self.integrity is not None:
                 # Page identity changed under the audit mirror's cursors;
                 # re-baseline instead of flagging relocated streams.
@@ -269,7 +357,13 @@ class PagedPlaneRuntime(PlaneRuntime):
             self.stats["ctrl_delta_rows"] += len(rows)
         if len(page_rows):
             pr, meta_rows, ctrl_rows = self._pack_ctrl_pages(page_rows)
-            plane.apply_ctrl_delta(self.state, pr, meta_rows, ctrl_rows)
+            if self._pmesh is None:
+                plane.apply_ctrl_delta(self.state, pr, meta_rows, ctrl_rows)
+            else:
+                for i, pos, local in mesh_mod.split_rows(self._pmesh, self.pdims.pool_pages,
+                                                         pr):
+                    plane.apply_ctrl_delta(self.state.shards[i], local, meta_rows[:, pos],
+                                           ctrl_rows[:, pos])
             self.stats["ctrl_upload_bytes"] += meta_rows.nbytes + ctrl_rows.nbytes
         self._dirty_rows = set()
         self._ctrl_dirty = False
@@ -314,7 +408,7 @@ class PagedPlaneRuntime(PlaneRuntime):
         true owner and the phantom one), after re-writing those rows from
         the host copy; None when the table matches."""
         mr, mt, ms, mtm = self._dev_tables
-        t = self.table
+        t = mesh_mod.gather_tree(self.table) if self._pmesh is not None else self.table
         dr, dt, ds, dtm = (x.to("cpu", copy=True).numpy()
                            for x in (t.pg_room, t.pg_tp, t.pg_sp, t.tmembers))
         bad = (dr != mr) | (dt != mt) | (ds != ms) | (dtm != mtm).any(axis=1)
@@ -327,8 +421,8 @@ class PagedPlaneRuntime(PlaneRuntime):
             bad_rooms[owner[valid]] = True
         rows = np.nonzero(bad)[0].astype(np.int32)
         # The host copy is authoritative: re-scatter the diverged rows.
-        paged.apply_table_delta(
-            self.table, rows, mtm[rows], mr[rows], mt[rows], ms[rows],
+        self._apply_table_delta(
+            rows, mtm[rows], mr[rows], mt[rows], ms[rows],
             np.empty(0, np.int32),
             np.empty((0, self.pager.rooms_pages.shape[1]), np.int32),
         )
@@ -349,7 +443,8 @@ class PagedPlaneRuntime(PlaneRuntime):
         d = self.pdims
         tps = self.pager.pg_tp[pages].astype(np.int64)
         sps = self.pager.pg_sp[pages].astype(np.int64)
-        row_tree = plane.tree_unflatten(self.state, [np.asarray(a) for a in leaves])
+        tmpl = self.state.shards[0] if self._pmesh is not None else self.state
+        row_tree = plane.tree_unflatten(tmpl, [np.asarray(a) for a in leaves])
 
         def rowfun(kind, lrow, pooled_leaf):
             a = np.ascontiguousarray(lrow)
@@ -364,7 +459,10 @@ class PagedPlaneRuntime(PlaneRuntime):
                 v = a.reshape(d.max_tpages, d.tpage, d.max_spages, d.spage, w)[tps, :, sps]
             return v.reshape((len(pages),) + tuple(pooled_leaf.shape[1:]))
 
-        rows_tree = plane.tree_map(rowfun, paged._kind_tree(row_tree), row_tree, self.state)
+        rows_tree = plane.tree_map(rowfun, paged._kind_tree(row_tree), row_tree, tmpl)
+        if self._pmesh is not None:
+            mesh_mod.write_rows(self.state, pages, plane.tree_leaves(rows_tree))
+            return
         with self._on_stream():
             idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
             for leaf, rws in zip(plane.tree_leaves(self.state), plane.tree_leaves(rows_tree)):
@@ -440,10 +538,16 @@ class PagedPlaneRuntime(PlaneRuntime):
         logical = plane.tree_unflatten(self._logical_fill(),
                                        [np.asarray(a) for a in snap["arrays"]])
         pooled = self._xlate_cached().state_to_pooled(logical, self._pooled_fill())
-        with self._on_stream():
-            self.state = plane.tree_unflatten(self.state, [
-                _to_device(a, leaf) for leaf, a in
-                zip(plane.tree_leaves(self.state), plane.tree_leaves(pooled))])
+        if self._pmesh is not None:
+            host = [_to_device(a, torch.empty(0, dtype=leaf.dtype)) for leaf, a in
+                    zip(plane.tree_leaves(self.state.shards[0]), plane.tree_leaves(pooled))]
+            self.state = mesh_mod.shard_pool(
+                plane.tree_unflatten(self.state.shards[0], host), self._pmesh)
+        else:
+            with self._on_stream():
+                self.state = plane.tree_unflatten(self.state, [
+                    _to_device(a, leaf) for leaf, a in
+                    zip(plane.tree_leaves(self.state), plane.tree_leaves(pooled))])
         if "munger" in snap:
             self.munger.restore(snap["munger"])
         else:

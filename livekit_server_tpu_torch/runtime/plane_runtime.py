@@ -52,8 +52,15 @@ ring. The mirror is posted under the commit lock and only while the
 step's run is current, like the audit: a step a restart left behind
 never hands the lane a mirror of the state it abandoned.
 
+Room shards (`mesh=`, parallel/mesh.py), as the reference's mesh: the
+state is split over the mesh's devices by room, each tick packs one wire
+per shard and steps every shard (`make_sharded_tick`), and the outputs
+join in room order. Ctrl deltas and row writes land on the shard that
+owns the row, in place; snapshots, the express mirror and the audit read
+every shard; a full restore binds fresh tensors on every shard.
+
 Not carried yet (see ROADMAP.md): pinned host buffers and graph capture
-of the tick, the device mesh and the compile ledger.
+of the tick, and the compile ledger.
 """
 
 from __future__ import annotations
@@ -75,6 +82,7 @@ import torch
 from livekit_server_tpu_torch.device import resolve
 from livekit_server_tpu_torch.models import plane
 from livekit_server_tpu_torch.ops import audio as audio_ops, bwe as bwe_ops
+from livekit_server_tpu_torch.parallel import mesh as mesh_mod
 from livekit_server_tpu_torch.runtime import trace as trace_mod
 from livekit_server_tpu_torch.runtime.egress_plane import EgressPlane
 from livekit_server_tpu_torch.runtime.ingest import (
@@ -293,8 +301,12 @@ class PlaneRuntime:
                  trace_ring_ticks: int = 512, trace_sample_every: int = 64,
                  blackbox_events: int = 64, egress_shards: int = 0,
                  egress_multicast: bool = True, express_max_subs: int = 0,
-                 express_max_rooms: int = 16, device="cuda"):
-        self.device = resolve(device)
+                 express_max_rooms: int = 16, device="cuda", mesh=None):
+        # Room shards over the mesh's devices (None: one device). The
+        # runtime's own device (its stream, host-side consumers) is then
+        # the mesh's first.
+        self._mesh = mesh
+        self.device = resolve(device) if mesh is None else mesh.devices[0]
         # The ctrl upload (event-loop thread) and the device step (the
         # executor's thread) both enqueue on this one stream, in the order
         # state_lock admits them; a per-thread current stream cannot split
@@ -442,29 +454,54 @@ class PlaneRuntime:
     # -- device-layout seams (overridden by PagedPlaneRuntime) ------------
 
     def _init_device_state(self) -> plane.PlaneState:
-        """Allocate the device plane state (dense layout)."""
-        return plane.init_state(self.dims, device=self.device)
+        """Allocate the device plane state (dense layout; on the host
+        when `_init_step` shards it over a mesh)."""
+        return plane.init_state(self.dims, device="cpu" if self._mesh else self.device)
 
     def _init_step(self) -> None:
         """Bind the device step: (state, wire) → (state', flat numpy
-        output buffer)."""
+        output buffer); on a mesh, (sharded state, one wire per shard) →
+        (state', one buffer per shard). The meshed step returns a new
+        state, committed like the unsharded one (a step a restart
+        abandoned never wrote the committed tensors)."""
+        if self._mesh is not None:
+            self.state = mesh_mod.shard_tree(self.state, self._mesh)
+            tick = mesh_mod.make_sharded_tick(self._mesh, self._ap, self._bp, donate=False,
+                                              red_enabled=self.red_enabled)
+            self._step = functools.partial(tick.device_step, dims=self.dims)
+            return
         self._step = functools.partial(
             plane.device_step, dims=self.dims, audio_params=self._ap,
             bwe_params=self._bp, red_enabled=self.red_enabled,
         )
 
-    def _pack_inputs(self, inp: plane.TickInputs) -> np.ndarray:
-        """Logical numpy TickInputs → the device step's one upload buffer."""
+    def _pack_inputs(self, inp: plane.TickInputs):
+        """Logical numpy TickInputs → the device step's one upload buffer
+        (one per shard on a mesh)."""
+        if self._mesh is not None:
+            return mesh_mod.shard_wires(plane.pack_tick_inputs(inp), self._mesh)
         return plane.wire_inputs(plane.pack_tick_inputs(inp))
 
     def _unpack_outputs(self, buf) -> plane.TickOutputs:
-        """The device step's output buffer → LOGICAL-shape TickOutputs."""
+        """The device step's output buffer(s) → LOGICAL-shape TickOutputs."""
+        if self._mesh is not None:
+            return mesh_mod.join_outputs(buf, self.dims, self.red_enabled)
         return plane.unpack_tick_outputs(buf, self.dims, self.red_enabled)
 
     def _sel_mirror(self, state) -> tuple:
         """The selector state in LOGICAL [R, T, S] shape: (current_spatial,
         current_temporal, target_spatial, target_temporal) numpy arrays."""
+        if self._mesh is not None:
+            return tuple(x.numpy() for x in mesh_mod.gather_tree(state.map(lambda s: s.sel)))
         return tuple(x.cpu().numpy() for x in state.sel)
+
+    def _state_tree(self) -> plane.PlaneState:
+        """A tree of the state's structure (a shard's, on a mesh)."""
+        return self.state.shards[0] if self._mesh is not None else self.state
+
+    def _host_state(self) -> plane.PlaneState:
+        """The whole state; on a mesh, its shards joined on the host."""
+        return mesh_mod.gather_tree(self.state) if self._mesh is not None else self.state
 
     def _tick_rec_extras(self, st: StagedTick) -> dict:
         """Extra fields for this tick's `recent_ticks` record; the paged
@@ -604,13 +641,24 @@ class PlaneRuntime:
             return
         ctrl = self._effective_ctrl()
         if self._ctrl_dirty or len(rows) > self.ctrl_delta_max_rows:
-            for dst, src in zip((*self.state.meta, *self.state.ctrl),
-                                (*self.meta, *ctrl)):
-                dst.copy_(torch.from_numpy(src))
+            if self._mesh is None:
+                pairs = [(self.state, (0, self.dims.rooms))]
+            else:
+                pairs = zip(self.state.shards,
+                            mesh_mod.room_sharding(self._mesh, self.dims.rooms))
+            for state, (a, b) in pairs:
+                for dst, src in zip((*state.meta, *state.ctrl), (*self.meta, *ctrl)):
+                    dst.copy_(torch.from_numpy(src[a:b]))
             self.stats["ctrl_full_uploads"] += 1
         else:
             r, meta_rows, ctrl_rows = plane.pack_ctrl_rows(self.meta, ctrl, rows)
-            plane.apply_ctrl_delta(self.state, r, meta_rows, ctrl_rows)
+            if self._mesh is None:
+                plane.apply_ctrl_delta(self.state, r, meta_rows, ctrl_rows)
+            else:
+                # Each dirtied row lands on the shard that owns it.
+                for i, pos, local in mesh_mod.split_rows(self._mesh, self.dims.rooms, r):
+                    plane.apply_ctrl_delta(self.state.shards[i], local,
+                                           meta_rows[:, pos], ctrl_rows[:, pos])
             self.stats["ctrl_delta_uploads"] += 1
             self.stats["ctrl_delta_rows"] += len(rows)
             self.stats["ctrl_upload_bytes"] += meta_rows.nbytes + ctrl_rows.nbytes
@@ -841,14 +889,21 @@ class PlaneRuntime:
         if st is None:
             return []
         R, T, K, _ = self.dims
-        pkt = st.wire[:len(plane.PKT_FIELDS) * R * T * K].reshape(len(plane.PKT_FIELDS), R, T, K)
-        valid = pkt[plane.PKT_FIELDS.index("valid"), row]
+        wire, local = st.wire, row
+        if self._mesh is not None:
+            # The row's shard wire, at the row's local index.
+            R //= self._mesh.size
+            wire, local = st.wire[row // R], row % R
+        F = len(plane.PKT_FIELDS)
+        pkt = wire[:F * R * T * K].reshape(F, R, T, K)[:, local:local + 1]
+        valid = pkt[plane.PKT_FIELDS.index("valid"), 0]
         tracks, slots = np.nonzero(valid)
         if not len(tracks):
             return []
         inp, ing = st.inp, self.ingest
         cols = row_fields({**dict(zip(plane.PKT_FIELDS, pkt)),
-                           **{f: getattr(inp, f) for f in plane.HOST_ONLY_PKT_FIELDS}}, row)
+                           **{f: getattr(inp, f)[row:row + 1]
+                              for f in plane.HOST_ONLY_PKT_FIELDS}}, 0)
         out = []
         for t, k in zip(tracks.tolist(), slots.tolist()):
             payload, _ = st.payloads.get(row, t, k)
@@ -1283,7 +1338,7 @@ class PlaneRuntime:
         """Serializable plane snapshot: device decision state + the
         host-side munger offsets (migration seeding analog)."""
         with self._on_stream():
-            arrays = plane.state_to_numpy(self.state)
+            arrays = plane.state_to_numpy(self._host_state())
         return {"tick_index": self.tick_index, "arrays": arrays,
                 "munger": self.munger.snapshot()}
 
@@ -1305,11 +1360,15 @@ class PlaneRuntime:
             return []
         idx = torch.as_tensor(rows, dtype=torch.long)
         with self._on_stream():
-            leaves = [x.index_select(0, idx.to(x.device)).to("cpu").numpy()
-                      for x in plane.tree_leaves(self.state)]
+            if self._mesh is not None:
+                leaves = [x.numpy() for x in
+                          plane.tree_leaves(mesh_mod.read_rows(self.state, rows))]
+            else:
+                leaves = [x.index_select(0, idx.to(x.device)).to("cpu").numpy()
+                          for x in plane.tree_leaves(self.state)]
         out = []
         for i, row in enumerate(rows):
-            tree = plane.tree_unflatten(self.state, [a[i, ...] for a in leaves])
+            tree = plane.tree_unflatten(self._state_tree(), [a[i, ...] for a in leaves])
             tree = tree._replace(
                 meta=plane.TrackMeta(*[np.array(m[row]) for m in self.meta]),
                 ctrl=plane.SubControl(*[np.array(c[row]) for c in self.ctrl]),
@@ -1400,8 +1459,11 @@ class PlaneRuntime:
 
     def _write_row(self, row: int, leaves: list) -> None:
         """Write one room row of every device leaf from numpy, in place,
-        on the runtime's stream."""
+        on the runtime's stream; on a mesh, on the shard that owns it."""
         with self._on_stream():
+            if self._mesh is not None:
+                mesh_mod.write_rows(self.state, [row], [np.asarray(a)[None] for a in leaves])
+                return
             for leaf, a in zip(plane.tree_leaves(self.state), leaves):
                 leaf[row] = _to_device(a, leaf)
 
@@ -1414,7 +1476,7 @@ class PlaneRuntime:
         the row's current subscriptions survive and the dirty-row upload
         re-asserts them over the checkpoint's older device copy at the
         next tick edge. Callers hold state_lock."""
-        flat = plane.tree_leaves(self.state)
+        flat = plane.tree_leaves(self._state_tree())
         self._check_leaves(flat, snap["arrays"], row=True)
         self.munger.restore_room(row, snap["arrays"][len(flat):])
         self._write_row(row, snap["arrays"][:len(flat)])
@@ -1435,14 +1497,14 @@ class PlaneRuntime:
         bit on a column later given to a different participant would leak
         media to someone who never subscribed. Callers hold state_lock."""
         self.host_seq.clear_room(row)
-        flat = plane.tree_leaves(self.state)
+        flat = plane.tree_leaves(self._state_tree())
         self._check_leaves(flat, snap["arrays"], row=True)
         dev_arrays = snap["arrays"][:len(flat)]
         self.munger.restore_room(row, snap["arrays"][len(flat):])
         self._write_row(row, dev_arrays)
         # Mirror the row's track metadata back to the host copies (other
         # rows' possibly-dirty host state stays untouched)…
-        snap_tree = plane.tree_unflatten(self.state, dev_arrays)
+        snap_tree = plane.tree_unflatten(self._state_tree(), dev_arrays)
         for host_arr, snap_arr in zip(self.meta, snap_tree.meta):
             host_arr[row] = snap_arr
         # …but clear the subscriber-facing control masks (see docstring).
@@ -1464,13 +1526,25 @@ class PlaneRuntime:
 
     def restore(self, snap: dict[str, Any]) -> None:
         """Restore the whole plane from a snapshot() dict, onto freshly
-        allocated device tensors (never the ones a step in flight holds).
-        Callers hold state_lock."""
-        flat = plane.tree_leaves(self.state)
-        self._check_leaves(flat, snap.get("arrays"), row=False)
-        with self._on_stream():
-            self.state = plane.tree_unflatten(
-                self.state, [_to_device(a, leaf) for leaf, a in zip(flat, snap["arrays"])])
+        allocated device tensors (never the ones a step in flight holds;
+        on a mesh, fresh tensors on every shard). Callers hold
+        state_lock."""
+        if self._mesh is not None:
+            # The plane's leaves at their global shapes, without data.
+            flat = [torch.empty((self.dims.rooms,) + tuple(x.shape[1:]), dtype=x.dtype,
+                                device="meta")
+                    for x in plane.tree_leaves(self._state_tree())]
+            self._check_leaves(flat, snap.get("arrays"), row=False)
+            host = [_to_device(a, torch.empty(0, dtype=leaf.dtype))
+                    for leaf, a in zip(flat, snap["arrays"])]
+            self.state = mesh_mod.shard_tree(
+                plane.tree_unflatten(self._state_tree(), host), self._mesh)
+        else:
+            flat = plane.tree_leaves(self.state)
+            self._check_leaves(flat, snap.get("arrays"), row=False)
+            with self._on_stream():
+                self.state = plane.tree_unflatten(
+                    self.state, [_to_device(a, leaf) for leaf, a in zip(flat, snap["arrays"])])
         if "munger" in snap:
             self.munger.restore(snap["munger"])
         else:

@@ -9,7 +9,9 @@ reference's per-room worker goroutines (room.go:1278-1396).
 
 Port of the JAX package's service/roommanager.py. It builds the port's
 PlaneRuntime or PagedPlaneRuntime on an explicit `device` ("cuda" by
-default). The server attaches the UDP media transport (`udp`), through
+default), or over a `mesh` of room (dense) or page (paged) shards
+(parallel/mesh.py), which the caller builds: `plane.mesh_devices` is read
+by nothing, as in the reference. The server attaches the UDP media transport (`udp`), through
 which each tick's egress leaves in one native batch; entries without a
 UDP/TCP destination go out as WebSocket frames. The failure and overload
 plane is wired as in the reference: the plane supervisor (tick watchdog,
@@ -24,10 +26,10 @@ fences, self-fencing, elected failover) and the dead-node failover
 worker. The express lane (plane.express_max_subs > 0) and the embedded
 media relay (relay.enabled) are off by default, as in the reference; when
 on, the runtime builds the lane and `start_transports` attaches it to the
-UDP transport and starts the relay beside it. The subsystem the port
-does not carry yet (config.UNPORTED: a device mesh) is refused at
-construction with a ConfigError naming the ROADMAP item that brings it;
-nothing is skipped in silence.
+UDP transport and starts the relay beside it. A subsystem the port does
+not carry (config.UNPORTED, empty since the mesh was ported) is refused
+at construction with a ConfigError naming the ROADMAP item that brings
+it; nothing is skipped in silence.
 """
 
 from __future__ import annotations
@@ -100,6 +102,7 @@ class RoomManager:
         store: ObjectStore,
         telemetry=None,
         device="cuda",
+        mesh=None,
     ):
         check_ported(config)
         self.config = config
@@ -154,6 +157,7 @@ class RoomManager:
             express_max_subs=p.express_max_subs,
             express_max_rooms=p.express_max_rooms,
             device=device,
+            mesh=mesh,
         )
         self.rooms: dict[str, Room] = {}
         self.udp = None     # UDPMediaTransport (start_transports / attach_udp)

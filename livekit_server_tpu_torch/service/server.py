@@ -503,11 +503,12 @@ async def connect_bus(config: Config):
     )
 
 
-def create_server(config: Config, bus=None, device="cuda") -> LivekitServer:
+def create_server(config: Config, bus=None, device="cuda", mesh=None) -> LivekitServer:
     """The Wire graph (wire_gen.go InitializeServer) as explicit wiring:
     with kv.kind 'memory' and no `bus`, the single-node router and store;
     otherwise the KV router and store over `bus` (a private MemoryBus when
-    none is given). The media plane runs on `device`."""
+    none is given). The media plane runs on `device`, or over the shards
+    of `mesh` (parallel/mesh.py `make_mesh`) when one is given."""
     node = LocalNode(region=config.region)
     sample_system_stats(node.stats)
     if bus is None and config.kv.kind == "memory":
@@ -522,7 +523,7 @@ def create_server(config: Config, bus=None, device="cuda") -> LivekitServer:
         )
         store = KVStore(bus)
     telemetry = TelemetryService(config)
-    rm = RoomManager(config, router, store, telemetry=telemetry, device=device)
+    rm = RoomManager(config, router, store, telemetry=telemetry, device=device, mesh=mesh)
     server = LivekitServer(config, router, store, rm, telemetry)
     server._selector = create_selector(config.node_selector, config.region)
     if rm.migration is not None:

@@ -18,7 +18,10 @@ from types import SimpleNamespace
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+# One intra-op thread: these tests run beside timing-sensitive tests in
+# other workers.
+torch.set_num_threads(1)
 
 from livekit_server_tpu.service import ioinfo as jioinfo  # noqa: E402
 from livekit_server_tpu.service.egress import EgressInfo as JEgressInfo  # noqa: E402

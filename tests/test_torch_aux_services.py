@@ -56,8 +56,8 @@ async def bus_server(make):
     (kv.kind external: the multi-node router and store over the bus)."""
     cfg_dict = port_overlay()
     cfg_dict["limits"] = {"governor_enabled": False}
-    cfg_dict["plane"].update(rooms=2, tracks_per_room=4, pkts_per_track=4, subs_per_room=4,
-                             tick_ms=10)
+    cfg_dict.setdefault("plane", {}).update(
+        rooms=2, tracks_per_room=4, pkts_per_track=4, subs_per_room=4, tick_ms=10)
     cfg_dict.update(keys={API_KEY: API_SECRET}, port=_free_port(),
                     bind_addresses=["127.0.0.1"], rtc={"udp_port": 0, "tcp_port": 0},
                     egress={"shards": 1}, kv={"kind": "external"})

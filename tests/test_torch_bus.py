@@ -51,14 +51,16 @@ async def bus_script(bus, pub=None) -> list:
     await asyncio.sleep(0.12)
     out += [await bus.get("t"), await bus.get("u"), await bus.setnx("u", "again")]
     pattern, exact = bus.subscribe("room:*"), bus.subscribe("room:one")
-    await asyncio.sleep(0.05)        # a TCP client's SUB frames land first
+    # A round trip on the subscriber's connection: a TCP server handles a
+    # connection's frames in order, so its SUB frames have landed.
+    await bus.get("barrier")
     out.append(await pub.publish("room:one", {"kind": "hello", "n": [1, 2]}))
     out += [await pattern.read(timeout=2), await exact.read(timeout=2)]
     out.append(await pub.publish("room:two", "plain"))
     out.append(await pattern.read(timeout=2))
     exact.close()
     pattern.close()
-    await asyncio.sleep(0.05)
+    await bus.get("barrier")         # the UNSUB frames have landed
     out.append(await pub.publish("room:one", "nobody"))
     return out
 
@@ -130,7 +132,7 @@ async def test_tcpbus_kv_and_pubsub():
         assert await sub.read(timeout=2) == "hello"
         assert await exact.read(timeout=2) == "hello"
         sub.close()
-        await asyncio.sleep(0.05)
+        await b.get("barrier")        # b's UNSUB frame has landed
         assert await a.publish("room:two", "x") == 0  # exact sub doesn't match
         await a.close()
         await b.close()
@@ -172,8 +174,7 @@ async def test_bus_client_reconnects_and_resubscribes():
         client = await TCPBusClient.connect("127.0.0.1", port)
         other = await TCPBusClient.connect("127.0.0.1", port)
         sub = client.subscribe("announce")
-        await client.set("k", "v1")
-        await asyncio.sleep(0.05)
+        await client.set("k", "v1")      # a round trip: the SUB frame landed
 
         # Sever the client's connection out from under it (network blip).
         client._writer.transport.abort()
@@ -181,8 +182,9 @@ async def test_bus_client_reconnects_and_resubscribes():
         while client.reconnects == 0:
             assert asyncio.get_running_loop().time() < deadline, "no reconnect"
             await asyncio.sleep(0.05)
-        assert await client.get("k") == "v1"          # calls work again
-        await asyncio.sleep(0.05)                      # re-sub settles
+        # Calls work again; the reconnect wrote the re-SUB frames before
+        # this round trip on the same connection, so they have landed.
+        assert await client.get("k") == "v1"
         await other.publish("announce", {"hello": 1})  # pushes flow again
         msg = await sub.read(timeout=3)
         assert msg == {"hello": 1}

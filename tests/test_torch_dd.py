@@ -16,6 +16,11 @@ import pytest
 from livekit_server_tpu.runtime import dd as jax_dd
 from livekit_server_tpu_torch.runtime import dd
 
+torch = pytest.importorskip("torch")
+# One intra-op thread: these tests run beside timing-sensitive tests in
+# other workers.
+torch.set_num_threads(1)
+
 
 def l2t2_structure():
     # 2 spatial x 2 temporal, 4 decode targets (dt = sid*2+tid), one

@@ -17,8 +17,6 @@ twice (ROADMAP C10). Its own file: servers with live loops, queued after
 the timing-sensitive reference files.
 """
 
-import asyncio
-
 import numpy as np
 import pytest
 
@@ -98,7 +96,8 @@ async def drill(pkg: str) -> dict:
         moved = await rm_a.migrate_room("exmig")
         row_b = rm_b.rooms["exmig"].slots.row
         await h.pump_until(rt_b, row_b, 105)
-        await asyncio.sleep(0.05)
+        # The fan-out of the lane's last tick lands after the lane moved.
+        await h.wait_for(lambda: len(got_b) >= 3, what="the target's last fan-out")
         lane = rt_a.express
         return {
             "moved": moved,

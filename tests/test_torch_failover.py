@@ -118,7 +118,9 @@ async def test_split_brain_fences_minority_and_takeover_wins():
                     await asyncio.sleep(0.004)
 
             pump_task = asyncio.ensure_future(pump())
-            await asyncio.sleep(0.5)          # media + a checkpoint on A
+            await wait_for(lambda: len(got) >= 10
+                           and bus.state._live("room_checkpoint:sb") is not None,
+                           10.0, "media and a checkpoint on A")
 
             bus.set_partition([[b_id], [a_id]])
             # Minority goes silent on its own, within fence_grace (+ one
@@ -131,7 +133,10 @@ async def test_split_brain_fences_minority_and_takeover_wins():
             assert rm_a.fleet.fenced, "takeover finished before the mute"
             rt_b.set_subscription(rm_b.rooms["sb"].slots.row, 0, 1,
                                   subscribed=True)
-            await asyncio.sleep(0.3)          # dual-replica window
+            # Dual-replica window: B forwards while fenced A still ticks.
+            n = len(got)
+            await wait_for(lambda: len(got) >= n + 5 and shadow, 10.0,
+                           "both replicas ticking")
 
             bus.heal_partition()
             # A's next good lease triggers reconcile: the stale checkpoint
@@ -141,10 +146,12 @@ async def test_split_brain_fences_minority_and_takeover_wins():
                 lambda: not rm_a.fleet.fenced and "sb" not in rm_a.rooms,
                 5.0, "A never reconciled",
             )
-            await asyncio.sleep(0.2)
+            n = len(got)
+            await wait_for(lambda: len(got) >= n + 3, 10.0, "media after the heal")
             stop.set()
             await pump_task
-            await asyncio.sleep(0.2)          # drain the last ticks
+            # Drain the last ticks: the last pushed SN reaches B's wire.
+            await wait_for(lambda: sent[-1] in got, 10.0, "the last ticks")
 
             # ZERO duplicate wire packets across partition + heal…
             dup = sorted(sn for sn in set(got) if got.count(sn) > 1)

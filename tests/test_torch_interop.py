@@ -6,7 +6,14 @@ demux, and IPv6, v4-mapped, scoped and 4-tuple XOR addresses.
 
 import binascii
 
+import pytest
+
 from livekit_server_tpu_torch.interop import stun
+
+torch = pytest.importorskip("torch")
+# One intra-op thread: these tests run beside timing-sensitive tests in
+# other workers.
+torch.set_num_threads(1)
 
 # RFC 5769 §2.1 — sample request (short-term credential
 # username "evtj:h6vY", password "VOkJxbRl1RmTxUk/WvJxBt"; username

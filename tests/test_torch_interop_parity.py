@@ -12,6 +12,11 @@ import random
 import numpy as np
 import pytest
 
+torch = pytest.importorskip("torch")
+# One intra-op thread: these tests run beside timing-sensitive tests in
+# other workers.
+torch.set_num_threads(1)
+
 pytest.importorskip("cryptography")
 
 from livekit_server_tpu.interop import dtls as jdtls, sdp as jsdp  # noqa: E402

@@ -7,6 +7,11 @@ receiver).
 
 import pytest
 
+torch = pytest.importorskip("torch")
+# One intra-op thread: these tests run beside timing-sensitive tests in
+# other workers.
+torch.set_num_threads(1)
+
 pytest.importorskip("cryptography")
 
 from livekit_server_tpu_torch.interop import srtp  # noqa: E402

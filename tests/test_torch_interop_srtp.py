@@ -8,6 +8,11 @@ transmit-ROC cases are in tests/test_torch_interop_roc.py.
 
 import pytest
 
+torch = pytest.importorskip("torch")
+# One intra-op thread: these tests run beside timing-sensitive tests in
+# other workers.
+torch.set_num_threads(1)
+
 pytest.importorskip("cryptography")  # OpenSSL-backed interop lane; absent in slim images
 
 from livekit_server_tpu_torch.interop import srtp

@@ -93,7 +93,7 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
 
 
 SERVING_PROBE = r"""
-import asyncio, importlib.abc, json, sys
+import asyncio, importlib.abc, json, sys, time
 import numpy, torch
 
 class Absent(importlib.abc.MetaPathFinder):
@@ -119,7 +119,10 @@ async def main():
         await asyncio.sleep(0.01)
     await rm.runtime.step_once()
     rm.start()
-    await asyncio.sleep(0.05)
+    ticks, deadline = rm.runtime.stats["ticks"], time.monotonic() + 60
+    while rm.runtime.stats["ticks"] < ticks + 2:
+        assert time.monotonic() < deadline, "the serving loop never ticked"
+        await asyncio.sleep(0.01)
     req.close()
     await rm.stop()
     await task

@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from livekit_server_tpu_torch.routing import MemoryBus  # noqa: E402
-from tests.torch_cluster_fixture import rows_used, start_node, stop_all  # noqa: E402
+from tests.torch_cluster_fixture import rows_used, start_node, stop_all, wait_for  # noqa: E402
 
 
 async def test_drain_moves_every_room_off_and_rejects_admissions():
@@ -161,7 +161,8 @@ async def test_checkpoint_round_gathers_rows_into_per_room_frames():
             rows.append(room.slots.row)
             rt.set_track(room.slots.row, 0, published=True, is_video=False)
             rt.set_subscription(room.slots.row, 0, 1, subscribed=True)
-        await asyncio.sleep(0.1)                 # a few ticks of state
+        ticks = rt.stats["ticks"]
+        await wait_for(lambda: rt.stats["ticks"] >= ticks + 3, 10.0, "a few ticks of state")
         async with rt.state_lock:
             batch = rt.snapshot_rooms(rows)
             full = plane.state_to_numpy(rt.state)

@@ -269,14 +269,15 @@ async def test_two_phase_migration_under_load_over_bus():
                     await asyncio.sleep(0.004)
 
             pump_task = asyncio.ensure_future(pump())
-            await asyncio.sleep(0.3)               # media flowing on A
+            await wait_for(lambda: len(got) >= 30, 10.0, "media flowing on A")
             assert await rm_a.migrate_room("live")
             assert "live" not in rm_a.rooms and "live" in rm_b.rooms
             assert (
                 await srv_a.router.get_node_for_room("live")
                 == srv_b.router.local_node.node_id
             )
-            await asyncio.sleep(0.3)               # media flowing on B
+            n = len(sent)
+            await wait_for(lambda: len(sent) >= n + 40, 10.0, "media flowing on B")
             stop.set()
             await pump_task
             # Drain the last ticks: every pushed SN reaches a fan-out.

@@ -14,6 +14,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: these tests run beside timing-sensitive tests in
+# other workers.
+torch.set_num_threads(1)
 
 from livekit_server_tpu import native as jax_native  # noqa: E402
 from livekit_server_tpu.models import plane as jax_plane  # noqa: E402

@@ -12,6 +12,11 @@ from livekit_server_tpu.protocol import models as jpm
 from livekit_server_tpu.protocol import signal as jsignal
 from livekit_server_tpu_torch.protocol import packer, signal as tsignal
 
+torch = pytest.importorskip("torch")
+# One intra-op thread: these tests run beside timing-sensitive tests in
+# other workers.
+torch.set_num_threads(1)
+
 
 def _ref(obj) -> bytes:
     return msgpack.packb(obj, use_bin_type=True)

@@ -6,6 +6,9 @@ epochs, statistics and capacity errors must be equal."""
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: these tests run beside timing-sensitive tests in
+# other workers.
+torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 

@@ -33,6 +33,7 @@ torch.set_num_threads(1)
 from livekit_server_tpu_torch import cli  # noqa: E402
 from livekit_server_tpu_torch.auth import AccessToken, VideoGrant  # noqa: E402
 from livekit_server_tpu_torch.config import ConfigError, load_config  # noqa: E402
+from livekit_server_tpu_torch.config import config as config_mod  # noqa: E402
 from livekit_server_tpu_torch.config.config import UNPORTED, port_overlay  # noqa: E402
 from livekit_server_tpu_torch.runtime import udp as udp_mod  # noqa: E402
 from livekit_server_tpu_torch.runtime.crypto import MediaCryptoClient  # noqa: E402
@@ -60,8 +61,8 @@ def make_config(port: int, **extra):
     it on (`running_server(governor=True)`)."""
     base = port_overlay()
     base["limits"] = {"governor_enabled": False}
-    base["plane"].update(rooms=4, tracks_per_room=4, pkts_per_track=4, subs_per_room=4,
-                         tick_ms=10)
+    base.setdefault("plane", {}).update(
+        rooms=4, tracks_per_room=4, pkts_per_track=4, subs_per_room=4, tick_ms=10)
     # No fixed media ports (parallel test workers would contend for them)
     # and one egress shard (no worker threads beside other test workers).
     base.update(keys={API_KEY: API_SECRET}, port=port, bind_addresses=["127.0.0.1"],
@@ -345,19 +346,24 @@ async def test_udp_media_through_the_server():
 
 def test_unported_subsystems_raise_config_error():
     """Each subsystem the port does not carry, turned on, is refused at
-    construction with the ROADMAP item that brings it; the relay and the
-    express lane are carried and build, off by default."""
-    enabling = {"plane.mesh_devices": 2}
+    construction with the ROADMAP item that brings it (none is left: the
+    refusal of a listed entry is tested in test_torch_parallel_service);
+    the relay and the express lane are carried and build, off by
+    default."""
     for path, _enabled, _off, item in UNPORTED:
         section, leaf = path.split(".")
         cfg = make_config(_free_port())
-        setattr(getattr(cfg, section), leaf, enabling.get(path, True))
+        setattr(getattr(cfg, section), leaf, True)
         with pytest.raises(ConfigError, match=item.split(" ")[0]) as err:
             create_server(cfg, device="cpu")
         assert path in str(err.value)
-    # Only a device mesh stays refused; the relay, the express lane and
-    # the UDP/TCP media ports are ported, and their defaults build.
-    assert [u[0] for u in UNPORTED] == ["plane.mesh_devices"]
+    # The device mesh is ported (A10): nothing stays refused, and
+    # plane.mesh_devices is read by nothing, as in the reference. The
+    # relay, the express lane and the UDP/TCP media ports build.
+    assert UNPORTED == ()
+    cfg = make_config(_free_port())
+    cfg.plane.mesh_devices = 8
+    assert create_server(cfg, device="cpu").room_manager.runtime._mesh is None
     cfg = make_config(_free_port())
     assert not cfg.relay.enabled and cfg.plane.express_max_subs == 0
     cfg.relay.enabled, cfg.plane.express_max_subs = True, 4
@@ -408,11 +414,15 @@ def test_serve_refuses_without_a_card_or_aiohttp(monkeypatch, capsys):
                         lambda name, *a: None if name == "aiohttp" else real(name, *a))
     assert cli.main(["serve", "--dev", "--device", "cpu", "--port", port]) == 3
     assert "aiohttp" in capsys.readouterr().err
-    # An explicit YAML/flag enabling an unported subsystem is refused too.
+    # An explicit YAML/flag enabling an unported subsystem is refused too
+    # (the shipped list is empty since the mesh was ported: one entry is
+    # patched in).
     monkeypatch.setattr(cli.importlib.util, "find_spec", real)
-    with pytest.raises(ConfigError, match="plane.mesh_devices"):
+    monkeypatch.setattr(config_mod, "UNPORTED", (
+        ("plane.express_max_subs", lambda v: v > 0, 0, "A99 (test entry)"),))
+    with pytest.raises(ConfigError, match="plane.express_max_subs"):
         cli.main(["serve", "--dev", "--device", "cpu", "--port", port,
-                  "--plane.mesh-devices", "2"])
+                  "--plane.express-max-subs", "2"])
 
 
 @contextlib.contextmanager
@@ -453,7 +463,7 @@ def test_serve_dev_cpu_answers_health():
     with _serve_dev_cpu() as (_base, out):
         pass
     text = "".join(out)
-    assert "port overlay" in text and '"mesh_devices": 1' in text
+    assert "port overlay" in text and "turned off): {}" in text
     assert '"migration"' not in text and '"fleet"' not in text
     assert '"supervisor"' not in text and '"integrity"' not in text
 

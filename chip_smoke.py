@@ -187,6 +187,28 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
                 PAGED_RUNTIME_DIMS over 8 page shards against the unsharded
                 stock step, with its cross-shard page copies counted. The
                 line carries the card and torch.cuda.device_count();
+  5g. twin    — the traffic twin (runtime/traffic_twin.py) on nodes of
+                the port's node stack (service/stack.py: no HTTP, no media
+                port) at cfg4's width, TWIN_PLANE (1024 rooms, 10 tracks,
+                8 packets, 10 subscribers, 10 ms ticks), stepped in virtual
+                time. (a) The flash-crowd drill of tests/test_twin_drills.py
+                (seed 29, 80 ticks, one node) on the card and on this
+                machine's CPU: both SLO dicts (`deterministic_dict`) and
+                governor transitions equal to each other and to the JAX
+                package's (TWIN_FLASH_REFERENCE), the ladder one rung at a
+                time to L4 and back, joins refused with `overload`, no
+                audio gap, no duplicate, a finite recovery. (b) bench.py
+                fleet_twin's sweep through `capacity_curve`:
+                Scenario.standard(TWIN_SEED, TWIN_TICKS) on TWIN_NODES
+                nodes in this process over a port BusServer on loopback,
+                loads TWIN_LOADS, a fresh cluster a load; per load no
+                duplicate and no gap, every migration a commit with no
+                rollback or timeout, the drained node empty, no recovery of
+                -1, joins admitted. B1 and B2 launch once per step of every
+                node in both. (c) The trace export's self-test on the card
+                and the tick-span ring of a sweep node, both valid.
+                Reports each load's SLO dict, the capacity knee, wall s,
+                step_once ms per node (median, p90) and the drain's ticks;
   6. timing   — the dense runtime's device step (plane.device_tick: upload,
                 tick, fetch) at the north-star PlaneDims(10240, 8, 16, 50),
                 median and p90 of TIMED_TICKS ticks after warm-up; the paged
@@ -270,7 +292,7 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
 Output: JSON lines per phase (the serving phase's under "serving", the
 UDP phase's under "udp", phase 5c's under "express" and "golden_scans",
 the gateway's under "gateway" (the libraries under "libraries"),
-phase 5e's under "mixer", phase 5f's under "shard",
+phase 5e's under "mixer", phase 5f's under "shard", phase 5g's under "twin",
 the failure phase's under "failure", the
 multi-node plane's under "migration"), a
 `{"kernels": [...]}` JSON line (each kernel's numbers on its own path,
@@ -316,7 +338,7 @@ from livekit_server_tpu_torch.ops.mix import MIX_TOP_K
 from livekit_server_tpu_torch.parallel import mesh as mesh_mod
 from livekit_server_tpu_torch.protocol import decode_signal_response, packer
 from livekit_server_tpu_torch.routing import LocalNode, LocalRouter, MessageChannel
-from livekit_server_tpu_torch.runtime import PlaneRuntime, dd, integrity
+from livekit_server_tpu_torch.runtime import PlaneRuntime, dd, integrity, traffic_twin
 from livekit_server_tpu_torch.runtime import crypto as crypto_mod, udp as udp_mod
 from livekit_server_tpu_torch.runtime.ingest import PacketIn
 from livekit_server_tpu_torch.runtime.munge import HostMunger
@@ -326,6 +348,7 @@ from livekit_server_tpu_torch.runtime.relay import BIND_ACK, BIND_REQ, RELAY_MAG
 from livekit_server_tpu_torch.runtime.slots import CapacityError
 from livekit_server_tpu_torch.service.roommanager import CHECKPOINT_TTL_S, RoomManager
 from livekit_server_tpu_torch.service.store import LocalStore
+from livekit_server_tpu_torch.telemetry import trace_export
 from livekit_server_tpu_torch.telemetry.service import TelemetryService
 from livekit_server_tpu_torch.utils.logger import configure
 
@@ -3487,6 +3510,178 @@ def shard_phase(dev) -> tuple[dict, dict, dict, dict]:
     return out, timed, ns_launches, rm_launches
 
 
+TWIN_PLANE = {"rooms": RUNTIME_DIMS.rooms, "tracks_per_room": RUNTIME_DIMS.tracks,
+              "pkts_per_track": RUNTIME_DIMS.pkts, "subs_per_room": RUNTIME_DIMS.subs,
+              "tick_ms": 10}                 # cfg4's width, the reference twin's 10 ms tick
+TWIN_SEED = 20                     # bench.py fleet_twin's scenario: Scenario.standard(20, 60)
+TWIN_TICKS = 60
+TWIN_NODES = 2
+TWIN_LOADS = (0.5, 1.0, 2.0, 4.0)
+TWIN_DRAINED_NODE = 1              # the rolling drain's region "eu" maps onto node 1
+# The JAX package's flash-crowd drill (tests/test_twin_drills.py, seed 29)
+# at TWIN_PLANE, run on a CPU: its counter-derived SLOs and its governor's
+# transitions. The port must give the same on the card and on the CPU.
+TWIN_FLASH_REFERENCE = {
+    "offered_load": 1.0, "ticks": 80, "joins_offered": 180, "joins_admitted": 133,
+    "admission_rate": 0.738889, "denial_reasons": {"overload": 47}, "rooms_peak": 80,
+    "audio_expected": 2006, "audio_received": 2006, "audio_continuity": 1.0,
+    "audio_gaps": 0, "dup_wire_packets": 0,
+    "rung_residency": {"L0": 0.4125, "L1": 0.1375, "L2": 0.1375, "L3": 0.1375, "L4": 0.175},
+    "recovery_ticks": {"flash_crowd": 31}, "migrations": 0,
+}
+TWIN_FLASH_TRANSITIONS = [
+    {"tick": 16, "from": 0, "to": 1, "reason": "cap_drops+40"},
+    {"tick": 19, "from": 1, "to": 2, "reason": "cap_drops+72"},
+    {"tick": 22, "from": 2, "to": 3, "reason": "cap_drops+128"},
+    {"tick": 25, "from": 3, "to": 4, "reason": "cap_drops+152"},
+    {"tick": 39, "from": 4, "to": 3, "reason": "recovered (dwell elapsed)"},
+    {"tick": 47, "from": 3, "to": 2, "reason": "recovered (dwell elapsed)"},
+    {"tick": 55, "from": 2, "to": 1, "reason": "recovered (dwell elapsed)"},
+    {"tick": 63, "from": 1, "to": 0, "reason": "recovered (dwell elapsed)"},
+]
+
+
+def twin_flash_scenario() -> traffic_twin.Scenario:
+    """tests/test_twin_drills.py's flash_crowd_scenario: 80 ticks of churn
+    in one region, a flash crowd of magnitude 8 over ticks 12..29."""
+    return traffic_twin.Scenario(
+        seed=29,
+        segments=(traffic_twin.ChurnSegment(ticks=80, join_rate=0.8, leave_rate=0.01),),
+        incidents=(traffic_twin.Incident("flash_crowd", at=12, ticks=18,
+                                         region="us-east", magnitude=8.0),),
+        regions=(("us-east", 1.0),),
+        video_room_frac=0.5,
+    )
+
+
+def check_twin_launches(launches: dict, debug: dict, where: str) -> None:
+    """B1 and B2 once per step of every node (the warm step, the
+    scenario's and the drain's step_once calls), B3 never (dense plane)."""
+    steps = sum(debug["steps"])
+    want = {"decide_rooms": steps, "allocate_budget_rooms": steps, "paged_kernel": 0}
+    if not steps or launches != want:
+        raise AssertionError(f"twin {where}: launches {launches}, expected {want}")
+
+
+def twin_flash_drill(dev, out: dict) -> dict:
+    """(a) The flash-crowd drill at cfg4 width on `dev` and on the CPU:
+    both dicts and governor transitions equal to each other and to the
+    JAX package's, the ladder one rung at a time up to L4 and back, joins
+    refused with `overload`, no gap and no duplicate, a finite recovery.
+    Returns the card run's launches."""
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        tw = traffic_twin.TrafficTwin(twin_flash_scenario(), nodes=1, plane=TWIN_PLANE,
+                                      device=device)
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        rep = asyncio.run(tw.run(1.0))
+        runs[device.type] = (tw, rep, dict(cuda.launches), time.perf_counter() - t0)
+    (tw, rep, launches, wall), (tw_cpu, rep_cpu, _, wall_cpu) = runs[dev.type], runs["cpu"]
+    check_twin_launches(launches, tw.debug, "flash crowd")
+    got, got_cpu = rep.deterministic_dict(), rep_cpu.deterministic_dict()
+    trans, trans_cpu = tw.debug["governor_transitions"][0], tw_cpu.debug["governor_transitions"][0]
+    if got != got_cpu or trans != trans_cpu:
+        diff = {k: (got[k], got_cpu[k]) for k in got if got[k] != got_cpu[k]}
+        raise AssertionError(f"twin flash crowd: card != CPU: {diff}; transitions "
+                             f"{trans} vs {trans_cpu}")
+    if got != TWIN_FLASH_REFERENCE or trans != TWIN_FLASH_TRANSITIONS:
+        diff = {k: (got[k], TWIN_FLASH_REFERENCE[k]) for k in got
+                if got[k] != TWIN_FLASH_REFERENCE.get(k)}
+        raise AssertionError(f"twin flash crowd: port != JAX package: {diff}; "
+                             f"transitions {trans}")
+    ups = [(t["from"], t["to"]) for t in trans if t["to"] > t["from"]]
+    downs = [(t["from"], t["to"]) for t in trans if t["to"] < t["from"]]
+    if (ups[:4] != [(0, 1), (1, 2), (2, 3), (3, 4)] or any(b - a != 1 for a, b in ups)
+            or any(a - b != 1 for a, b in downs) or not rep.denial_reasons.get("overload")
+            or rep.audio_gaps or rep.dup_wire_packets or not rep.audio_expected
+            or rep.recovery_ticks.get("flash_crowd", -1) < 0):
+        raise AssertionError(f"twin flash crowd: drill checks failed: {got}; {trans}")
+    out["flash_crowd"] = {
+        "plane": TWIN_PLANE, "slo": got, "transitions": trans, "equal_cpu": True,
+        "equal_reference": True, "launches": launches, "steps": tw.debug["steps"],
+        "wall_s": wall, "cpu_wall_s": wall_cpu,
+        "step_ms": quantiles(tw.debug["step_ms"][0]),
+        "cpu_step_ms": quantiles(tw_cpu.debug["step_ms"][0]),
+    }
+    log(f"twin: flash crowd equal on {dev.type}, the CPU and the JAX package "
+        f"({wall:.1f} s; CPU {wall_cpu:.1f} s)")
+    return launches
+
+
+def twin_sweep(dev, out: dict) -> tuple[dict, list]:
+    """(b) bench.py fleet_twin's sweep through `capacity_curve` on `dev`:
+    Scenario.standard(TWIN_SEED, TWIN_TICKS), TWIN_NODES nodes in this
+    process over a port BusServer on loopback, a fresh cluster per load.
+    Per load: no duplicate and no gap, every migration a commit with no
+    rollback or timeout, the drained node empty, no recovery of -1, joins
+    admitted, B1 and B2 once per step. Returns the launches summed over
+    the loads and the last load's tick-span records of node 0."""
+    runs: list[dict] = []
+    total = dict.fromkeys(cuda.launches, 0)
+    last_trace: list = []
+
+    def on_run(tw, rep) -> None:
+        nonlocal last_trace
+        launches = dict(cuda.launches)
+        check_twin_launches(launches, tw.debug, f"load {rep.offered_load}")
+        for k in total:
+            total[k] += launches[k]
+        mig = tw.debug["migration_stats"]
+        commits = sum(m.get("commits", 0) for m in mig)
+        bad = []
+        if rep.dup_wire_packets or rep.audio_gaps:
+            bad.append(f"{rep.dup_wire_packets} duplicates, {rep.audio_gaps} gaps")
+        if rep.migrations != commits or any(m.get("rollbacks") or m.get("timeouts")
+                                            for m in mig):
+            bad.append(f"migrations {rep.migrations}, stats {mig}")
+        if tw.debug["rooms_final"][TWIN_DRAINED_NODE]:
+            bad.append(f"drained node holds {tw.debug['rooms_final'][TWIN_DRAINED_NODE]}")
+        if -1 in rep.recovery_ticks.values() or rep.joins_admitted <= 0:
+            bad.append(f"recovery {rep.recovery_ticks}, admitted {rep.joins_admitted}")
+        if bad:
+            raise AssertionError(f"twin sweep load {rep.offered_load}: {'; '.join(bad)}")
+        runs.append({"offered_load": rep.offered_load, "wall_s": rep.wall_s,
+                     "step_ms": [quantiles(ms) for ms in tw.debug["step_ms"]],
+                     "drain_ticks": tw.debug["drain_ticks"], "steps": tw.debug["steps"],
+                     "launches": launches, "migration_commits": commits})
+        last_trace = tw.debug["trace"][0]
+        log(f"twin: load x{rep.offered_load} ok in {rep.wall_s:.1f} s: "
+            f"{json.dumps(runs[-1])}")
+        cuda.reset_launches()
+
+    sc = traffic_twin.Scenario.standard(seed=TWIN_SEED, ticks=TWIN_TICKS)
+    cuda.reset_launches()
+    curve = asyncio.run(traffic_twin.capacity_curve(
+        sc, TWIN_LOADS, nodes=TWIN_NODES, plane=TWIN_PLANE, on_run=on_run, device=dev))
+    out["sweep"] = {"seed": TWIN_SEED, "ticks": TWIN_TICKS, "nodes": TWIN_NODES,
+                    "plane": TWIN_PLANE, "steps": curve["steps"],
+                    "capacity_knee_load": curve["capacity_knee_load"], "runs": runs,
+                    "drain_ticks": [r["drain_ticks"] for r in runs], "launches": total}
+    return total, last_trace
+
+
+def twin_phase(dev) -> tuple[dict, dict, dict]:
+    """Phase 5g: the traffic twin on the card (see the module docstring).
+    Returns (report, the flash drill's launches, the sweep's launches)."""
+    t0 = time.perf_counter()
+    out: dict = {"card": card_line(), "cuts": []}
+    flash = twin_flash_drill(dev, out)
+    sweep, records = twin_sweep(dev, out)
+    # (c) The trace export: the self-test's plane on the card, and the
+    # ring of one sweep node (node 0 at the last load) after its run.
+    problems = trace_export.selftest(device=dev)
+    events = trace_export.to_chrome(records, TWIN_PLANE["tick_ms"])
+    problems += trace_export.validate(events)
+    if problems or not records:
+        raise AssertionError(f"twin trace export: {len(records)} ticks, {problems[:5]}")
+    out["trace"] = {"selftest": "ok", "ring_ticks": len(records),
+                    "spans": sum(1 for e in events if e["ph"] == "X"),
+                    "events": len(events)}
+    out["phase_s"] = time.perf_counter() - t0
+    return out, flash, sweep
+
+
 def paged_pool_state(pager: RoomPager, sizes, dims: paged.PagedDims, dev):
     """Device pool state and table for the pager's rooms (sizes[r]
     participants, each publishing one track and subscribed to all others),
@@ -4868,6 +5063,11 @@ def main() -> int:
         f"device step {json.dumps(shard['north_star']['device_step'])}; pool cross-shard "
         f"pages {shard['pool']['cross_shard_pages']}")
     done("shard")
+    twin, twin_flash_launches, twin_sweep_launches = twin_phase(dev)
+    print(json.dumps({"twin": twin}), flush=True)
+    log(f"twin ok in {twin['phase_s']:.1f} s: knee {twin['sweep']['capacity_knee_load']}, "
+        f"drain ticks {twin['sweep']['drain_ticks']}, trace {json.dumps(twin['trace'])}")
+    done("twin")
     tick, dense_t, ns_state = timing_phase(dev, args.profile)
     paged_tick, paged_t, pool_state = paged_timing_phase(dev, args.profile)
     done("timing")
@@ -4896,7 +5096,9 @@ def main() -> int:
                 "gateway": gateway["loop"]["launches"],
                 "shard": shard_launches,
                 "shard_cfg4": shard_rm_launches,
-                "migration": migration["launches"]}
+                "migration": migration["launches"],
+                "twin_flash": twin_flash_launches,
+                "twin_sweep": twin_sweep_launches}
     paged_t["paged_kernel"]["mix"] = mix_t
     timed = {"dense": dense_t, "paged": paged_t, "shard": shard_t}
     own = {"decide_rooms": "dense", "allocate_budget_rooms": "dense", "paged_kernel": "paged"}

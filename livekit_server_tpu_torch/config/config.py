@@ -444,11 +444,12 @@ class TraceConfig:
 
 @dataclass
 class TwinConfig:
-    """Traffic-twin scenario knobs (runtime/traffic_twin.py): the
-    deterministic fleet-scale load harness behind `bench.py fleet_twin`
-    and `tools/check --twin-smoke`. All randomness derives from `seed`;
-    two runs with the same knobs produce byte-identical event timelines
-    and identical counter-derived SLO numbers."""
+    """Traffic-twin scenario knobs (runtime/traffic_twin.py
+    `scenario_from_config`): the deterministic fleet-scale load harness
+    behind `python -m livekit_server_tpu_torch.runtime.traffic_twin` and
+    chip_smoke.py's twin phase. All randomness derives from `seed`; two
+    runs with the same knobs produce byte-identical event timelines and
+    identical counter-derived SLO numbers."""
 
     enabled: bool = False        # opt-in: the twin is a harness, not a serving path
     seed: int = 20

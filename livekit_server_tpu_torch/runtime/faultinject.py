@@ -366,8 +366,9 @@ class FaultInjector:
             task = getattr(router, attr, None)
             if task is not None:
                 task.cancel()
-        if getattr(server, "_stats_task", None) is not None:
-            server._stats_task.cancel()
+        stack = getattr(server, "stack", server)
+        if getattr(stack, "_stats_task", None) is not None:
+            stack._stats_task.cancel()
         sup = getattr(server.room_manager, "supervisor", None)
         if sup is not None:
             await sup.stop()

@@ -15,12 +15,16 @@ device=...)` builds the port's RoomManager on `device` ("cuda" by
 default) and, with `kv.kind: tcp` (or an injected `bus`), the multi-node
 router, store and planes over the shared bus (`connect_bus`). The
 egress/ingress status aggregator (service/ioinfo.py) starts and stops
-with the server. Routes whose subsystem the port does not carry yet are
-left out (ROADMAP A11): /debug/compiles and /debug/trace. The UDP media
-transport and the TCP fallback open at start
-(RoomManager.start_transports) on rtc.udp_port and rtc.tcp_port, with
-the express lane attached (plane.express_max_subs > 0) and the embedded
-media relay beside them (relay.enabled); both are off by default.
+with the server. Everything but HTTP (the wiring, the start and stop
+sequence) is the node stack of service/stack.py, which the traffic twin
+runs without this module. /debug/trace exports the tick-span ring as
+Chrome trace events (telemetry/trace_export.py). The route whose
+subsystem the port does not carry yet is left out (ROADMAP A11):
+/debug/compiles. The UDP media transport and the TCP fallback open at
+start (RoomManager.start_transports) on rtc.udp_port and rtc.tcp_port,
+with the express lane attached (plane.express_max_subs > 0) and the
+embedded media relay beside them (relay.enabled); both are off by
+default.
 """
 
 from __future__ import annotations
@@ -31,36 +35,29 @@ import time
 from aiohttp import web
 
 from livekit_server_tpu_torch.config.config import Config, ConfigError
-from livekit_server_tpu_torch.routing import (
-    LocalNode,
-    MemoryBus,
-    NodeState,
-    create_router,
-    create_selector,
-)
-from livekit_server_tpu_torch.routing.node import sample_system_stats
-from livekit_server_tpu_torch.routing.selector import NoNodesAvailable
+from livekit_server_tpu_torch.routing import LocalNode
 from livekit_server_tpu_torch.service.roommanager import RoomManager
 from livekit_server_tpu_torch.service.roomservice import RoomServiceAPI
 from livekit_server_tpu_torch.service.rtcservice import RTCService
-from livekit_server_tpu_torch.service.store import KVStore, LocalStore
+from livekit_server_tpu_torch.service.stack import NodeStack, create_stack
 from livekit_server_tpu_torch.telemetry import TelemetryService
 from livekit_server_tpu_torch.version import __version__
 
 
 class LivekitServer:
-    def __init__(self, config: Config, router, store, room_manager, telemetry):
-        self.config = config
-        self.router = router
-        self.store = store
-        self.room_manager: RoomManager = room_manager
-        self.telemetry: TelemetryService = telemetry
+    def __init__(self, stack: NodeStack):
+        self.stack = stack
+        self.config: Config = stack.config
+        self.router = stack.router
+        self.store = stack.store
+        self.room_manager: RoomManager = stack.room_manager
+        self.telemetry: TelemetryService = stack.telemetry
+        self.log = stack.log
         from livekit_server_tpu_torch.service.agents import AgentService
         from livekit_server_tpu_torch.service.egress import EgressService
         from livekit_server_tpu_torch.service.ingress import IngressService
         from livekit_server_tpu_torch.service.ioinfo import IOInfoService
         from livekit_server_tpu_torch.service.sip import SIPService
-        from livekit_server_tpu_torch.utils.logger import Logger, configure
 
         self.rtc_service = RTCService(self)
         self.room_api = RoomServiceAPI(self)
@@ -69,11 +66,7 @@ class LivekitServer:
         self.sip = SIPService(self)
         self.ioinfo = IOInfoService(self)
         self.agents = AgentService(self)
-        room_manager.agents = self.agents
-        configure(config.log_level)
-        self.log = Logger(node=router.local_node.node_id[:12])
-        room_manager.log = self.log
-        room_manager.runtime.blackbox.log = self.log
+        self.room_manager.agents = self.agents
         self.app = web.Application(middlewares=[self._request_hooks])
         self.app.router.add_get("/", self.health)
         self.app.router.add_get("/rtc", self.rtc_service.handle)
@@ -90,6 +83,7 @@ class LivekitServer:
         self.app.router.add_get("/debug/analytics", self.debug_analytics)
         self.app.router.add_get("/debug/tasks", self.debug_tasks)
         self.app.router.add_get("/debug/ticks", self.debug_ticks)
+        self.app.router.add_get("/debug/trace", self.debug_trace)
         self.app.router.add_get("/debug/overload", self.debug_overload)
         self.app.router.add_get("/debug/pager", self.debug_pager)
         self.app.router.add_get("/debug/integrity", self.debug_integrity)
@@ -99,26 +93,11 @@ class LivekitServer:
         self.app.router.add_get("/debug/blackbox/{room}", self.debug_blackbox)
         self._runner: web.AppRunner | None = None
         self._sites: list[web.TCPSite] = []
-        self._stats_task: asyncio.Task | None = None
         self.started_at = 0.0
 
-    # -- selector ---------------------------------------------------------
     def select_node(self) -> LocalNode | None:
         """Pick an RTC node for a new room (roomallocator.go)."""
-        nodes = getattr(self, "_node_cache", None) or [self.router.local_node]
-        try:
-            return self._selector.select_node(nodes)
-        except NoNodesAvailable:
-            return None
-
-    async def _refresh_nodes(self) -> None:
-        while True:
-            self._node_cache = await self.router.list_nodes()
-            sample_system_stats(self.router.local_node.stats)
-            # Per-participant traffic rates → NodeStats packet/byte rates
-            # (participant_traffic_load.go cadence).
-            self.room_manager.sample_traffic()
-            await asyncio.sleep(2.0)
+        return self.stack.select_node()
 
     def room_manager_media_queue(self, room_name: str, identity: str):
         room = self.room_manager.rooms.get(room_name)
@@ -220,6 +199,32 @@ class LivekitServer:
             if udp is not None:
                 # Express twin: arrival-driven, no tick-queue wait.
                 body["forward_latency_express"] = udp.fwd_latency_express.summary()
+        return web.json_response(body)
+
+    async def debug_trace(self, request: web.Request) -> web.Response:
+        """Chrome/Perfetto trace export of the tick-span ring
+        (?ticks=N, newest N ticks) plus the sampled wire-latency stage
+        decomposition as a sidecar. Save the body to a file and load it
+        in ui.perfetto.dev or chrome://tracing."""
+        rt = self.room_manager.runtime
+        if rt.trace is None:
+            return web.json_response(
+                {"error": "tracing disabled (trace.enabled: false)"}, status=404
+            )
+        try:
+            n = int(request.query.get("ticks", "120"))
+        except ValueError:
+            return web.json_response({"error": "ticks must be an integer"}, status=400)
+        from livekit_server_tpu_torch.telemetry import trace_export
+
+        body: dict = {
+            "traceEvents": trace_export.to_chrome(rt.trace.snapshot(n), rt.tick_ms),
+            "displayTimeUnit": "ms",
+        }
+        if rt.wire_stages is not None:
+            # Perfetto ignores unknown top-level keys; curl consumers get
+            # the stage decomposition without a second request.
+            body["otherData"] = {"wire_stages": rt.wire_stages.summary()}
         return web.json_response(body)
 
     async def debug_blackbox(self, request: web.Request) -> web.Response:
@@ -417,26 +422,7 @@ class LivekitServer:
 
     # -- lifecycle --------------------------------------------------------
     async def start(self) -> None:
-        # Identify this node's bus connection to the BusServer before any
-        # other op: the partition-injection harness severs/heals by node
-        # id, and pub/sub sender attribution needs it.
-        bus = getattr(self.router, "bus", None)
-        if bus is not None and hasattr(bus, "set_ident"):
-            bus.set_ident(self.router.local_node.node_id)
-        await self.router.register_node()
-        if hasattr(self.router, "remove_dead_nodes"):
-            await self.router.remove_dead_nodes()
-        # Warm step before accepting traffic: builds the CUDA kernels
-        # (nvcc, once per process) and runs the first tick, so no session
-        # waits on a build mid-call.
-        await self.room_manager.runtime.step_once()
-        self.room_manager.runtime.mark_warm()
-        # Native UDP media transport on the RTC port, and the TCP fallback.
-        await self.room_manager.start_transports()
-        await self.ioinfo.start()
-        await self.room_api.start()
-        self.room_manager.start()
-        self._stats_task = asyncio.ensure_future(self._refresh_nodes())
+        await self.stack.start(services=(self.ioinfo, self.room_api))
         self._runner = web.AppRunner(self.app)
         await self._runner.setup()
         for addr in self.config.bind_addresses:
@@ -446,32 +432,7 @@ class LivekitServer:
         self.started_at = time.time()
 
     async def stop(self, force: bool = False) -> None:
-        self.router.local_node.state = NodeState.SHUTTING_DOWN
-        await self.router.drain()
-        mig = self.room_manager.migration
-        if not force and mig is not None:
-            # Graceful stop IS a node drain: every local room migrates to
-            # a peer through the two-phase handoff (bounded concurrency,
-            # admissions refused throughout); rooms with no willing peer
-            # stay and are torn down by room_manager.stop() below.
-            try:
-                await mig.drain_node()
-            except Exception as e:  # noqa: BLE001 — stopping anyway
-                self.log.warn("graceful drain failed", error=str(e))
-        elif not force:
-            # Bus-less single node: nobody to migrate to. Wait briefly for
-            # participants to leave on their own (server.go:295).
-            for _ in range(50):
-                if not any(r.participants for r in self.room_manager.rooms.values()):
-                    break
-                await asyncio.sleep(0.1)
-        if self._stats_task:
-            self._stats_task.cancel()
-        self.room_manager.close_transports()
-        await self.ioinfo.stop()
-        await self.room_api.stop()
-        await self.room_manager.stop()
-        await self.router.unregister_node()
+        await self.stack.stop(force, services=(self.ioinfo, self.room_api))
         if self._runner is not None:
             await self._runner.cleanup()
 
@@ -504,30 +465,6 @@ async def connect_bus(config: Config):
 
 
 def create_server(config: Config, bus=None, device="cuda", mesh=None) -> LivekitServer:
-    """The Wire graph (wire_gen.go InitializeServer) as explicit wiring:
-    with kv.kind 'memory' and no `bus`, the single-node router and store;
-    otherwise the KV router and store over `bus` (a private MemoryBus when
-    none is given). The media plane runs on `device`, or over the shards
-    of `mesh` (parallel/mesh.py `make_mesh`) when one is given."""
-    node = LocalNode(region=config.region)
-    sample_system_stats(node.stats)
-    if bus is None and config.kv.kind == "memory":
-        router = create_router(node, None)
-        store = LocalStore()
-    else:
-        bus = bus if bus is not None else MemoryBus()
-        router = create_router(
-            node, bus,
-            lease_ttl=config.kv.lease_ttl_s,
-            stats_interval=config.kv.stats_interval_s,
-        )
-        store = KVStore(bus)
-    telemetry = TelemetryService(config)
-    rm = RoomManager(config, router, store, telemetry=telemetry, device=device, mesh=mesh)
-    server = LivekitServer(config, router, store, rm, telemetry)
-    server._selector = create_selector(config.node_selector, config.region)
-    if rm.migration is not None:
-        # Drain-target ranking reuses the placement selector, so a drain
-        # spreads rooms the same way the router places new ones.
-        rm.migration.selector = server._selector
-    return server
+    """The node stack of service/stack.py (`create_stack`: router, store,
+    RoomManager on `device` or over `mesh`) with the HTTP app on top."""
+    return LivekitServer(create_stack(config, bus=bus, device=device, mesh=mesh))

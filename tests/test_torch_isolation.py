@@ -3,7 +3,8 @@ chip_smoke.py or kernel_ab.py, imports jax or the JAX package (the
 multi-node modules copied from it included); its entry points default to
 the card and refuse to fall back to the CPU; the serving path, the
 multi-node plane among it, needs only torch, numpy and the standard
-library."""
+library; so do the traffic twin and the trace export, which the card's
+machine runs without aiohttp, msgpack or PyYAML."""
 
 import ast
 from pathlib import Path
@@ -91,13 +92,31 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
             init(3)
         assert all(x.device.type == "cpu" for x in init(3, device="cpu"))
 
+    # The traffic twin and the trace export's self-test: the card unless
+    # the caller asks for the CPU.
+    import asyncio
 
-SERVING_PROBE = r"""
+    from livekit_server_tpu_torch.runtime import traffic_twin
+    from livekit_server_tpu_torch.telemetry import trace_export
+
+    micro = traffic_twin.Scenario.micro()
+    for entry in (lambda: traffic_twin.TrafficTwin(micro, nodes=1),
+                  traffic_twin.run_micro_smoke,
+                  lambda: asyncio.run(traffic_twin.capacity_curve(micro)),
+                  trace_export.selftest):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    assert traffic_twin.TrafficTwin(micro, nodes=1, device="cpu").device.type == "cpu"
+
+
+# The head of every probe: the packages a machine serving the port need
+# not have (cryptography is optional) made unimportable, and the modules
+# loaded before the probe's own imports noted.
+PROBE_HEAD = r"""
 import asyncio, importlib.abc, json, sys, time
 import numpy, torch
 
 class Absent(importlib.abc.MetaPathFinder):
-    # Packages a machine serving the port need not have (cryptography is optional).
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in {"aiohttp", "msgpack", "yaml", "cryptography", "jax"}:
             raise ImportError(f"{name} is not installed")
@@ -105,6 +124,9 @@ class Absent(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Absent())
 before = {m.split(".")[0] for m in sys.modules}
 sys.path.insert(0, sys.argv[1])
+"""
+
+SERVING_PROBE = PROBE_HEAD + r"""
 import chip_smoke as cs
 from livekit_server_tpu_torch.models import plane
 
@@ -186,21 +208,50 @@ def test_serving_path_needs_only_torch_numpy_and_stdlib():
     msgpack, PyYAML and cryptography absent, as they may be on a card's
     host, and adds no module outside the port, torch, numpy and the
     standard library."""
+    outside = _loaded_outside(SERVING_PROBE)
+    assert not outside, f"serving path imports {outside}"
+
+
+def _loaded_outside(probe: str) -> set[str]:
+    """Run `probe` in a fresh interpreter; the top-level modules it loaded
+    beyond the port, chip_smoke, torch, numpy and the standard library."""
     import json
     import os
     import subprocess
     import sys
 
-    out = subprocess.run([sys.executable, "-c", SERVING_PROBE, str(ROOT)], cwd=ROOT,
+    out = subprocess.run([sys.executable, "-c", probe, str(ROOT)], cwd=ROOT,
                          env={**os.environ, "OMP_NUM_THREADS": "1"},
                          capture_output=True, text=True, timeout=300, check=True)
     added = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert "livekit_server_tpu_torch" in added
     own = {"chip_smoke", "livekit_server_tpu_torch", "__main__"}
     # numpy's compiled random generators register the Cython runtime.
     numpy_runtime = {m for m in added if m == "cython_runtime" or m.startswith("_cython_")}
-    outside = {m for m in added - own - numpy_runtime if m not in sys.stdlib_module_names}
-    assert not outside, f"serving path imports {outside}"
-    assert "livekit_server_tpu_torch" in added
+    return {m for m in added - own - numpy_runtime if m not in sys.stdlib_module_names}
+
+
+TWIN_PROBE = PROBE_HEAD + r"""
+from livekit_server_tpu_torch.runtime import traffic_twin
+from livekit_server_tpu_torch.telemetry import trace_export
+
+out = traffic_twin.run_micro_smoke(seed=23, device="cpu")
+assert out["ok"] and out["joins_offered"] > 0, out
+problems = trace_export.selftest(ticks=4, device="cpu")
+assert problems == [], problems
+after = {m.split(".")[0] for m in sys.modules}
+print(json.dumps(sorted(after - before)))
+"""
+
+
+def test_twin_and_trace_export_need_only_torch_numpy_and_stdlib():
+    """The twin's micro smoke (nodes built by service/stack.py, no HTTP)
+    and the trace export's self-test run on the CPU with aiohttp, msgpack,
+    PyYAML, cryptography and jax absent, as on the card's machine, and
+    load no module outside the port, torch, numpy and the standard
+    library."""
+    outside = _loaded_outside(TWIN_PROBE)
+    assert not outside, f"the twin imports {outside}"
 
 
 def test_port_native_sources_are_its_own():
@@ -224,13 +275,15 @@ def test_port_native_sources_are_its_own():
 def test_multinode_modules_are_the_ports_own():
     """The multi-node modules exist in the port as its own files, and the
     ones chip_smoke's migration phase runs import nothing beyond the
-    port, torch, numpy and the standard library (checked statically; the
-    serving probe above runs them)."""
+    port, torch, numpy and the standard library; nor do the node stack,
+    the traffic twin and the trace export (checked statically; the
+    serving and twin probes above run them)."""
     import sys
 
     pkg = ROOT / "livekit_server_tpu_torch"
     mods = ("routing/kv.py", "routing/tcpbus.py", "routing/fleet.py", "routing/router.py",
-            "service/store.py", "service/migration.py", "service/fleetplane.py")
+            "service/store.py", "service/migration.py", "service/fleetplane.py",
+            "service/stack.py", "runtime/traffic_twin.py", "telemetry/trace_export.py")
     for rel in mods:
         names = {n.split(".")[0] for n in _imported_modules(pkg / rel)}
         outside = {n for n in names if n not in sys.stdlib_module_names

@@ -272,9 +272,11 @@ async def test_metrics_and_debug_routes():
             async with s.get(f"{base}/debug/blackbox/m") as r:
                 assert [e["event"] for e in (await r.json())["events"]][:2] == [
                     "room_open", "join"]
-            for gone in ("/debug/compiles", "/debug/trace"):
-                async with s.get(f"{base}{gone}") as r:
-                    assert r.status == 404
+            async with s.get(f"{base}/debug/trace?ticks=2") as r:
+                assert r.status == 200
+                assert (await r.json())["traceEvents"]
+            async with s.get(f"{base}/debug/compiles") as r:
+                assert r.status == 404
             # Single node (kv.kind memory): the multi-node planes are off.
             async with s.get(f"{base}/debug/fleet") as r:
                 assert await r.json() == {"enabled": False, "fleet": None}
@@ -400,7 +402,7 @@ def test_unported_subsystems_raise_config_error():
     rm = server.room_manager
     assert type(rm.migration).__name__ == "MigrationOrchestrator"
     assert type(rm.fleet).__name__ == "FleetPlane"
-    assert rm.migration.selector is server._selector
+    assert rm.migration.selector is server.stack.selector
     assert rm.supervisor.room_checkpoint_cb == rm.checkpoint_rooms
 
 

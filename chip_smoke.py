@@ -209,6 +209,18 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
                 and the tick-span ring of a sweep node, both valid.
                 Reports each load's SLO dict, the capacity knee, wall s,
                 step_once ms per node (median, p90) and the drain's ticks;
+  5h. tooling — the port's own tooling (livekit_server_tpu_torch/analysis,
+                native/poolcheck.py): (a) the native egress pool on the
+                card's host, POOL_STRESS_CALLS build-only calls for each
+                shard-count sequence 2; 3; 3,2; 2,3, each under a
+                POOL_WATCHDOG_S watchdog: every call's `sent` equal to its
+                entries and every shard's `built` to its range (C12);
+                (b) every registered device entry once on the card at the
+                canonical dims (devicecheck.canonical_dims) through its
+                hand kernels: output shapes and dtypes equal to the
+                committed analysis/devicecheck_baseline.json, the in-place
+                contract held with the card's storages, and each of the
+                three kernels launched;
   6. timing   — the dense runtime's device step (plane.device_tick: upload,
                 tick, fetch) at the north-star PlaneDims(10240, 8, 16, 50),
                 median and p90 of TIMED_TICKS ticks after warm-up; the paged
@@ -293,8 +305,14 @@ Output: JSON lines per phase (the serving phase's under "serving", the
 UDP phase's under "udp", phase 5c's under "express" and "golden_scans",
 the gateway's under "gateway" (the libraries under "libraries"),
 phase 5e's under "mixer", phase 5f's under "shard", phase 5g's under "twin",
-the failure phase's under "failure", the
-multi-node plane's under "migration"), a
+the tooling's under "tooling", the failure phase's under "failure", the
+multi-node plane's under "migration"), the build ledger under
+"build_ledger" (runtime/compile_ledger.py: nvcc and g++ builds and new
+kernel launch shapes with their seconds, and for every serving loop
+that marks warm — the WS, UDP and default-config loops, the failure
+drills, express, gateway, each twin node and each migration node — the
+entries between its mark_warm and the end of its loop, which must be 0),
+a
 `{"kernels": [...]}` JSON line (each kernel's numbers on its own path,
 `launches_by_path` its launches on every path, the serving loop's
 included, its ptxas registers and spill bytes,
@@ -323,11 +341,13 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from livekit_server_tpu_torch import native
+from livekit_server_tpu_torch.analysis import core as graftcheck, devicecheck
 from livekit_server_tpu_torch.config.config import Config, load_config, port_overlay
 from livekit_server_tpu_torch.interop import dtls as dtls_mod, sdp as sdp_mod, stun as stun_mod
 from livekit_server_tpu_torch.models import paged, plane, synth
@@ -340,6 +360,8 @@ from livekit_server_tpu_torch.protocol import decode_signal_response, packer
 from livekit_server_tpu_torch.routing import LocalNode, LocalRouter, MessageChannel
 from livekit_server_tpu_torch.runtime import PlaneRuntime, dd, integrity, traffic_twin
 from livekit_server_tpu_torch.runtime import crypto as crypto_mod, udp as udp_mod
+from livekit_server_tpu_torch.native import poolcheck
+from livekit_server_tpu_torch.runtime.compile_ledger import LEDGER
 from livekit_server_tpu_torch.runtime.ingest import PacketIn
 from livekit_server_tpu_torch.runtime.munge import HostMunger
 from livekit_server_tpu_torch.runtime.paged_runtime import PagedPlaneRuntime
@@ -419,6 +441,21 @@ SERVING_WALL_CAP_S = 240.0
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+# One record a serving loop that marked warm: the build-ledger entries
+# between its runtime's mark_warm and the end of its loop (must be 0).
+LOOP_LEDGER: list[dict] = []
+
+
+def loop_ledger(name: str, rt: PlaneRuntime) -> dict:
+    """Record, at the end of `rt`'s loop, the ledger entries since its
+    mark_warm (the watermark is the runtime's, the ledger the process's:
+    call it before the next loop's runtime builds or launches)."""
+    rec = {"loop": name, "post_warm_builds": rt.post_warm_builds,
+           "entries": [list(e) for e in LEDGER.since(rt.warm_builds)]}
+    LOOP_LEDGER.append(rec)
+    return rec
 
 
 def ptxas_report(text: str) -> dict:
@@ -1342,6 +1379,8 @@ async def serve_rooms(dev, sizes, pubs, spec: synth.TrafficSpec, cfg: Config,
         if sup is not None:
             await sup.stop()      # no restart may race the stop below
         await rt.stop()
+        loop_ledger(f"serving {'paged' if isinstance(rt, PagedPlaneRuntime) else 'dense'}"
+                    f"{' defaults' if cap_s is not None else ''}", rt)
     finally:
         paged.dead_page_outputs = fresh
     wall_s = time.perf_counter() - t0
@@ -1968,6 +2007,9 @@ async def udp_loop(rig: UdpRig, spec: synth.TrafficSpec, seconds: float | None,
     def on_tick(_res) -> None:
         tick_count.value += 1
 
+    # The warm step and watermark of LivekitServer.start, then the loop.
+    await rt.step_once()
+    rt.mark_warm()
     rt.on_tick(on_tick)
     socks = [*rig.check_socks, *rig.void_socks]
     for sock in socks:        # what the lockstep ticks left on the sinks
@@ -1988,6 +2030,7 @@ async def udp_loop(rig: UdpRig, spec: synth.TrafficSpec, seconds: float | None,
 
     base = dict(rt.stats)
     tx0 = {k: udp.stats.get(k, 0) for k in ("rx", "tx", "tx_drop", "rtx_tx")}
+    eg0 = rt.egress_plane.observe()
     spans = SendSpans(udp)
     udp.fwd_latency.reset()
     proc.start()
@@ -2009,6 +2052,7 @@ async def udp_loop(rig: UdpRig, spec: synth.TrafficSpec, seconds: float | None,
             if time.perf_counter() - t0 > SERVING_WALL_CAP_S:
                 raise AssertionError(f"UDP loop ran {n} ticks in {SERVING_WALL_CAP_S} s")
         await rt.stop()
+        loop_ledger(f"udp {'paged' if isinstance(rt, PagedPlaneRuntime) else 'dense'}", rt)
         wall_s = time.perf_counter() - t0
         launches = dict(cuda.launches)
     finally:
@@ -2033,6 +2077,10 @@ async def udp_loop(rig: UdpRig, spec: synth.TrafficSpec, seconds: float | None,
         raise AssertionError(f"UDP loop launches {launches}, expected {expected} "
                              f"over {ticks} ticks")
     stats = {k: udp.stats.get(k, 0) - v for k, v in tx0.items()}
+    shard_sums = shard_send_sums(rt, eg0)
+    if shard_sums["ticks_built_short"]:
+        raise AssertionError(f"UDP loop: a shard built another call's entries (C12): "
+                             f"{shard_sums}")
     if stats["tx"] <= 0 or received[0] <= 0:
         raise AssertionError(f"UDP loop: tx {stats['tx']}, {received[0]} received, "
                              f"{sent.value} sent by the publishers, {ticks} ticks, "
@@ -2056,7 +2104,20 @@ async def udp_loop(rig: UdpRig, spec: synth.TrafficSpec, seconds: float | None,
         "received": received[0], "egress_shards": rt.egress_plane.shards,
         "send_pieces_ms_per_tick": {k: v / ticks * 1e3 for k, v in spans.s.items()},
         "ingest_dropped": rt.ingest.dropped, "launches": launches,
+        "shard_sums": shard_sums,
     }
+
+
+def shard_send_sums(rt: PlaneRuntime, before: dict) -> dict:
+    """The sharded sends since `before` (an egress-plane observe()): what
+    the shards built and sent, summed over shards on every tick, and the
+    ticks whose built sum missed the tick's entries (a shard lost to
+    another call, C12) or whose sent sum missed the built sum (datagrams
+    the socket did not take)."""
+    now = rt.egress_plane.observe()
+    keys = ("ticks", "entries", "shard_built_sum", "shard_sent_sum", "ticks_built_short",
+            "ticks_sent_short")
+    return {k: now[k] - before[k] for k in keys}
 
 
 def udp_summary(rep: dict) -> str:
@@ -2064,7 +2125,8 @@ def udp_summary(rep: dict) -> str:
     return (f"{rep['ticks']} ticks in {rep['wall_s']:.1f} s, wall {rep['wall_ms_per_tick']:.2f} "
             f"ms/tick, send median {rep['send_ms']['median']:.2f} ms, forward latency "
             f"p50/p99 {fl['p50_ms']}/{fl['p99_ms']} ms, tx {rep['tx']} (drop "
-            f"{rep['tx_drop']}), received {rep['received']}, launches {rep['launches']}")
+            f"{rep['tx_drop']}), received {rep['received']}, launches {rep['launches']}, "
+            f"shard sums {json.dumps(rep['shard_sums'])}")
 
 
 async def udp_phase(dev, dense_dims: plane.PlaneDims = RUNTIME_DIMS,
@@ -2383,6 +2445,7 @@ async def express_loop(x: ExpressRig, seconds: float, first_tick: int) -> dict:
     udp.fwd_latency.reset()
     udp.fwd_latency_express.reset()
     sink.start()
+    rt.mark_warm()                 # the lockstep ticks were the warm-up
     cuda.reset_launches()
     task = asyncio.ensure_future(feeder())
     t0 = time.perf_counter()
@@ -2393,6 +2456,7 @@ async def express_loop(x: ExpressRig, seconds: float, first_tick: int) -> dict:
             if task.done():
                 task.result()
         await rt.stop()
+        loop_ledger("express", rt)
         wall_s = time.perf_counter() - t0
         launches = dict(cuda.launches)
     finally:
@@ -2812,6 +2876,9 @@ class GatewayRig:
 
         thread = threading.Thread(target=receiver, daemon=True)
         thread.start()
+        # The warm step and watermark of LivekitServer.start, then the loop.
+        await rt.step_once()
+        rt.mark_warm()
         base = dict(rt.stats)
         cuda.reset_launches()
         task = asyncio.ensure_future(feeder())
@@ -2823,6 +2890,7 @@ class GatewayRig:
             t_fed = rt.stats["ticks"]
             await wait_until(lambda: rt.stats["ticks"] >= t_fed + 3, "the last ticks")
             await rt.stop()
+            loop_ledger("gateway", rt)
             wall_s = time.perf_counter() - t0
             launches = dict(cuda.launches)
         finally:
@@ -3563,6 +3631,14 @@ def check_twin_launches(launches: dict, debug: dict, where: str) -> None:
         raise AssertionError(f"twin {where}: launches {launches}, expected {want}")
 
 
+def twin_ledger(where: str, debug: dict) -> None:
+    """The build-ledger entries of each twin node since its warm step
+    (service/stack.py marks it), as the twin counted them at its end."""
+    for i, n in enumerate(debug["post_warm_builds"]):
+        LOOP_LEDGER.append({"loop": f"{where} node {i}", "post_warm_builds": n,
+                            "entries": []})
+
+
 def twin_flash_drill(dev, out: dict) -> dict:
     """(a) The flash-crowd drill at cfg4 width on `dev` and on the CPU:
     both dicts and governor transitions equal to each other and to the
@@ -3579,6 +3655,7 @@ def twin_flash_drill(dev, out: dict) -> dict:
         runs[device.type] = (tw, rep, dict(cuda.launches), time.perf_counter() - t0)
     (tw, rep, launches, wall), (tw_cpu, rep_cpu, _, wall_cpu) = runs[dev.type], runs["cpu"]
     check_twin_launches(launches, tw.debug, "flash crowd")
+    twin_ledger("twin flash crowd", tw.debug)
     got, got_cpu = rep.deterministic_dict(), rep_cpu.deterministic_dict()
     trans, trans_cpu = tw.debug["governor_transitions"][0], tw_cpu.debug["governor_transitions"][0]
     if got != got_cpu or trans != trans_cpu:
@@ -3625,6 +3702,7 @@ def twin_sweep(dev, out: dict) -> tuple[dict, list]:
         nonlocal last_trace
         launches = dict(cuda.launches)
         check_twin_launches(launches, tw.debug, f"load {rep.offered_load}")
+        twin_ledger(f"twin load x{rep.offered_load}", tw.debug)
         for k in total:
             total[k] += launches[k]
         mig = tw.debug["migration_stats"]
@@ -3680,6 +3758,48 @@ def twin_phase(dev) -> tuple[dict, dict, dict]:
                     "events": len(events)}
     out["phase_s"] = time.perf_counter() - t0
     return out, flash, sweep
+
+
+# ---------------------------------------------------------------------------
+# The port's own tooling (phase 5h)
+# ---------------------------------------------------------------------------
+
+POOL_STRESS_CALLS = 5000           # build-only calls a shard-count sequence
+POOL_WATCHDOG_S = 60.0             # a sequence that outlasts this fails the run
+
+
+def tooling_phase(dev) -> dict:
+    """Phase 5h (see the module docstring): the egress pool stress on the
+    card's host and the device-entry contracts on the card."""
+    t0 = time.perf_counter()
+    out: dict = {"card": card_line()}
+    stress = [poolcheck.run_sequence(seq, POOL_STRESS_CALLS, POOL_WATCHDOG_S)
+              for seq in poolcheck.SEQUENCES]
+    if any(r["short_calls"] or r["shard_mismatches"] for r in stress):
+        raise AssertionError(f"egress pool stress: {stress}")
+    out["pool_stress"] = stress
+    log(f"tooling: egress pool stress clean: {json.dumps(stress)}")
+    root = Path(__file__).resolve().parent
+    cfg = graftcheck.load_config(root).rule("devicecheck")
+    cuda.reset_launches()
+    t1 = time.perf_counter()
+    contracts, problems = devicecheck.compute_contracts(cfg, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches = dict(cuda.launches)
+    drift, stale = devicecheck.diff_contracts(
+        contracts, devicecheck.load_baseline(root / cfg["baseline"]), shapes_only=True)
+    if problems or drift or stale or not all(launches.values()):
+        raise AssertionError(f"device contracts on {dev}: in-place {problems}, drift "
+                             f"{[f.render() for f in drift]}, stale {stale}, launches "
+                             f"{launches}")
+    out["contracts"] = {"entries": sorted(contracts), "equal_baseline": True,
+                        "in_place": "held", "launches": launches, "seconds": seconds,
+                        "bytes": {k: c["bytes"] for k, c in contracts.items()}}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"tooling: {len(contracts)} device contracts equal on {dev} in {seconds:.2f} s, "
+        f"launches {launches}")
+    return out
 
 
 def paged_pool_state(pager: RoomPager, sizes, dims: paged.PagedDims, dev):
@@ -4135,6 +4255,7 @@ async def drills(dev, dims: plane.PlaneDims = RUNTIME_DIMS) -> tuple[dict, Plane
         stop.set()
         await feed
         await rm.stop()
+    loop_ledger("failure drills", rt)
     return report, rt
 
 
@@ -4653,6 +4774,9 @@ class MigNode:
             "ticks": ticks, "wall_s": wall,
             "wall_ms_per_tick": wall / ticks * 1e3 if ticks else None,
             "late_ticks": rt.stats["late_ticks"], "launches": dict(cuda.launches),
+            # build-ledger entries since the node's warm step (its own process)
+            "post_warm_builds": rt.post_warm_builds,
+            "post_warm_entries": [list(e) for e in LEDGER.since(rt.warm_builds)],
             # Steps whose tick completed or a restart dropped; the loop's
             # launches exceed them by the steps in flight (`check_launches`).
             "steps": ticks + rt.stats["dropped_steps"] - self.dropped0,
@@ -4980,6 +5104,9 @@ async def migration_phase(dev, dims: plane.PlaneDims = MIG_DIMS, rooms: dict = M
             if rep["restarts"] and rep["restarts"].get("integrity"):
                 raise AssertionError(f"node {n}: integrity restarts on a clean state")
             check_launches(rep)
+            LOOP_LEDGER.append({"loop": f"migration node {n}",
+                                "post_warm_builds": rep["post_warm_builds"],
+                                "entries": rep["post_warm_entries"]})
         launches = {k: sum(rep["launches"][k] for rep in reports.values())
                     for k in reports["A"]["launches"]}
         out["launches"] = launches
@@ -5068,6 +5195,9 @@ def main() -> int:
     log(f"twin ok in {twin['phase_s']:.1f} s: knee {twin['sweep']['capacity_knee_load']}, "
         f"drain ticks {twin['sweep']['drain_ticks']}, trace {json.dumps(twin['trace'])}")
     done("twin")
+    tooling = tooling_phase(dev)
+    print(json.dumps({"tooling": tooling}), flush=True)
+    done("tooling")
     tick, dense_t, ns_state = timing_phase(dev, args.profile)
     paged_tick, paged_t, pool_state = paged_timing_phase(dev, args.profile)
     done("timing")
@@ -5122,6 +5252,12 @@ def main() -> int:
     print(json.dumps({"paged_tick": paged_tick, "paged_kernel": paged_t["paged_kernel"],
                       "paged_allocate_budget_rooms": paged_t["allocate_budget_rooms"]}),
           flush=True)
+    ledger = {**LEDGER.snapshot(), "loops": LOOP_LEDGER}
+    print(json.dumps({"build_ledger": ledger}), flush=True)
+    post_warm = [rec for rec in LOOP_LEDGER if rec["post_warm_builds"]]
+    if post_warm or not LOOP_LEDGER:
+        print(f"chip_smoke: ledger entries after mark_warm: {post_warm}", file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from livekit_server_tpu_torch.analysis.registry import device_entry
 from livekit_server_tpu_torch.device import resolve
 from livekit_server_tpu_torch.models import plane
 from livekit_server_tpu_torch.models.plane import (
@@ -193,6 +194,7 @@ def _allocate(state: PlaneState, sel_state, outs: dict, bitrates, mem, mvalid, p
                            sub_quality=sub_q)
 
 
+@device_entry("paged.paged_plane_tick")
 def paged_plane_tick(state: PlaneState, inp: TickInputs, table: PageTable,
                      audio_params: audio.AudioLevelParams = audio.AudioLevelParams(),
                      bwe_params: bwe.BWEParams = bwe.BWEParams(),
@@ -246,6 +248,7 @@ def _zero_inputs(dims: PlaneDims, tick_ms: int, roll_quality: int, device) -> Ti
     return plane.unpack_tick_inputs(pkt, fb, tf, tick_ms, roll_quality)
 
 
+@device_entry("paged.dead_page_outputs")
 def dead_page_outputs(MT: int, TP: int, K: int, SP: int, tick_ms: int, roll_quality: int,
                       audio_params: audio.AudioLevelParams = audio.AudioLevelParams(),
                       bwe_params: bwe.BWEParams = bwe.BWEParams(),
@@ -308,6 +311,7 @@ def broadcast_dead_outputs(rep_out: TickOutputs, P: int) -> TickOutputs:
     return plane.tree_map(lambda r: r.expand((P,) + tuple(r.shape[1:])).clone(), rep_out)
 
 
+@device_entry("paged.paged_plane_tick_live")
 def paged_plane_tick_live(state: PlaneState, inp: TickInputs, table: PageTable,
                           live_rows, live_inv, decide: paged_kernel.LiveDecide,
                           audio_params: audio.AudioLevelParams = audio.AudioLevelParams(),
@@ -364,6 +368,7 @@ def paged_plane_tick_live(state: PlaneState, inp: TickInputs, table: PageTable,
     return state, outputs
 
 
+@device_entry("paged.paged_plane_tick_fused")
 def paged_plane_tick_fused(state: PlaneState, inp: TickInputs, table: PageTable,
                            live_rows, live_inv,
                            audio_params: audio.AudioLevelParams = audio.AudioLevelParams(),
@@ -400,7 +405,7 @@ def stock_step(state: PlaneState, table: PageTable, wire: np.ndarray, dims: Page
     buf = torch.from_numpy(wire).to(state.meta.is_video.device)
     inp = plane.unpack_tick_inputs(*plane.unwire_inputs(buf, dims.pooled()))
     state, out = paged_plane_tick(state, inp, table, audio_params, bwe_params, red_enabled)
-    return state, plane.pack_tick_outputs(out).cpu().numpy()
+    return state, plane.fetch_outputs(out)
 
 
 def live_step(state: PlaneState, table: PageTable, wire: np.ndarray, dims: PagedDims,
@@ -423,7 +428,7 @@ def live_step(state: PlaneState, table: PageTable, wire: np.ndarray, dims: Paged
     dead = dead_page_outputs_cached(MT, dims.tpage, dims.pkts, dims.spage, tick_ms, roll,
                                     audio_params, bwe_params, red_enabled, dev)
     if live_rows.numel() == 0:
-        return state, plane.pack_tick_outputs(broadcast_dead_outputs(dead, P)).cpu().numpy(), 0.0
+        return state, plane.fetch_outputs(broadcast_dead_outputs(dead, P)), 0.0
     buf = torch.from_numpy(wire).to(dev)
     inp = plane.unpack_tick_inputs(*plane.unwire_inputs(buf, dims.pooled()))
     base = _base(state)
@@ -441,7 +446,7 @@ def live_step(state: PlaneState, table: PageTable, wire: np.ndarray, dims: Paged
         kernel_s = time.perf_counter() - t0
     state, out = paged_plane_tick_live(state, inp, table, live_rows, live_inv, dec,
                                        audio_params, bwe_params, red_enabled, dead=dead)
-    flat = plane.pack_tick_outputs(out).cpu().numpy()   # waits for the device
+    flat = plane.fetch_outputs(out)   # waits for the device
     if dev.type == "cuda":
         kernel_s = span[0].elapsed_time(span[1]) / 1e3
     return state, flat, kernel_s
@@ -478,6 +483,7 @@ def _rows(x, device):
     return torch.as_tensor(np.asarray(x), device=device)
 
 
+@device_entry("paged.apply_table_delta")
 def apply_table_delta(table: PageTable, page_rows, tmember_rows, pg_room_rows,
                       pg_tp_rows, pg_sp_rows, room_rows, rooms_pages_rows) -> PageTable:
     """Device half: write the dirtied rows into the device table in place."""
@@ -492,6 +498,7 @@ def apply_table_delta(table: PageTable, page_rows, tmember_rows, pg_room_rows,
     return table
 
 
+@device_entry("paged.page_init_template")
 def page_init_template(dims: PagedDims, device="cuda") -> PlaneState:
     """A single init page ([1, TP, K, SP] PlaneState): the source for
     fresh/freed page re-init and the fill for unmapped regions in
@@ -499,6 +506,7 @@ def page_init_template(dims: PagedDims, device="cuda") -> PlaneState:
     return plane.init_state(PlaneDims(1, dims.tpage, dims.pkts, dims.spage), device=device)
 
 
+@device_entry("paged.reinit_pages")
 def reinit_pages(state: PlaneState, rows, template: PlaneState) -> PlaneState:
     """Reset `rows` to pristine init state in place — freshly allocated
     pages (a new room must not inherit the prior tenant's cursors) and
@@ -510,6 +518,7 @@ def reinit_pages(state: PlaneState, rows, template: PlaneState) -> PlaneState:
     return state
 
 
+@device_entry("paged.move_state_rows")
 def move_state_rows(state: PlaneState, src, dst) -> PlaneState:
     """Replay compaction relocations as page-row copies, in place. Each
     leaf gathers every source row before it scatters, so overlapping

@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from livekit_server_tpu_torch.analysis.registry import device_entry
 from livekit_server_tpu_torch.device import resolve
 from livekit_server_tpu_torch.ops import (
     allocation,
@@ -171,6 +172,7 @@ def _tile(x: torch.Tensor, *lead: int) -> torch.Tensor:
     return x.expand(*lead, *x.shape).clone()
 
 
+@device_entry("plane.init_state")
 def init_state(dims: PlaneDims, device="cuda") -> PlaneState:
     """Zeroed plane state (no track published) on `device`."""
     dev = resolve(device)
@@ -510,6 +512,7 @@ def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
     return new_state, outputs, bitrates
 
 
+@device_entry("plane.media_plane_tick")
 def media_plane_tick(state: PlaneState, inp: TickInputs,
                      audio_params: audio.AudioLevelParams = audio.AudioLevelParams(),
                      bwe_params: bwe.BWEParams = bwe.BWEParams(),
@@ -666,6 +669,7 @@ def pack_ctrl_rows(meta: TrackMeta, ctrl: SubControl, rows):
     return rows, meta_rows, ctrl_rows
 
 
+@device_entry("plane.apply_ctrl_delta")
 def apply_ctrl_delta(state: PlaneState, rows, meta_rows, ctrl_rows) -> PlaneState:
     """Device-side half: write the dirtied rows into the state's control
     tensors IN PLACE (index_put on the existing tensors). Returns the
@@ -740,6 +744,12 @@ def unpack_tick_outputs(buf, dims: PlaneDims, red_enabled: bool = True) -> TickO
     return TickOutputs(**pieces)
 
 
+def fetch_outputs(out: TickOutputs) -> np.ndarray:
+    """The tick's one device→host round trip: the packed outputs as a flat
+    int32 numpy buffer (the copy waits for the device)."""
+    return pack_tick_outputs(out).cpu().numpy()
+
+
 def device_step(state: PlaneState, wire: np.ndarray, dims: PlaneDims,
                 audio_params: audio.AudioLevelParams = audio.AudioLevelParams(),
                 bwe_params: bwe.BWEParams = bwe.BWEParams(),
@@ -752,7 +762,7 @@ def device_step(state: PlaneState, wire: np.ndarray, dims: PlaneDims,
     inp = unpack_tick_inputs(*unwire_inputs(buf, dims))
     state, out = media_plane_tick(state, inp, audio_params, bwe_params,
                                   red_enabled=red_enabled)
-    return state, pack_tick_outputs(out).cpu().numpy()
+    return state, fetch_outputs(out)
 
 
 def device_tick(state: PlaneState, wire: np.ndarray, dims: PlaneDims,

@@ -12,7 +12,8 @@ The port's own copies of the three sources live in `native/csrc/`
 first use into `livekit_server_tpu_torch/_build/native/`, under a file
 name that carries a digest of the source and the flags, so an edited
 source rebuilds; the build goes to a temporary name and is renamed into
-place, so processes that build at once never load a half-written file.
+place, so processes that build at once never load a half-written file;
+each build is an entry of the build ledger (runtime/compile_ledger.py).
 Nothing is built at import: `rtp`, `egress` and `munge` are module
 attributes resolved on first access.
 
@@ -31,6 +32,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -93,6 +95,7 @@ def _compile(source: str, name: str, extra_flags: tuple[str, ...] = ()) -> Path 
         return so
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(
             [CXX, *CXX_FLAGS, "-o", str(tmp), src, *extra_flags],
@@ -110,6 +113,9 @@ def _compile(source: str, name: str, extra_flags: tuple[str, ...] = ()) -> Path 
         return None
     os.replace(tmp, so)
     entry["ok"] = True
+    from livekit_server_tpu_torch.runtime.compile_ledger import LEDGER
+
+    LEDGER.record("g++", so.name, (time.perf_counter() - t0) * 1e3)
     return so
 
 

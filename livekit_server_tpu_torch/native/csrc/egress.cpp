@@ -538,15 +538,22 @@ class Pool {
     return (int)ths_.size();
   }
 
-  // Runs the job on the pool and blocks until every shard completed.
+  // Runs the job on the pool and blocks until every shard completed and
+  // every worker that took this job has left its claim loop. Without the
+  // second condition a straggler of this call, still holding its job copy,
+  // could claim a shard of the next call once that call reset next_, build
+  // it from this call's dead pointers and count it done there (the next
+  // call then returns short, or waits forever when the shard counts
+  // differ). run_mu_ serializes callers: the pool is one per process.
   void run(PlaneJob& job) {
+    std::lock_guard<std::mutex> serial(run_mu_);
     std::unique_lock<std::mutex> lk(mu_);
     job_ = &job;
     next_.store(0, std::memory_order_relaxed);
     done_ = 0;
     gen_++;
     cv_.notify_all();
-    cv_done_.wait(lk, [&] { return done_ >= job.n_shards; });
+    cv_done_.wait(lk, [&] { return done_ >= job.n_shards && active_ == 0; });
     job_ = nullptr;
   }
 
@@ -569,10 +576,15 @@ class Pool {
         seen = gen_;
         if (!job_) continue;
         job = *job_;
+        active_++;
       }
       for (;;) {
         int s = next_.fetch_add(1, std::memory_order_relaxed);
-        if (s >= job.n_shards) break;
+        if (s >= job.n_shards) {
+          std::unique_lock<std::mutex> lk(mu_);
+          if (--active_ == 0 && done_ >= job.n_shards) cv_done_.notify_all();
+          break;
+        }
         const int64_t t0 = now_ns();
         int64_t built = 0;
         int64_t sent = worker(*job.a, (int)job.shard_lo[s],
@@ -590,12 +602,13 @@ class Pool {
   }
 
   std::vector<std::thread> ths_;
-  std::mutex mu_;
+  std::mutex mu_, run_mu_;
   std::condition_variable cv_, cv_done_;
   uint64_t gen_ = 0;
   bool stop_ = false;
   PlaneJob* job_ = nullptr;
   int done_ = 0;
+  int active_ = 0;  // workers inside the current job's claim loop
   std::atomic<int> next_{0};
 };
 

@@ -192,7 +192,7 @@ def allocate_budget_rooms(bitrates, max_spatial, max_temporal, muted, budget):
                                    budget, target, used, deficient)]
     err = _kernel()(*ptrs, R, T, S, cuda.stream_handle(device))
     cuda.check(err, "allocate_budget_rooms")
-    cuda.launches["allocate_budget_rooms"] += 1
+    cuda.count_launch("allocate_budget_rooms", (R, T, S))
     return target, used, deficient
 
 

@@ -12,7 +12,9 @@ Each C entry point enqueues its kernel on the stream it is given and
 returns `cudaGetLastError()`; `check` turns a non-zero code into an
 exception. `launches` counts the launches of each kernel; only the
 wrappers in ops/selector.py, ops/allocation.py and ops/paged_kernel.py
-add to it, at the point where they launch.
+add to it, through `count_launch`, at the point where they launch.
+Every `nvcc` build and every first launch at a new launch shape is also
+an entry of the build ledger (runtime/compile_ledger.py).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -48,6 +51,14 @@ launches = dict.fromkeys(SOURCES, 0)
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def count_launch(name: str, shape: tuple) -> None:
+    """Count one launch of kernel `name` (called by its wrapper right after
+    the launch) and note its launch shape in the build ledger, where the
+    first launch at a shape this process has not seen is an entry."""
+    launches[name] += 1
+    _ledger().record_launch(name, shape)
 
 
 def nvcc() -> str:
@@ -80,6 +91,7 @@ def build(names=tuple(SOURCES), csrc: Path | None = None) -> dict[str, str]:
     csrc = CSRC if csrc is None else csrc
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         source = SOURCES[name]
         out = library_path(source, csrc)
@@ -99,9 +111,18 @@ def build(names=tuple(SOURCES), csrc: Path | None = None) -> dict[str, str]:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{text}")
         else:
             os.replace(tmp, out)
+            # builds run side by side: each entry carries the wall time
+            # from the common start to its end
+            _ledger().record("nvcc", out.name, (time.perf_counter() - t0) * 1e3)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def _ledger():
+    from livekit_server_tpu_torch.runtime.compile_ledger import LEDGER
+
+    return LEDGER
 
 
 @functools.lru_cache(maxsize=None)

@@ -30,6 +30,8 @@ import functools
 import numpy as np
 import torch
 
+from livekit_server_tpu_torch.analysis.registry import device_entry
+
 MIX_TOP_K = 3  # speakers mixed per subscriber
 
 
@@ -67,6 +69,7 @@ def _g711_table(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.concatenate([ULAW_TABLE, ALAW_TABLE])).to(device)
 
 
+@device_entry("mix.decode_tick")
 def decode_tick(payload_u8: torch.Tensor, codec: torch.Tensor) -> torch.Tensor:
     """[R, T, N] uint8 G.711 bytes and [R, T] codec ids → [R, T, N] float32
     PCM: A-law where codec == CODEC_PCMA, µ-law otherwise, one gather per
@@ -115,6 +118,7 @@ def mix_weights(level, active, sub_track, gain, top_k: int = MIX_TOP_K):
     return w.to(torch.float32) * gain[:, None, :]
 
 
+@device_entry("mix.mix_tick")
 def mix_tick(pcm, level, active, sub_track, gain, top_k: int = MIX_TOP_K):
     """Per-subscriber active-speaker mix: [R, S, N] soft-clipped PCM.
 

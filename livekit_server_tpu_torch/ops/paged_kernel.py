@@ -36,6 +36,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from livekit_server_tpu_torch.analysis.registry import device_entry
 from livekit_server_tpu_torch.models import plane
 from livekit_server_tpu_torch.ops import cuda, mix, selector
 
@@ -175,7 +176,8 @@ def _launch(live_rows, decide_ops, mix_ops, *, wire_overhead: int, top_k: int):
                     int(decide_ops is not None), int(mix_ops is not None),
                     cuda.stream_handle(device))
     cuda.check(err, "paged_kernel")
-    cuda.launches["paged_kernel"] += 1
+    cuda.count_launch("paged_kernel", (NL, P, TP, K, SP, N, decide_ops is not None,
+                                       mix_ops is not None))
     return (d_out if decide_ops is not None else None), mixed
 
 
@@ -198,6 +200,7 @@ def _route(name: str, device: torch.device) -> bool:
     return True
 
 
+@device_entry("paged_kernel.decide_pages")
 def decide_pages(sel_state, is_svc, is_video, base, inp, live_rows, *,
                  wire_overhead: int) -> LiveDecide:
     """Phase 0 of the live-extent tick for the pages named by `live_rows`.

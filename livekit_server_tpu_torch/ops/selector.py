@@ -236,7 +236,7 @@ def decide_rooms(state: SelectorState, is_svc, is_video, base, pkt_spatial,
     err = _kernel()(*ptrs, R, T, K, S, int(wire_overhead),
                     cuda.stream_handle(device))
     cuda.check(err, "decide_rooms")
-    cuda.launches["decide_rooms"] += 1
+    cuda.count_launch("decide_rooms", (R, T, K, S))
     new_state = SelectorState(out_sp, out_tp, state.target_spatial,
                               state.target_temporal)
     return (new_state, send, drop, switch, need_kf, pkts_sent, sent_bytes,

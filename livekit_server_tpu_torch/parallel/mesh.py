@@ -41,6 +41,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from livekit_server_tpu_torch.analysis.registry import device_entry
 from livekit_server_tpu_torch.models import paged, plane
 from livekit_server_tpu_torch.ops import audio as audio_ops, bwe as bwe_ops
 
@@ -341,6 +342,7 @@ class ShardedTick:
         return state, join_outputs(bufs, dims, self.red_enabled)
 
 
+@device_entry("mesh.sharded_tick")
 def make_sharded_tick(mesh: Mesh, audio_params: Any | None = None,
                       bwe_params: Any | None = None, donate: bool = True,
                       red_enabled: bool = True) -> ShardedTick:

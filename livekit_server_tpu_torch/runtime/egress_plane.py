@@ -88,6 +88,12 @@ class EgressPlane:
             "ticks": 0, "entries": 0, "datagrams": 0, "grouped_entries": 0,
             "send_ns": 0, "munge_ns": 0, "munge_entries": 0,
             "express_datagrams": 0, "express_ns": 0,
+            # per-shard sums of the sharded sends: what the shards built,
+            # what they handed to the kernel, and the ticks where the
+            # built sum missed the entries (a shard lost to another call)
+            # or the sent sum missed the built sum (socket drops)
+            "shard_built_sum": 0, "shard_sent_sum": 0,
+            "ticks_built_short": 0, "ticks_sent_short": 0,
         }
         # Express-lane sends land between ticks; record_express accumulates
         # them here and record_send folds them into the next tick's EMA
@@ -185,6 +191,11 @@ class EgressPlane:
             st["datagrams"] += sent
             st["send_ns"] += ns
             w = len(shard_sent)
+            built, sent_sum = int(np.sum(shard_built)), int(np.sum(shard_sent))
+            st["shard_built_sum"] += built
+            st["shard_sent_sum"] += sent_sum
+            st["ticks_built_short"] += built != n_entries
+            st["ticks_sent_short"] += sent_sum != built
             self.shard_sent_total[:w] += shard_sent
             self.shard_ns_total[:w] += shard_ns
             # Fold the express sends of the window that just closed into
@@ -263,6 +274,10 @@ class EgressPlane:
                 "express_datagrams": int(self.stats["express_datagrams"]),
                 "express_ms_total": round(self.stats["express_ns"] / 1e6, 3),
                 "shard_sent": [int(x) for x in self.shard_sent_total],
+                "shard_built_sum": int(self.stats["shard_built_sum"]),
+                "shard_sent_sum": int(self.stats["shard_sent_sum"]),
+                "ticks_built_short": int(self.stats["ticks_built_short"]),
+                "ticks_sent_short": int(self.stats["ticks_sent_short"]),
                 "shard_send_ms": [
                     round(int(x) / 1e6, 3) for x in self.shard_ns_total
                 ],

@@ -34,6 +34,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from livekit_server_tpu_torch.analysis.registry import device_entry
 from livekit_server_tpu_torch.device import resolve
 from livekit_server_tpu_torch.interop import opus
 
@@ -52,6 +53,7 @@ PLC_MAX_FRAMES = 10
 DEVICE_MIX_MIN_ROOMS = 64
 
 
+@device_entry("mixer.device_mix")
 def _device_mix(pcm: torch.Tensor, present: torch.Tensor, exclude: torch.Tensor):
     """Batched room mix, one batched matmul for every enabled room at
     once — the "rst,rtn->rsn" contraction of ops/mix.mix_tick with the

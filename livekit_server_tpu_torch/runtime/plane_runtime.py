@@ -84,6 +84,7 @@ from livekit_server_tpu_torch.models import plane
 from livekit_server_tpu_torch.ops import audio as audio_ops, bwe as bwe_ops
 from livekit_server_tpu_torch.parallel import mesh as mesh_mod
 from livekit_server_tpu_torch.runtime import trace as trace_mod
+from livekit_server_tpu_torch.runtime.compile_ledger import LEDGER
 from livekit_server_tpu_torch.runtime.egress_plane import EgressPlane
 from livekit_server_tpu_torch.runtime.ingest import (
     IngestBuffer,
@@ -379,6 +380,11 @@ class PlaneRuntime:
         # cadence; the loop drains its row-repair queue; quarantined rows
         # are masked at fan-out and muted in the effective ctrl.
         self.integrity = None
+        # The process's build ledger (runtime/compile_ledger.py): nvcc and
+        # g++ builds and first launches at new kernel shapes, counted
+        # against the watermark mark_warm sets.
+        self.compile_ledger = LEDGER
+        self.warm_builds = 0
 
         self.state = self._init_device_state()
         self._init_step()
@@ -867,9 +873,20 @@ class PlaneRuntime:
 
     def mark_warm(self) -> None:
         """Record that the kernels are built and the first tick ran (the
-        server calls it after its warm step). The port has no compile
-        ledger: a CUDA kernel is built once, at its first launch."""
+        node stack calls it after its warm step): set the build ledger's
+        watermark. From here on the serving path must add no ledger entry
+        — no nvcc or g++ build and no kernel launch at a shape this
+        process has not launched (`post_warm_builds`, the process-wide
+        `compile_ledger.post_warmup`, /debug/compiles)."""
         self.warm = True
+        self.warm_builds = self.compile_ledger.mark_warm()
+
+    @property
+    def post_warm_builds(self) -> int:
+        """Ledger entries since this runtime's mark_warm (other runtimes
+        of the process may have added some: the ledger is one a
+        process)."""
+        return self.compile_ledger.total - self.warm_builds
 
     def extract_staged_row(self, row: int) -> list[PacketIn] | None:
         """Take one row's packets out of the serving loop's staged tick

@@ -901,6 +901,10 @@ class TrafficTwin:
                 "trace": [srv.room_manager.runtime.trace.snapshot()
                           if srv.room_manager.runtime.trace is not None else []
                           for srv, _ in servers],
+                # build-ledger entries since each node's warm-up watermark
+                # (runtime/compile_ledger.py): 0 in steady state
+                "post_warm_builds": [srv.room_manager.runtime.post_warm_builds
+                                     for srv, _ in servers],
             }
             rep.wall_s = time.perf_counter() - t0
             return rep

@@ -8,7 +8,7 @@ Endpoints: /rtc (WS signal+media), /twirp/livekit.RoomService/* (admin),
 / (health), /metrics (prometheus text format), /debug/rooms,
 /debug/overload (the governor), /debug/integrity (the audit, the repair
 ladder, the checkpoint codec, restart causes), /debug/migration and
-/debug/fleet (the multi-node plane).
+/debug/fleet (the multi-node plane), /debug/compiles (the build ledger).
 
 Port of the JAX package's service/server.py. `create_server(cfg,
 device=...)` builds the port's RoomManager on `device` ("cuda" by
@@ -18,9 +18,10 @@ egress/ingress status aggregator (service/ioinfo.py) starts and stops
 with the server. Everything but HTTP (the wiring, the start and stop
 sequence) is the node stack of service/stack.py, which the traffic twin
 runs without this module. /debug/trace exports the tick-span ring as
-Chrome trace events (telemetry/trace_export.py). The route whose
-subsystem the port does not carry yet is left out (ROADMAP A11):
-/debug/compiles. The UDP media transport and the TCP fallback open at
+Chrome trace events (telemetry/trace_export.py). /debug/compiles returns
+the build ledger (runtime/compile_ledger.py): the nvcc and g++ builds
+and the first launches at new kernel launch shapes, against the warm-up
+watermark. The UDP media transport and the TCP fallback open at
 start (RoomManager.start_transports) on rtc.udp_port and rtc.tcp_port,
 with the express lane attached (plane.express_max_subs > 0) and the
 embedded media relay beside them (relay.enabled); both are off by
@@ -84,6 +85,7 @@ class LivekitServer:
         self.app.router.add_get("/debug/tasks", self.debug_tasks)
         self.app.router.add_get("/debug/ticks", self.debug_ticks)
         self.app.router.add_get("/debug/trace", self.debug_trace)
+        self.app.router.add_get("/debug/compiles", self.debug_compiles)
         self.app.router.add_get("/debug/overload", self.debug_overload)
         self.app.router.add_get("/debug/pager", self.debug_pager)
         self.app.router.add_get("/debug/integrity", self.debug_integrity)
@@ -201,6 +203,14 @@ class LivekitServer:
                 body["forward_latency_express"] = udp.fwd_latency_express.summary()
         return web.json_response(body)
 
+    async def debug_compiles(self, request: web.Request) -> web.Response:
+        """The build ledger: nvcc and g++ builds and first launches at new
+        kernel launch shapes against the warm-up watermark, their times,
+        and the most recent entries. `builds_post_warmup` > 0 means the
+        serving path built something or launched a kernel at a shape it
+        had not run before."""
+        return web.json_response(self.room_manager.runtime.compile_ledger.snapshot())
+
     async def debug_trace(self, request: web.Request) -> web.Response:
         """Chrome/Perfetto trace export of the tick-span ring
         (?ticks=N, newest N ticks) plus the sampled wire-latency stage
@@ -268,6 +278,10 @@ class LivekitServer:
         if bus is not None and hasattr(bus, "retries"):
             self.telemetry.set_gauge("livekit_bus_retries_total", bus.retries)
             self.telemetry.set_gauge("livekit_bus_reconnects_total", bus.reconnects)
+        ledger = self.room_manager.runtime.compile_ledger.snapshot()
+        self.telemetry.set_gauge("livekit_kernel_builds_total", ledger["builds_total"])
+        self.telemetry.set_gauge("livekit_kernel_builds_post_warmup",
+                                 ledger["builds_post_warmup"])
         self.telemetry.observe_queue_drops()
         return web.Response(
             text=self.telemetry.prometheus_text(), content_type="text/plain"

@@ -96,6 +96,8 @@ _HELP = {
     "livekit_plane_sleep_bias_us": "Calibrated tick-edge coarse-sleep overshoot margin",
     "livekit_plane_edge_overshoot_us": "Last tick-edge wake overshoot",
     "livekit_events_total": "Lifecycle events by type",
+    "livekit_kernel_builds_total": "Build-ledger entries: nvcc and g++ builds and first launches at new kernel shapes",
+    "livekit_kernel_builds_post_warmup": "Build-ledger entries after the warm-up watermark (0 in steady state)",
 }
 
 

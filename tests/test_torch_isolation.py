@@ -289,3 +289,41 @@ def test_multinode_modules_are_the_ports_own():
         outside = {n for n in names if n not in sys.stdlib_module_names
                    and n not in ("livekit_server_tpu_torch", "numpy", "torch")}
         assert not outside, (rel, outside)
+
+
+TOOLING_PROBE = PROBE_HEAD + r"""
+# torch's FLOP counter loads torch's own dependencies (sympy, and optree
+# where installed) at its first use: they count as torch's
+from torch.utils.flop_counter import FlopCounterMode
+with FlopCounterMode(display=False):
+    torch.ones(2) @ torch.ones(2)
+before = {m.split(".")[0] for m in sys.modules}
+import livekit_server_tpu_torch.analysis.__main__ as runner
+from livekit_server_tpu_torch.analysis import core, devicecheck
+from livekit_server_tpu_torch.native import poolcheck
+from livekit_server_tpu_torch.runtime.compile_ledger import LEDGER
+
+cfg = core.load_config(runner.REPO_ROOT)
+project = core.load_project(runner.REPO_ROOT, ["livekit_server_tpu_torch/analysis"])
+assert not [f for f in core.run_all(project, cfg) if f.rule == "GC00"]
+allow = cfg.rule("devicecheck")["allow_no_inplace"]
+for spec in devicecheck._specs()[:3]:
+    contract, problems = devicecheck.run_entry(spec, torch.device("cpu"),
+                                               allow_no_inplace=spec.name in allow)
+    assert contract["out"] and problems == [], problems
+rep = poolcheck.run_sequence((3, 2), 50, watchdog_s=60)
+assert rep["short_calls"] == 0 and rep["shard_mismatches"] == 0, rep
+LEDGER.record_launch("decide_rooms", (1, 2, 3, 4))
+assert LEDGER.snapshot()["by_kind"]["launch_shape"] == 1
+after = {m.split(".")[0] for m in sys.modules}
+print(json.dumps(sorted(after - before)))
+"""
+
+
+def test_tooling_needs_only_torch_numpy_and_stdlib():
+    """The port's own tooling — the graftcheck rules and runner, the
+    device contracts, the build ledger and the egress pool stress — runs
+    with aiohttp, msgpack, PyYAML, cryptography and jax absent and loads
+    no module outside the port, torch, numpy and the standard library."""
+    outside = _loaded_outside(TOOLING_PROBE)
+    assert not outside, f"the tooling imports {outside}"

@@ -259,7 +259,10 @@ async def test_metrics_and_debug_routes():
             alice = SignalClient(s, server.port)
             await alice.connect("m", "alice")
             async with s.get(f"{base}/metrics") as r:
-                assert "livekit_events_total" in await r.text()
+                text = await r.text()
+                assert "livekit_events_total" in text
+                assert "livekit_kernel_builds_total" in text
+                assert "livekit_kernel_builds_post_warmup" in text
             async with s.get(f"{base}/debug/rooms") as r:
                 dbg = await r.json()
                 assert dbg["rooms"]["m"]["participants"] == ["alice"]
@@ -276,7 +279,11 @@ async def test_metrics_and_debug_routes():
                 assert r.status == 200
                 assert (await r.json())["traceEvents"]
             async with s.get(f"{base}/debug/compiles") as r:
-                assert r.status == 404
+                assert r.status == 200
+                ledger = await r.json()
+                assert {"builds_total", "builds_post_warmup", "build_ms",
+                        "warmup_build_ms", "by_kind", "recent"} <= set(ledger)
+                assert set(ledger["by_kind"]) == {"nvcc", "g++", "launch_shape"}
             # Single node (kv.kind memory): the multi-node planes are off.
             async with s.get(f"{base}/debug/fleet") as r:
                 assert await r.json() == {"enabled": False, "fleet": None}

@@ -147,7 +147,24 @@ class _NativeRTP:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
+        self.lib.gather_ranges.restype = ctypes.c_int64
+        self.lib.gather_ranges.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
         self.native = True
+
+    def gather_ranges(self, blob: np.ndarray, starts, lens) -> bytes:
+        """bytes(blob[s0:s0+l0] + blob[s1:s1+l1] + ...) in one C call."""
+        blob = np.ascontiguousarray(blob, np.uint8)
+        starts_c = np.ascontiguousarray(starts, np.int64)
+        lens_c = np.ascontiguousarray(lens, np.int64)
+        out = np.empty(int(lens_c.sum()), np.uint8)
+        n = self.lib.gather_ranges(
+            blob.ctypes.data, starts_c.ctypes.data, lens_c.ctypes.data,
+            len(starts_c), out.ctypes.data,
+        )
+        return out[: int(n)].tobytes()
 
     def parse_batch(
         self,
@@ -530,6 +547,13 @@ class NativeEgress:
         )
         self.lib.egress_pool_ensure.restype = None
         self.lib.egress_pool_ensure.argtypes = [ctypes.c_int]
+        self.lib.egress_pool_size.restype = ctypes.c_int32
+        self.lib.egress_pool_size.argtypes = []
+        self.lib.send_raw.restype = ctypes.c_int64
+        self.lib.send_raw.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
         self.lib.rx_batch.restype = ctypes.c_int32
         self.lib.rx_batch.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
@@ -678,6 +702,10 @@ class NativeEgress:
         """Pre-warm the persistent shard worker pool (idempotent)."""
         self.lib.egress_pool_ensure(int(n))
 
+    def pool_size(self) -> int:
+        """Worker threads of the process's egress pool (it only grows)."""
+        return int(self.lib.egress_pool_size())
+
     def send_sharded(self, fd, shard_lo, shard_hi, slab, pay_off, pay_len,
                      marker, pt, vp8, sn, ts, ssrc, pid, tl0, kidx, ip,
                      port, seal, key_idx, keys, key_ids, counters, rooms,
@@ -812,6 +840,26 @@ class NativeEgress:
         )
         del keep
         return out, out_off, out_len, int(sent), int(built[0])
+
+
+    def send_raw(self, fd, blob, offs, lens, ips, ports) -> int:
+        """GSO/sendmmsg pre-built datagrams (blob + per-entry offset/
+        length/destination arrays). Load generators and relays use this to
+        put wire-ready bytes on the network in a handful of syscalls.
+        Returns the datagrams handed to the kernel (0 when fd < 0)."""
+        blob_arr = (
+            blob if isinstance(blob, np.ndarray)
+            else np.frombuffer(blob, np.uint8)
+        )
+        offs_c = np.ascontiguousarray(offs, np.int64)
+        lens_c = np.ascontiguousarray(lens, np.int32)
+        ips_c = np.ascontiguousarray(ips, np.uint32)
+        ports_c = np.ascontiguousarray(ports, np.uint16)
+        return int(self.lib.send_raw(
+            int(fd), blob_arr.ctypes.data, len(offs_c),
+            offs_c.ctypes.data, lens_c.ctypes.data,
+            ips_c.ctypes.data, ports_c.ctypes.data,
+        ))
 
 
 def _express_smoke(eg: "NativeEgress") -> str | None:
@@ -1005,6 +1053,36 @@ def _load_versioned(build, cls, name):
     except OSError as e:
         _refuse(name, e)
         return None
+
+
+def native_smoke() -> list[str]:
+    """Strict build and ABI check of every native library: build each
+    from its source (or reuse the digest-keyed build), load it, check its
+    ABI version and run its self-tests (the egress library's includes the
+    express path's byte parity). Returns the problems, [] when all three
+    are healthy. Unlike the loaders behind `rtp`, `egress` and `munge`,
+    this falls back to nothing: a library that does not load is a
+    problem here, not a slower path."""
+    failures: list[str] = []
+    so = _compile("rtp_parser", "rtp")
+    if so is None:
+        failures.append("rtp_parser: build failed")
+    else:
+        try:
+            _NativeRTP(so)
+        except OSError as e:
+            failures.append(f"rtp_parser: {e}")
+    for name, build, cls in (("egress", _build_egress, NativeEgress),
+                             ("munge", _build_munge, NativeMunge)):
+        so = build()
+        if so is None:
+            failures.append(f"{name}: build failed")
+            continue
+        try:
+            cls(so)
+        except OSError as e:
+            failures.append(f"{name}: {e}")
+    return failures
 
 
 _LOADERS = {

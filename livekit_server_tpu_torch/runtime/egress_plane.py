@@ -41,8 +41,9 @@ per-shard timing/throughput out of the native calls for telemetry
 PlaneRuntime (munge sharding) and UDPMediaTransport (send sharding).
 
 A copy of the JAX package's runtime/egress_plane.py, with the express
-lane's send accounting (`record_express`) and without the plane
-microbench.
+lane's send accounting (`record_express`), the per-shard sums of every
+sharded send, and the plane microbench (`bench_plane`,
+`bench_plane_scaling`).
 """
 
 from __future__ import annotations
@@ -288,3 +289,157 @@ class EgressPlane:
                 "last_munge": self.last_munge,
             }
 
+
+
+def bench_plane(
+    plane: EgressPlane,
+    n_rooms: int = 64,
+    subs_per_room: int = 16,
+    tracks: int = 2,
+    pkts: int = 4,
+    payload_len: int = 1100,
+    sealed: bool = True,
+    seconds: float = 2.0,
+    fd: int = -1,
+) -> dict[str, Any]:
+    """Pure egress-plane microbench: drive the native sharded walk on a
+    synthetic wire-shaped batch (no device step, no ingest) and measure
+    datagrams/s through assemble+seal(+send when fd >= 0). This isolates
+    the number the plane exists to move — the host packet walk — from
+    tick scheduling; the bench's wire sections (tools/bench_wire.py)
+    measure the end-to-end version of the same number.
+
+    `shard_built` is what each shard built over the run: with fd < 0 the
+    native call sends nothing and a shard's `sent` is 0, so the built
+    counts are what shows that every shard of the plan ran."""
+    from livekit_server_tpu_torch import native
+
+    if native.egress is None:
+        return {"error": "native egress unavailable"}
+    rng = np.random.default_rng(7)
+    n = n_rooms * subs_per_room * tracks * pkts
+    slab = rng.integers(0, 256, pkts * payload_len, np.uint8)
+    # Destination-major (room, sub, track, k) — the udp staging order.
+    rr = np.repeat(np.arange(n_rooms, dtype=np.int32), subs_per_room * tracks * pkts)
+    ss = np.tile(
+        np.repeat(np.arange(subs_per_room, dtype=np.int32), tracks * pkts), n_rooms
+    )
+    tt = np.tile(np.repeat(np.arange(tracks, dtype=np.int32), pkts),
+                 n_rooms * subs_per_room)
+    kk = np.tile(np.arange(pkts, dtype=np.int32), n_rooms * subs_per_room * tracks)
+    slot = tt * pkts + kk
+    flat_rtk = rr.astype(np.int64) * (tracks * pkts) + slot
+    grp, grp_slots = plane.group_slots(flat_rtk, tt, kk, tracks, pkts)
+    if grp is None:
+        grp = np.full(n, -1, np.int32)
+        grp_slots = 0
+    lo, hi = plane.entry_plan(rr)
+    n_sess = n_rooms * subs_per_room
+    args = dict(
+        shard_lo=lo, shard_hi=hi, slab=slab,
+        pay_off=(kk.astype(np.int64) * payload_len),
+        pay_len=np.full(n, payload_len, np.int32),
+        marker=(kk == pkts - 1).astype(np.uint8),
+        pt=np.full(n, 96, np.uint8), vp8=np.ones(n, np.uint8),
+        sn=(np.arange(n) & 0xFFFF).astype(np.uint16),
+        ts=(kk.astype(np.uint32) * 3000),
+        ssrc=(rr.astype(np.uint32) << 16) | ss.astype(np.uint32),
+        pid=np.full(n, 77, np.int32), tl0=np.full(n, 3, np.int32),
+        kidx=np.full(n, 1, np.int32),
+        ip=np.full(n, 0x7F000001, np.uint32),
+        port=np.full(n, 50555, np.uint16),
+        seal=np.full(n, 1 if sealed else 0, np.uint8),
+        key_idx=(rr * subs_per_room + ss).astype(np.int32),
+        keys=rng.integers(0, 256, (n_sess, 16), np.uint8),
+        key_ids=np.arange(1, n_sess + 1, dtype=np.uint32),
+        rooms=rr, grp=grp, grp_slots=grp_slots,
+    )
+    plane.warm()
+    counters = np.zeros(n, np.uint64)
+    shard_built = np.zeros(len(lo), np.int64)
+    ctr_base = 0
+    iters = 0
+    datagrams = 0
+    t0 = time.perf_counter()
+    deadline = t0 + seconds
+    while time.perf_counter() < deadline:
+        # Fresh counters every pass: nonces must never repeat per session.
+        counters[:] = np.uint64(ctr_base) + kk.astype(np.uint64)
+        ctr_base += pkts
+        out, out_off, out_len, sent, s_sent, s_built, s_ns = (
+            native.egress.send_sharded(fd=fd, counters=counters, **args)
+        )
+        plane.record_send(n, int((grp >= 0).sum()), sent, lo, hi,
+                          s_sent, s_built, s_ns)
+        shard_built += s_built
+        datagrams += sent
+        iters += 1
+    wall = time.perf_counter() - t0
+    return {
+        "entries_per_call": n,
+        "iters": iters,
+        "datagrams": datagrams,
+        "wall_s": round(wall, 3),
+        "pps": round(datagrams / wall, 1) if wall > 0 else 0.0,
+        "shards": plane.shards,
+        "shard_built": [int(x) for x in shard_built],
+        "grouped_pct": round(100.0 * float((grp >= 0).mean()), 1),
+        "sealed": sealed,
+        "bytes_per_dgram": payload_len + 12 + (30 if sealed else 0),
+    }
+
+
+def bench_plane_scaling(
+    payload_len: int = 1100,
+    sealed: bool = True,
+    seconds_per_point: float = 1.5,
+    max_shards: int = 0,
+    **shape: Any,
+) -> dict[str, Any]:
+    """pps vs shard count on THIS host: one bench_plane point per shard
+    count (1, 2, 4, ... up to the core budget). Room-aligned shards share
+    no state, so an N-core host should scale the sealed walk near
+    linearly until the memory bus saturates — the curve makes the actual
+    knee visible instead of leaving "multiply by cores" as an untested
+    claim. On a 1-CPU host this degenerates to the single-shard point
+    (flagged in the result).
+
+    The native pool is one a process and only grows, so a point of k
+    shards may run on a pool of more workers: each point carries the
+    pool's size after it, and fails unless each of its k shards built
+    entries (a k-shard plan that ran fewer shards would measure fewer
+    cores than it claims)."""
+    from livekit_server_tpu_torch import native
+
+    cores = os.cpu_count() or 1
+    budget = max_shards or min(cores, 8)
+    ks: list[int] = []
+    k = 1
+    while k <= budget:
+        ks.append(k)
+        k *= 2
+    if budget not in ks:
+        ks.append(budget)
+    points = []
+    for k in ks:
+        ep = EgressPlane(k)
+        r = bench_plane(
+            ep, payload_len=payload_len, sealed=sealed,
+            seconds=seconds_per_point, **shape,
+        )
+        if "error" in r:
+            return {"error": r["error"], "cores": cores}
+        built = r["shard_built"]
+        if len(built) != k or not all(built):
+            return {"error": f"{k} shards planned, built by shard {built}",
+                    "cores": cores}
+        points.append({"shards": k, "pps": r["pps"], "shard_built": built,
+                       "pool_size": native.egress.pool_size()})
+    base = points[0]["pps"] or 1.0
+    return {
+        "cores": cores,
+        "single_core_rig": cores <= 1,
+        "sealed": sealed,
+        "points": points,
+        "speedup": [round(p["pps"] / base, 2) for p in points],
+    }

@@ -32,7 +32,19 @@ NACK_COUNT_CAP = 8
 
 def _gather_ranges(blob: np.ndarray, starts: np.ndarray, lens: np.ndarray) -> bytes:
     """Concatenate blob[starts[i] : starts[i] + lens[i]] for all i in one
-    vectorized gather."""
+    call: the native memcpy loop (native/csrc/rtp_parser.cpp
+    gather_ranges) when the library loaded, else `_gather_ranges_plain`,
+    which gives the same bytes."""
+    from livekit_server_tpu_torch import native
+
+    rtp = native.rtp
+    if getattr(rtp, "native", False):
+        return rtp.gather_ranges(blob, starts, lens)
+    return _gather_ranges_plain(blob, starts, lens)
+
+
+def _gather_ranges_plain(blob: np.ndarray, starts: np.ndarray, lens: np.ndarray) -> bytes:
+    """The numpy form of `_gather_ranges`: one vectorized gather."""
     total = int(lens.sum())
     if total == 0:
         return b""

@@ -24,6 +24,15 @@ runtime/trace.py ring; served at /debug/trace (service/server.py).
 
     python -m livekit_server_tpu_torch.telemetry.trace_export --selftest [--device cpu]
     python -m livekit_server_tpu_torch.telemetry.trace_export --validate trace.json
+    python -m livekit_server_tpu_torch.telemetry.trace_export --url http://127.0.0.1:7880 \
+        [--ticks 120] [-o trace.json]
+
+`--url` fetches /debug/trace from a running node, writes it to a file
+loadable in ui.perfetto.dev or chrome://tracing, prints the sampled
+wire-stage sidecar and validates it (`fetch`; `python -m
+livekit_server_tpu_torch.tools.trace` is the same CLI with the fetch as
+its default). Exit codes: 0 ok, 1 validation problems or a failed fetch,
+2 bad usage.
 """
 
 from __future__ import annotations
@@ -282,13 +291,56 @@ def selftest(ticks: int = 6, device="cuda") -> list[str]:
     return problems
 
 
-def main(argv: list[str] | None = None) -> int:
+def fetch(url: str, ticks: int = 120, out: str = "trace.json") -> int:
+    """Fetch /debug/trace?ticks=N from the node at `url`, write it to
+    `out`, print its wire-stage sidecar and validate it. Returns the exit
+    code: 0 ok, 1 a failed fetch or validation problems."""
+    import sys
+    import urllib.error
+    import urllib.request
+
+    full = f"{url.rstrip('/')}/debug/trace?ticks={ticks}"
+    try:
+        with urllib.request.urlopen(full, timeout=10) as resp:
+            doc = json.load(resp)
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        print(f"fetch failed: {full}: {e}", file=sys.stderr)
+        return 1
+    events = doc.get("traceEvents", [])
+    problems = validate(events)
+    with open(out, "w", encoding="utf-8") as fh:
+        json.dump(doc, fh)
+    print(f"wrote {out}: {len(events)} events ({ticks} ticks requested)")
+    stages = (doc.get("otherData") or {}).get("wire_stages") or {}
+    for stage, s in stages.items():
+        print(f"  {stage:8s} p50={s.get('p50_ms')}ms "
+              f"p99={s.get('p99_ms')}ms n={s.get('n')}")
+    for p in problems:
+        print(p)
+    if problems:
+        print(f"validation: {len(problems)} problem(s)")
+        return 1
+    print("load it in ui.perfetto.dev or chrome://tracing")
+    return 0
+
+
+def main(argv: list[str] | None = None, default_url: str | None = None,
+         prog: str = "trace_export") -> int:
+    """The CLI (module docstring). `default_url` makes the fetch the
+    action when no other is asked for."""
     import argparse
 
     ap = argparse.ArgumentParser(
-        prog="trace_export",
-        description="validate or self-test the trace export schema",
+        prog=prog,
+        description="fetch, validate or self-test the trace export",
     )
+    ap.add_argument("--url", default=default_url,
+                    help="base URL of a running node whose /debug/trace to fetch"
+                         + (f" (default {default_url})" if default_url else ""))
+    ap.add_argument("--ticks", type=int, default=120,
+                    help="newest N ticks to export (default 120)")
+    ap.add_argument("-o", "--out", default="trace.json",
+                    help="file for the fetched trace (default trace.json)")
     ap.add_argument("--selftest", action="store_true",
                     help="run a tiny traced plane and validate its export")
     ap.add_argument("--validate", metavar="FILE",
@@ -311,6 +363,12 @@ def main(argv: list[str] | None = None) -> int:
             print(p)
         print("trace selftest:", "FAILED" if problems else "ok")
         return 1 if problems else 0
+    if args.url:
+        if args.ticks <= 0:
+            ap.print_usage()
+            print(f"{prog}: --ticks must be positive")
+            return 2
+        return fetch(args.url, args.ticks, args.out)
     ap.print_help()
     return 2
 

@@ -4,7 +4,8 @@ multi-node modules copied from it included); its entry points default to
 the card and refuse to fall back to the CPU; the serving path, the
 multi-node plane among it, needs only torch, numpy and the standard
 library; so do the traffic twin and the trace export, which the card's
-machine runs without aiohttp, msgpack or PyYAML."""
+machine runs without aiohttp, msgpack or PyYAML, and the bench and
+profiling tools (tools/), which it runs as well."""
 
 import ast
 from pathlib import Path
@@ -327,3 +328,46 @@ def test_tooling_needs_only_torch_numpy_and_stdlib():
     no module outside the port, torch, numpy and the standard library."""
     outside = _loaded_outside(TOOLING_PROBE)
     assert not outside, f"the tooling imports {outside}"
+
+
+TOOLS_PROBE = PROBE_HEAD + r"""
+import asyncio, contextlib, io
+from livekit_server_tpu_torch.models import plane, synth
+from livekit_server_tpu_torch.runtime.egress_plane import EgressPlane, bench_plane
+from livekit_server_tpu_torch.tools import bench, bench_device, bench_wire, profile_tick, timing
+from livekit_server_tpu_torch.tools import trace as trace_cli
+
+dims, spec = plane.PlaneDims(2, 4, 4, 4), synth.TrafficSpec()
+assert bench_device.window_counts(dims, spec, 2, device="cpu")["fwd"] >= 0
+assert len(profile_tick.profile(dims, spec, "cpu", 1)) == 15
+assert bench_plane(EgressPlane(2), n_rooms=2, subs_per_room=2, tracks=1, pkts=2,
+                   seconds=0.05)["pps"] > 0
+w = asyncio.run(bench_wire.wire_bench(plane.PlaneDims(1, 8, 8, 6), tick_ms=5,
+                                      duration_s=0.5, warm_ticks=3, egress_shards=1,
+                                      device="cpu"))
+assert w["ticks"] > 0 and not w.get("task_errors"), w
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    assert bench.main(["--cpu", "--quick", "--rooms", "2", "--ticks", "2", "--warmup", "1"]) == 0
+assert json.loads(buf.getvalue().strip().splitlines()[-1])["value"] >= 0
+assert trace_cli.main(["--url", "http://127.0.0.1:9", "-o", "/dev/null"]) == 1
+assert timing.quantiles([1.0, 2.0])["median"] == 1.5
+after = {m.split(".")[0] for m in sys.modules}
+print(json.dumps(sorted(after - before)))
+"""
+
+
+def test_bench_tools_need_only_torch_numpy_and_stdlib():
+    """The bench CLI and its device and wire sections, the tick profile,
+    the egress plane's microbench and the trace fetcher run on the CPU
+    with aiohttp, msgpack, PyYAML, cryptography and jax absent, as on the
+    card's machine, and load no module outside the port, torch, numpy and
+    the standard library; their sources import nothing else either."""
+    import sys
+
+    for path in sorted((ROOT / "livekit_server_tpu_torch" / "tools").glob("*.py")):
+        names = {n.split(".")[0] for n in _imported_modules(path)}
+        outside = {n for n in names if n not in sys.stdlib_module_names
+                   and n not in ("livekit_server_tpu_torch", "numpy", "torch")}
+        assert not outside, (path.name, outside)
+    outside = _loaded_outside(TOOLS_PROBE)
+    assert not outside, f"the bench tools import {outside}"

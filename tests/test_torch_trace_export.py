@@ -2,8 +2,10 @@
 and /debug/trace: the reference's export tests on the port's ring (schema,
 span inventory, lanes, the validator rejecting broken traces, the
 self-test on the CPU), the port's Chrome events equal to the JAX
-package's on the same ring records, and /debug/trace through the port's
-aiohttp server on the CPU, its 400 on a bad `ticks` included."""
+package's on the same ring records, /debug/trace through the port's
+aiohttp server on the CPU, its 400 on a bad `ticks` included, and the
+trace CLI's `--url` fetch (`tools.trace`) against a local http.server
+serving a saved export, and against a refused connection."""
 
 import json
 
@@ -151,3 +153,62 @@ async def test_debug_trace_route():
         assert events == trace_export.to_chrome(rt.trace.snapshot(4), rt.tick_ms)
     finally:
         await srv.stop(force=True)
+
+
+def _serve_once(doc: dict):
+    """A local http.server answering /debug/trace with `doc`; returns
+    (server, the paths it was asked for)."""
+    import http.server
+    import threading
+
+    body = json.dumps(doc).encode()
+    asked: list[str] = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802
+            asked.append(self.path)
+            self.send_response(200 if self.path.startswith("/debug/trace") else 404)
+            self.send_header("Content-Type", "application/json")
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, asked
+
+
+def test_url_fetch_writes_the_file(tmp_path, capsys):
+    from livekit_server_tpu_torch.tools import trace as trace_cli
+
+    doc = json.loads(trace_export.export_json(_ring_records(6), 5))
+    doc.setdefault("otherData", {})["wire_stages"] = {
+        "device": {"p50_ms": 1.5, "p99_ms": 3.0, "n": 12}}
+    srv, asked = _serve_once(doc)
+    try:
+        out = tmp_path / "t.json"
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        assert trace_cli.main(["--url", url, "--ticks", "6", "-o", str(out)]) == 0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert asked == ["/debug/trace?ticks=6"]
+    assert json.loads(out.read_text()) == doc
+    printed = capsys.readouterr().out
+    assert f"{len(doc['traceEvents'])} events" in printed and "device" in printed
+    assert trace_export.main(["--validate", str(out)]) == 0
+
+
+def test_url_fetch_refused_exits_1(tmp_path):
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()                                # nothing listens there now
+    out = tmp_path / "t.json"
+    assert trace_export.main(["--url", f"http://127.0.0.1:{port}", "-o", str(out)]) == 1
+    assert not out.exists()
+    assert trace_export.main([]) == 2         # no action: usage

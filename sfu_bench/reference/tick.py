@@ -1,0 +1,473 @@
+"""The reference tick: the port's plain dense tick, frozen into the benchmark.
+
+A copy of `livekit_server_tpu_torch/models/plane.py`'s state and input
+trees and of `media_plane_tick` (phase 0 selection, phase 1 per-room
+core, phase 2 allocation), over the plain ops of `reference/ops/`. It
+imports nothing of the port: the benchmark holds the port's outputs
+against what this computes from the same inputs. Run it with TF32 off
+(`reference.plain_mode`); on the CPU that holds by construction.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import torch
+
+from .ops import (
+    allocation,
+    audio,
+    bwe,
+    pacer,
+    quality,
+    red,
+    rtpstats,
+    scanops,
+    selector,
+    streamtracker,
+)
+from .ops._device import resolve
+
+MAX_LAYERS = 3
+MAX_TEMPORAL = 4
+SPEAKER_TOP_K = 3
+SLAB_WINDOW = 64        # ticks of payload history the host retains for RTX
+PAD_MAX = 8             # max probe-padding packets per subscriber per tick
+TEMPORAL_FRACTIONS = (0.45, 0.65, 0.85, 1.0)
+
+
+class PlaneDims(NamedTuple):
+    rooms: int = 1
+    tracks: int = 4        # per room
+    pkts: int = 4          # per track per tick
+    subs: int = 4          # per room
+
+
+class TrackMeta(NamedTuple):
+    """Host-written per-track control tensors, [R, T] bool."""
+
+    is_video: torch.Tensor
+    published: torch.Tensor
+    pub_muted: torch.Tensor
+    is_svc: torch.Tensor
+
+
+class SubControl(NamedTuple):
+    """Host-written per-(track, subscriber) control tensors, [R, T, S]."""
+
+    subscribed: torch.Tensor    # bool
+    sub_muted: torch.Tensor     # bool
+    max_spatial: torch.Tensor   # int32
+    max_temporal: torch.Tensor  # int32
+
+
+class PlaneState(NamedTuple):
+    """Full media-plane state, leading axis [R]."""
+
+    meta: TrackMeta
+    ctrl: SubControl
+    stats: rtpstats.StreamStats          # [R, T*L]
+    audio_state: audio.AudioLevelState   # [R, T]
+    sel: selector.SelectorState          # [R, T, S]
+    bwe_state: bwe.BWEState              # [R, S]
+    delay_bwe: bwe.DelayBWEState         # [R, S]
+    tracker: streamtracker.TrackerState  # [R, T*L]
+    pacer_state: pacer.PacerState        # [R, S]
+    red_state: red.REDState              # [R, T, D]
+    temporal_bytes: torch.Tensor         # [R, T, L, MAX_TEMPORAL] float32
+
+
+class TickInputs(NamedTuple):
+    """Per-tick ingest tensors (host-packed; static shapes). Field
+    meanings as in the reference's TickInputs."""
+
+    # Packet fields, [R, T, K]:
+    sn: torch.Tensor
+    ts: torch.Tensor
+    layer: torch.Tensor
+    temporal: torch.Tensor
+    keyframe: torch.Tensor
+    layer_sync: torch.Tensor
+    begin_pic: torch.Tensor
+    end_frame: torch.Tensor
+    pid: torch.Tensor
+    tl0: torch.Tensor
+    keyidx: torch.Tensor
+    size: torch.Tensor
+    frame_ms: torch.Tensor
+    audio_level: torch.Tensor
+    arrival_rtp: torch.Tensor
+    ts_jump: torch.Tensor
+    valid: torch.Tensor
+    # Per-subscriber feedback, [R, S]:
+    estimate: torch.Tensor
+    estimate_valid: torch.Tensor
+    nacks: torch.Tensor
+    pub_rtt_ms: torch.Tensor   # [R, T] float32
+    fb_delay_ms: torch.Tensor
+    fb_recv_bps: torch.Tensor
+    fb_valid: torch.Tensor
+    fb_enabled: torch.Tensor
+    sub_reset: torch.Tensor
+    pad_num: torch.Tensor
+    pad_track: torch.Tensor
+    # Scalars (int32):
+    tick_ms: torch.Tensor
+    roll_quality: torch.Tensor
+
+
+class TickOutputs(NamedTuple):
+    """Egress + signal tensors pulled by the host after each tick; field
+    order is the flat output buffer's order."""
+
+    send_bits: torch.Tensor       # [R, T, K, W] int32
+    drop_bits: torch.Tensor       # [R, T, K, W] int32
+    switch_bits: torch.Tensor     # [R, T, K, W] int32
+    need_keyframe: torch.Tensor   # [R, T, S] bool
+    speaker_levels: torch.Tensor  # [R, SPEAKER_TOP_K] float32
+    speaker_tracks: torch.Tensor  # [R, SPEAKER_TOP_K] int32
+    congested: torch.Tensor       # [R, S] bool
+    target_layers: torch.Tensor   # [R, S, T] int32
+    fwd_packets: torch.Tensor     # [R] int32
+    fwd_bytes: torch.Tensor       # [R] int32
+    track_mos: torch.Tensor       # [R, T] float32
+    track_quality: torch.Tensor   # [R, T] int32
+    sub_quality: torch.Tensor     # [R, S] int32
+    layer_live: torch.Tensor      # [R, T, L] int32
+    layer_fps: torch.Tensor       # [R, T, L] float32
+    track_loss_pct: torch.Tensor  # [R, T] float32
+    track_jitter_ms: torch.Tensor  # [R, T] float32
+    track_bps: torch.Tensor       # [R, T] float32
+    committed_bps: torch.Tensor   # [R, S] float32
+    pacer_allowed: torch.Tensor   # [R, S] float32
+    deficient: torch.Tensor       # [R, S] bool
+    red_sn: torch.Tensor          # [R, T, K, D] int32
+    red_off: torch.Tensor         # [R, T, K, D] int32
+    red_ok: torch.Tensor          # [R, T, K, D] bool
+
+
+def _tile(x: torch.Tensor, *lead: int) -> torch.Tensor:
+    return x.expand(*lead, *x.shape).clone()
+
+
+def init_state(dims: PlaneDims, device="cuda") -> PlaneState:
+    """Zeroed plane state (no track published) on `device`."""
+    dev = resolve(device)
+    R, T, K, S = dims
+    L = MAX_LAYERS
+
+    def tile(tree, *lead):
+        return type(tree)(*[_tile(x, *lead) for x in tree])
+
+    def z(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    b = torch.bool
+    return PlaneState(
+        meta=TrackMeta(z((R, T), b), z((R, T), b), z((R, T), b), z((R, T), b)),
+        ctrl=SubControl(
+            subscribed=z((R, T, S), b),
+            sub_muted=z((R, T, S), b),
+            max_spatial=torch.full((R, T, S), MAX_LAYERS - 1, dtype=torch.int32, device=dev),
+            max_temporal=torch.full((R, T, S), 3, dtype=torch.int32, device=dev),
+        ),
+        stats=tile(rtpstats.init_state(T * L, device=dev), R),
+        audio_state=tile(audio.init_state(T, device=dev), R),
+        sel=tile(selector.init_state(S, device=dev), R, T),
+        bwe_state=tile(bwe.init_state(S, device=dev), R),
+        delay_bwe=tile(bwe.delay_init_state(S, device=dev), R),
+        tracker=tile(streamtracker.init_state(T * L, device=dev), R),
+        pacer_state=tile(pacer.init_state(S, device=dev), R),
+        red_state=tile(red.init_state(T, device=dev), R),
+        temporal_bytes=z((R, T, L, MAX_TEMPORAL), torch.float32),
+    )
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, tuple):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
+
+
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """Dotted field paths of a NamedTuple tree, in `tree_leaves` order
+    (e.g. "pacer_state.tokens")."""
+    if isinstance(tree, tuple):
+        return [n for f, sub in zip(tree._fields, tree)
+                for n in leaf_names(sub, f"{prefix}{f}.")]
+    return [prefix[:-1]]
+
+
+
+def tree_map(fn, tree, *rest):
+    """Apply fn leaf by leaf over NamedTuple trees of the same structure."""
+    if isinstance(tree, tuple):
+        return type(tree)(*[tree_map(fn, *subs) for subs in zip(tree, *rest)])
+    return fn(tree, *rest)
+
+
+
+def tree_unflatten(template, leaves):
+    """A tree shaped like `template` holding `leaves` in `tree_leaves`
+    order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, tuple):
+            return type(node)(*[build(sub) for sub in node])
+        return next(it)
+
+    return build(template)
+
+
+@functools.lru_cache(maxsize=None)
+def _temporal_fractions(device: torch.device) -> torch.Tensor:
+    """TEMPORAL_FRACTIONS on `device`, made once per device (a host→device
+    copy inside the tick would stall the stream)."""
+    return torch.tensor(TEMPORAL_FRACTIONS, dtype=torch.float32, device=device)
+
+
+def route_stats(is_svc, layer, sn, ts, size, arrival_rtp, valid, begin_pic):
+    """Sections 1–2 routing of the phase-1 core: each packet's RTP-stats
+    fields one-hot routed into per-(track, layer) rows, and the tracker's
+    per-(track, layer) sums. Returns (st [R, 5, T*L, K] int32 — sn, ts,
+    size, arrival, valid — and tr [R, 3, T*L] int32 — packets, bytes,
+    frame starts).
+
+    Simulcast layers are separate RTP streams (one stats row each); an
+    SVC track's packets all fold into row 0. Routing is a one-hot select,
+    k preserved, so rows never collide. Tracker rows route by each
+    packet's TRUE spatial layer. The live-page kernel
+    (ops/paged_kernel.py) computes the same two stacks."""
+    R, T, K = sn.shape
+    L = MAX_LAYERS
+    i32 = torch.int32
+    lanes = torch.arange(L, dtype=i32, device=sn.device)
+    eff_layer = torch.where(is_svc[:, :, None], 0, layer.clamp(0, L - 1))
+    st_vals = torch.stack([sn, ts, size, arrival_rtp, valid.to(i32)], dim=1)  # [R,5,T,K]
+    st = torch.where((eff_layer[..., None] == lanes)[:, None], st_vals[..., None], 0)
+    st = st.permute(0, 1, 2, 4, 3).reshape(R, 5, T * L, K)
+    t_lane = layer.clamp(0, L - 1)[..., None] == lanes                  # [R,T,K,L]
+    ones_k = torch.ones_like(size)
+    tr_vals = torch.stack([ones_k, size, ones_k], dim=1)                # [R,3,T,K]
+    tr_pred = torch.stack([valid, valid, valid & begin_pic], dim=1)
+    routed = torch.where(t_lane[:, None] & tr_pred[..., None], tr_vals[..., None], 0)
+    return st, routed.sum(3, dtype=i32).reshape(R, 3, T * L)
+
+
+def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
+               sent_bytes_i, audio_params, bwe_params, red_enabled: bool,
+               routed_stats=None):
+    """Phase-1 core over all rooms (R leading). Returns (state', partial
+    outputs as a dict, bitrates [R, T, 4, 4] for phase 2).
+
+    `routed_stats`, when given, is `route_stats`'s (st, tr) precomputed
+    by the live-page kernel; the tick then skips its own routing."""
+    R, T, K = inp.sn.shape
+    S = state.ctrl.subscribed.shape[-1]
+    L = MAX_LAYERS
+    dev = inp.sn.device
+    i32, f32 = torch.int32, torch.float32
+    meta = state.meta
+
+    # ---- 1. RTP stats per (track, layer) stream --------------------------
+    if routed_stats is None:
+        routed_stats = route_stats(meta.is_svc, inp.layer, inp.sn, inp.ts, inp.size,
+                                   inp.arrival_rtp, inp.valid, inp.begin_pic)
+    st, tr_sums = routed_stats
+    stats = rtpstats.update_tick(state.stats, st[:, 0], st[:, 1], st[:, 2], st[:, 3],
+                                 st[:, 4] != 0)
+
+    # ---- 2. per-layer liveness + measured [4][4] bitrate matrix ----------
+    tracker, layer_status, _changed, tracker_bps, layer_fps = streamtracker.update_tick(
+        state.tracker, streamtracker.TrackerParams(), tr_sums[:, 0], tr_sums[:, 1],
+        inp.tick_ms, frames=tr_sums[:, 2],
+    )
+    layer_oh = torch.nn.functional.one_hot(
+        inp.layer.clamp(0, L - 1).long(), L).to(f32)
+    tm_oh = torch.nn.functional.one_hot(
+        inp.temporal.clamp(0, MAX_TEMPORAL - 1).long(), MAX_TEMPORAL).to(f32)
+    vbytes = torch.where(inp.valid, inp.size, 0).to(f32)
+    # An elementwise product and a sum over K, not a matmul (which could
+    # run in TF32): byte counts stay below 2^24, so the sum is exact.
+    tick_bytes_lt = (vbytes[..., None, None] * layer_oh[..., :, None]
+                     * tm_oh[..., None, :]).sum(2)                     # [R,T,L,4]
+    temporal_bytes = state.temporal_bytes * 0.9 + tick_bytes_lt * 0.1
+    tick_s = torch.clamp(inp.tick_ms.to(f32), min=1.0) / 1000.0
+    boot_bps = temporal_bytes.sum(-1) * 8.0 / tick_s                   # [R,T,L]
+    tracker_bps = tracker_bps.reshape(R, T, L)
+    layer_bps = torch.where(~meta.is_svc[:, :, None] & (tracker_bps > 0),
+                            tracker_bps, boot_bps)
+    tot = temporal_bytes.sum(-1, keepdim=True)
+    cum = scanops.cumsum_small(temporal_bytes, axis=-1)
+    frac0 = _temporal_fractions(dev)
+    frac = torch.where(tot > 0, cum / torch.clamp(tot, min=1e-6), frac0)
+    bitrates = torch.zeros((R, T, 4, 4), dtype=f32, device=dev)
+    bitrates[:, :, :L, :] = layer_bps[..., None] * frac
+    # SVC onion: an SVC entry costs the cumulative sum over spatial layers.
+    bitrates = torch.where(meta.is_svc[:, :, None, None],
+                           scanops.cumsum_small(bitrates, axis=2), bitrates)
+    bitrates = torch.where(meta.is_video[:, :, None, None], bitrates, 0.0)
+
+    # ---- BWE per subscriber (this tick's actual send counts) -------------
+    # Released slots reset their per-sub state first.
+    def reset_rows(cur, init):
+        m = inp.sub_reset
+        return type(cur)(*[
+            torch.where(m.reshape(m.shape + (1,) * (c.dim() - m.dim())), i, c)
+            for c, i in zip(cur, init)
+        ])
+
+    bwe_prev = reset_rows(state.bwe_state, bwe.init_state(S, device=dev))
+    delay_prev = reset_rows(state.delay_bwe, bwe.delay_init_state(S, device=dev))
+    pacer_prev = reset_rows(state.pacer_state, pacer.init_state(S, device=dev))
+    pkts_sent = pkts_sent_i.to(f32)
+    bwe_state, congested, _trend, budget = bwe.update_tick(
+        bwe_prev, bwe_params, inp.estimate, inp.estimate_valid, pkts_sent, inp.nacks,
+    )
+    # TWCC send-side estimate caps the budget where active.
+    delay_bwe, delay_rate, delay_over, delay_active = bwe.delay_update_tick(
+        delay_prev, bwe.DelayBWEParams(), inp.fb_delay_ms, inp.fb_recv_bps,
+        inp.fb_valid, inp.fb_enabled, pkts_sent, inp.tick_ms,
+    )
+    budget = torch.where(delay_active, torch.minimum(budget, delay_rate), budget)
+    congested = congested | delay_over
+
+    # ---- leaky-bucket egress pacing --------------------------------------
+    pacer_state, pacer_allowed, _backlog = pacer.update_tick(
+        pacer_prev, pacer.PacerParams(), sent_bytes_i.to(f32), budget, inp.tick_ms,
+    )
+
+    # ---- connection quality (scorer.go E-model) --------------------------
+    expected = rtpstats.expected_packets(stats)                        # [R,T*L]
+    exp_d = torch.clamp(expected - stats.snap_expected, min=0).reshape(R, T, L)
+    rcv_d = torch.clamp(stats.received - stats.snap_received, min=0).reshape(R, T, L)
+    exp_t = exp_d.sum(-1, dtype=i32)
+    rcv_t = rcv_d.sum(-1, dtype=i32)
+    loss_pct = torch.where(
+        exp_t > 0, 100.0 * (exp_t - rcv_t) / torch.clamp(exp_t, min=1), 0.0
+    ).to(f32)
+    jitter_rtp = (stats.jitter_q4 >> 4).reshape(R, T, L).amax(-1)
+    clock_khz = torch.where(meta.is_video, 90.0, 48.0)
+    jitter_ms = jitter_rtp.to(f32) / clock_khz
+    has_pkts = (rcv_t > 0) & meta.published
+    track_mos, track_q = quality.connection_quality(
+        loss_pct, inp.pub_rtt_ms, jitter_ms, has_pkts
+    )
+    # A pub-muted track legitimately sends nothing: not LOST.
+    track_mos = torch.where(meta.pub_muted, 5.0, track_mos)
+    track_q = torch.where(meta.pub_muted, quality.QUALITY_EXCELLENT, track_q)
+    track_q = torch.where(meta.published, track_q, quality.QUALITY_LOST)
+    roll = inp.roll_quality > 0
+    stats = stats._replace(
+        snap_received=torch.where(roll, stats.received, stats.snap_received),
+        snap_expected=torch.where(roll, expected, stats.snap_expected),
+    )
+
+    # ---- RED encapsulation plan (audio only) -----------------------------
+    is_audio_pkt = inp.valid & ~meta.is_video[:, :, None]
+    if red_enabled:
+        red_state, red_sn, red_off, _red_len, red_ok = red.encode_plan_tick(
+            state.red_state, inp.sn, inp.ts, inp.size, is_audio_pkt,
+        )
+    else:
+        red_state = state.red_state
+        shape = (R, T, 0, red.RED_DISTANCE)
+        red_sn = torch.zeros(shape, dtype=i32, device=dev)
+        red_off = torch.zeros(shape, dtype=i32, device=dev)
+        red_ok = torch.zeros(shape, dtype=torch.bool, device=dev)
+
+    # ---- audio levels + active speakers ----------------------------------
+    audio_state, linear, is_active = audio.observe_tick(
+        state.audio_state, audio_params,
+        torch.where(is_audio_pkt, inp.audio_level, 127), inp.frame_ms,
+        is_audio_pkt, inp.tick_ms,
+    )
+    k = min(SPEAKER_TOP_K, T)
+    spk_levels, spk_tracks = audio.top_speakers(
+        torch.where(is_active & meta.published, linear, 0.0), k
+    )
+    if k < SPEAKER_TOP_K:
+        pad = SPEAKER_TOP_K - k
+        spk_levels = torch.nn.functional.pad(spk_levels, (0, pad))
+        spk_tracks = torch.nn.functional.pad(spk_tracks, (0, pad), value=-1)
+
+    new_state = state._replace(
+        stats=stats, audio_state=audio_state, bwe_state=bwe_state,
+        delay_bwe=delay_bwe, tracker=tracker, pacer_state=pacer_state,
+        red_state=red_state, temporal_bytes=temporal_bytes,
+    )
+    outputs = dict(
+        need_keyframe=need_kf,
+        speaker_levels=spk_levels,
+        speaker_tracks=spk_tracks,
+        congested=congested,
+        track_mos=track_mos,
+        track_quality=track_q.to(i32),
+        layer_live=layer_status.reshape(R, T, L),
+        layer_fps=layer_fps.reshape(R, T, L),
+        track_loss_pct=loss_pct,
+        track_jitter_ms=jitter_ms,
+        track_bps=layer_bps.sum(-1),
+        committed_bps=budget,
+        pacer_allowed=pacer_allowed,
+        red_sn=red_sn.to(i32),
+        red_off=red_off.to(i32),
+        red_ok=red_ok,
+    )
+    return new_state, outputs, bitrates
+
+
+def media_plane_tick(state: PlaneState, inp: TickInputs,
+                     audio_params: audio.AudioLevelParams = audio.AudioLevelParams(),
+                     bwe_params: bwe.BWEParams = bwe.BWEParams(),
+                     red_enabled: bool = True):
+    """One tick of the full media plane over all rooms; returns
+    (state', TickOutputs). Runs on the device of its tensors."""
+    L = MAX_LAYERS
+    meta, ctrl = state.meta, state.ctrl
+
+    # ---- phase 0: forward decision over all rooms ------------------------
+    base = (ctrl.subscribed & ~ctrl.sub_muted
+            & (meta.published & ~meta.pub_muted)[:, :, None])         # [R,T,S]
+    (sel_state, send_bits, drop_bits, switch_bits, need_kf, pkts_sent,
+     sent_bytes, fwd_packets, fwd_bytes) = selector.decide_rooms(
+        state.sel, meta.is_svc, meta.is_video, base, inp.layer, inp.temporal,
+        inp.keyframe, inp.layer_sync, inp.end_frame, inp.valid, inp.size,
+        wire_overhead=pacer.WIRE_OVERHEAD_BYTES,
+    )
+
+    # ---- phase 1: per-room core, rooms batched ---------------------------
+    new_state, outs, bitrates = _room_tick(
+        state, inp, need_kf, pkts_sent, sent_bytes, audio_params, bwe_params,
+        red_enabled,
+    )
+
+    # ---- phase 2: allocation over all rooms → next tick's targets --------
+    video_active = meta.is_video & meta.published & ~meta.pub_muted
+    alloc_muted = ~(ctrl.subscribed & video_active[:, :, None] & ~ctrl.sub_muted)
+    target_flat, _used, deficient = allocation.allocate_budget_rooms(
+        bitrates,
+        ctrl.max_spatial.transpose(1, 2).contiguous(),
+        ctrl.max_temporal.transpose(1, 2).contiguous(),
+        alloc_muted.transpose(1, 2).contiguous(),
+        outs["committed_bps"],
+    )                                                                  # [R,S,T]
+    tgt_ts = target_flat.transpose(1, 2)                               # [R,T,S]
+    sel_state = selector.set_target(
+        sel_state,
+        allocation.spatial_of(tgt_ts).clamp(-1, L - 1).contiguous(),
+        allocation.temporal_of(tgt_ts).contiguous(),
+    )
+    any_deficient = deficient.any(-1)                                  # [R,S]
+    sub_q = torch.where(
+        outs["congested"], quality.QUALITY_POOR,
+        torch.where(any_deficient, quality.QUALITY_GOOD, quality.QUALITY_EXCELLENT),
+    ).to(torch.int32)
+    outputs = TickOutputs(
+        send_bits=send_bits, drop_bits=drop_bits, switch_bits=switch_bits,
+        target_layers=target_flat, fwd_packets=fwd_packets, fwd_bytes=fwd_bytes,
+        sub_quality=sub_q, deficient=any_deficient, **outs,
+    )
+    return new_state._replace(sel=sel_state), outputs

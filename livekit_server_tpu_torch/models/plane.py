@@ -14,6 +14,12 @@ phases:
      subscriber's budget, setting the next tick's selector targets
      (CUDA kernel csrc/budget_rooms.cu on the card).
 
+Each block of the tick opens a host-clock span where it launches its ops
+(utils/spans.py: plane.unpack, decide, rtpstats, streamtracker, bwe,
+quality, red, audio, allocate, pack, with plane.tick around decide
+through allocate), recorded only while a torch profiler records or the
+thread's flight recorder is on.
+
 The NamedTuples carry the reference's field names and order, so trees
 line up leaf by leaf with the JAX package's, and `pack_tick_outputs`
 writes the same flat int32 buffer layout `unpack_tick_outputs` reads.
@@ -49,6 +55,7 @@ from livekit_server_tpu_torch.ops import (
     streamtracker,
 )
 from livekit_server_tpu_torch.ops.bits import mask_words, unpack_bits
+from livekit_server_tpu_torch.utils import spans
 
 MAX_LAYERS = 3
 MAX_TEMPORAL = 4
@@ -365,6 +372,7 @@ def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
     meta = state.meta
 
     # ---- 1. RTP stats per (track, layer) stream --------------------------
+    t = spans.begin(spans.RTPSTATS)
     if routed_stats is None:
         routed_stats = route_stats(meta.is_svc, inp.layer, inp.sn, inp.ts, inp.size,
                                    inp.arrival_rtp, inp.valid, inp.begin_pic)
@@ -373,6 +381,7 @@ def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
                                  st[:, 4] != 0)
 
     # ---- 2. per-layer liveness + measured [4][4] bitrate matrix ----------
+    t = spans.lap(spans.RTPSTATS, t, spans.STREAMTRACKER)
     tracker, layer_status, _changed, tracker_bps, layer_fps = streamtracker.update_tick(
         state.tracker, streamtracker.TrackerParams(), tr_sums[:, 0], tr_sums[:, 1],
         inp.tick_ms, frames=tr_sums[:, 2],
@@ -404,6 +413,7 @@ def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
     bitrates = torch.where(meta.is_video[:, :, None, None], bitrates, 0.0)
 
     # ---- BWE per subscriber (this tick's actual send counts) -------------
+    t = spans.lap(spans.STREAMTRACKER, t, spans.BWE)
     # Released slots reset their per-sub state first.
     def reset_rows(cur, init):
         m = inp.sub_reset
@@ -433,6 +443,7 @@ def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
     )
 
     # ---- connection quality (scorer.go E-model) --------------------------
+    t = spans.lap(spans.BWE, t, spans.QUALITY)
     expected = rtpstats.expected_packets(stats)                        # [R,T*L]
     exp_d = torch.clamp(expected - stats.snap_expected, min=0).reshape(R, T, L)
     rcv_d = torch.clamp(stats.received - stats.snap_received, min=0).reshape(R, T, L)
@@ -459,6 +470,7 @@ def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
     )
 
     # ---- RED encapsulation plan (audio only) -----------------------------
+    t = spans.lap(spans.QUALITY, t, spans.RED)
     is_audio_pkt = inp.valid & ~meta.is_video[:, :, None]
     if red_enabled:
         red_state, red_sn, red_off, _red_len, red_ok = red.encode_plan_tick(
@@ -472,6 +484,7 @@ def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
         red_ok = torch.zeros(shape, dtype=torch.bool, device=dev)
 
     # ---- audio levels + active speakers ----------------------------------
+    t = spans.lap(spans.RED, t, spans.AUDIO)
     audio_state, linear, is_active = audio.observe_tick(
         state.audio_state, audio_params,
         torch.where(is_audio_pkt, inp.audio_level, 127), inp.frame_ms,
@@ -509,6 +522,7 @@ def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
         red_off=red_off.to(i32),
         red_ok=red_ok,
     )
+    spans.end(spans.AUDIO, t)
     return new_state, outputs, bitrates
 
 
@@ -523,6 +537,8 @@ def media_plane_tick(state: PlaneState, inp: TickInputs,
     meta, ctrl = state.meta, state.ctrl
 
     # ---- phase 0: forward decision over all rooms ------------------------
+    t_tick = spans.begin(spans.TICK)
+    t = spans.begin(spans.DECIDE)
     base = (ctrl.subscribed & ~ctrl.sub_muted
             & (meta.published & ~meta.pub_muted)[:, :, None])         # [R,T,S]
     (sel_state, send_bits, drop_bits, switch_bits, need_kf, pkts_sent,
@@ -531,6 +547,7 @@ def media_plane_tick(state: PlaneState, inp: TickInputs,
         inp.keyframe, inp.layer_sync, inp.end_frame, inp.valid, inp.size,
         wire_overhead=pacer.WIRE_OVERHEAD_BYTES,
     )
+    spans.end(spans.DECIDE, t)
 
     # ---- phase 1: per-room core, rooms batched ---------------------------
     new_state, outs, bitrates = _room_tick(
@@ -539,6 +556,7 @@ def media_plane_tick(state: PlaneState, inp: TickInputs,
     )
 
     # ---- phase 2: allocation over all rooms → next tick's targets --------
+    t = spans.begin(spans.ALLOCATE)
     video_active = meta.is_video & meta.published & ~meta.pub_muted
     alloc_muted = ~(ctrl.subscribed & video_active[:, :, None] & ~ctrl.sub_muted)
     target_flat, _used, deficient = allocation.allocate_budget_rooms(
@@ -564,6 +582,8 @@ def media_plane_tick(state: PlaneState, inp: TickInputs,
         target_layers=target_flat, fwd_packets=fwd_packets, fwd_bytes=fwd_bytes,
         sub_quality=sub_q, deficient=any_deficient, **outs,
     )
+    spans.end(spans.ALLOCATE, t)
+    spans.end(spans.TICK, t_tick)
     return new_state._replace(sel=sel_state), outputs
 
 
@@ -617,6 +637,7 @@ def unwire_inputs(buf: torch.Tensor, dims: PlaneDims):
 def unpack_tick_inputs(pkt, fb, tf, tick_ms, roll_quality) -> TickInputs:
     """Device-side: stacked tensors → TickInputs. Host-only fields are
     zeros: the device tick never reads them."""
+    t = spans.begin(spans.UNPACK)
     fields = {}
     for i, name in enumerate(PKT_FIELDS):
         x = pkt[i]
@@ -626,7 +647,7 @@ def unpack_tick_inputs(pkt, fb, tf, tick_ms, roll_quality) -> TickInputs:
         fields[name] = z_pkt
     z_sub = torch.zeros(fb.shape[1:], dtype=torch.int32, device=fb.device)
     as_i32 = lambda x: torch.as_tensor(x, dtype=torch.int32, device=pkt.device)  # noqa: E731
-    return TickInputs(
+    inp = TickInputs(
         **fields,
         estimate=fb[0].contiguous(),
         estimate_valid=fb[1] > 0.5,
@@ -642,6 +663,8 @@ def unpack_tick_inputs(pkt, fb, tf, tick_ms, roll_quality) -> TickInputs:
         tick_ms=as_i32(tick_ms),
         roll_quality=as_i32(roll_quality),
     )
+    spans.end(spans.UNPACK, t)
+    return inp
 
 
 def inputs_to_device(inp: TickInputs, device="cuda") -> TickInputs:
@@ -693,7 +716,10 @@ def pack_tick_outputs(out: TickOutputs) -> torch.Tensor:
             x = x.contiguous().view(torch.int32)
         return x.to(torch.int32).reshape(-1)
 
-    return torch.cat([flat(x) for x in out])
+    t = spans.begin(spans.PACK)
+    buf = torch.cat([flat(x) for x in out])
+    spans.end(spans.PACK, t)
+    return buf
 
 
 def unpack_tick_outputs(buf, dims: PlaneDims, red_enabled: bool = True) -> TickOutputs:

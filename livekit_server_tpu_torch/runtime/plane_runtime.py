@@ -291,6 +291,9 @@ class StagedTick:
     upload_t0: float = 0.0
     upload_s: float = 0.0
     device_t0: float = 0.0
+    # The device step's block spans (`SpanRecorder.last`), None when the
+    # trace ring is off.
+    blocks: Any = None
 
 
 class PlaneRuntime:
@@ -422,7 +425,7 @@ class PlaneRuntime:
             "stage_s": 0.0, "device_s": 0.0, "fanout_s": 0.0,
             "pipeline_stalls": 0,
             "ctrl_full_uploads": 0, "ctrl_delta_uploads": 0,
-            "ctrl_delta_rows": 0, "ctrl_upload_bytes": 0,
+            "ctrl_delta_rows": 0, "ctrl_upload_bytes": 0, "ctrl_upload_s": 0.0,
             # Device steps a supervisor restart abandoned (they returned
             # without committing their state).
             "abandoned_steps": 0,
@@ -435,7 +438,6 @@ class PlaneRuntime:
             # leaves on the runtime's stream).
             "express_mirrors": 0, "express_mirror_s": 0.0,
         }
-        self.recent_tick_s: deque = deque(maxlen=120)  # /debug/ticks window
         # Per-tick stage records (idx/depth/stage_ms/device_ms/fanout_ms/
         # total_ms/late + subclass extras), newest last.
         self.recent_ticks: deque = deque(maxlen=120)
@@ -678,6 +680,7 @@ class PlaneRuntime:
         with self._on_stream():
             self._upload_ctrl()
         st.upload_s = time.perf_counter() - st.upload_t0
+        self.stats["ctrl_upload_s"] += st.upload_s
 
     def _device_step(self, st: StagedTick) -> plane.TickOutputs | None:
         """The device round trip: one upload of the packed inputs, the
@@ -693,6 +696,12 @@ class PlaneRuntime:
         audits — the state the restart restored."""
         epoch = self.run_epoch
         state = self.state
+        # The trace ring's flight recorder: the tick's block spans, on
+        # this (the executor's) thread.
+        spans = None
+        if self.trace is not None:
+            spans = trace_mod.set_flight(True)
+            mark = spans.mark()
         t0 = time.perf_counter()
         st.device_t0 = t0
         if self.fault is not None:
@@ -704,6 +713,8 @@ class PlaneRuntime:
             if self.fault is not None:
                 self.fault.maybe_bitflip(state, st.idx)
             state, buf = self._step(state, st.wire)
+            if spans is not None:
+                st.blocks = spans.last(mark)
             with self._commit_lock:
                 if epoch != self.run_epoch:
                     self.stats["abandoned_steps"] += 1
@@ -811,7 +822,6 @@ class PlaneRuntime:
         result.egress_batch.t_device_end = st.device_t0 + st.device_s
         result.tick_s = st.stage_s + st.device_s + fanout_s
         result.quality_window_closed = st.roll
-        self.recent_tick_s.append(round(result.tick_s, 5))
         self.stats["ticks"] += 1
         self.completed_tick = max(self.completed_tick, st.idx)
         self.stats["fwd_packets"] += result.fwd_packets
@@ -856,6 +866,8 @@ class PlaneRuntime:
                 c0, fanout_s, send_s, st.edge_over_us, st.depth, late,
                 kernel_s=st.kernel_s,
             )
+            if st.blocks is not None:
+                self.trace.set_blocks(slot, st.blocks)
             if ep.last_send:
                 shards = ep.last_send.get("shards", ())
                 munge_ms = ep.last_munge.get("ms", ()) if ep.last_munge else ()

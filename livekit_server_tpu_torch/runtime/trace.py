@@ -10,7 +10,9 @@ dict/f-string/list construction):
   edge, per-stage start/duration pairs (stage_host with its nested
   express retier, ctrl upload, device step, fan-out, egress send), wake
   overshoot, depth, lateness, and per-egress-shard munge/send walls.
-  The port's PlaneRuntime records every tick here (`snapshot` reads it).
+  The port's PlaneRuntime records every tick here (`snapshot` reads it),
+  with the host spans of the tick's blocks inside its device step (the
+  block spans of models/plane.py, utils/spans.py, re-exported here).
 - **LatencyAttribution** — a deterministic 1-in-K sample of egress
   packets (sampled on the munged SN, so the set is stable across runs)
   whose arrival stamp is decomposed at the wire into staging / device /
@@ -34,6 +36,8 @@ import time
 from typing import Any
 
 import numpy as np
+
+from livekit_server_tpu_torch.utils.spans import NAMES, SPANS, set_flight  # noqa: F401
 
 # Egress-shard lanes a tick record can hold (EgressPlane caps at 16).
 MAX_SHARDS = 16
@@ -113,6 +117,13 @@ class TickTraceRing:
         self.n_shards = np.zeros(cap, np.int8)
         self.shard_munge_ms = np.zeros((cap, MAX_SHARDS), np.float32)
         self.shard_send_ms = np.zeros((cap, MAX_SHARDS), np.float32)
+        # Host spans of the tick's blocks (SPANS order), on this ring's
+        # clock; a duration of 0 where the block did not run.
+        self.block_t0 = np.zeros((cap, len(SPANS)), np.float64)
+        self.block_dur = np.zeros((cap, len(SPANS)), np.float64)
+        # (perf_counter s, unix epoch ns) read together: the exporter's
+        # baseTimeNanoseconds.
+        self.anchor = (time.perf_counter(), time.time_ns())
         self._pos = 0
         self.recorded = 0
 
@@ -140,6 +151,7 @@ class TickTraceRing:
         self.depth[slot] = depth
         self.late[slot] = late
         self.n_shards[slot] = 0
+        self.block_dur[slot] = 0.0
         self._pos = (slot + 1) % self.cap
         self.recorded += 1
         return slot
@@ -153,6 +165,13 @@ class TickTraceRing:
         if lane + 1 > self.n_shards[slot]:
             self.n_shards[slot] = lane + 1
 
+    def set_blocks(self, slot: int, last) -> None:
+        """The tick's block spans: `SpanRecorder.last`'s (start,
+        duration) ns pairs, SPANS order."""
+        for i, (t0, dur) in enumerate(last):
+            self.block_t0[slot, i] = t0 * 1e-9
+            self.block_dur[slot, i] = dur * 1e-9
+
     def snapshot(self, n: int | None = None) -> list[dict[str, Any]]:
         """Newest `n` records (all when None), oldest first — cold path."""
         have = min(self.recorded, self.cap)
@@ -163,7 +182,7 @@ class TickTraceRing:
             if self.idx[slot] < 0:
                 continue
             ns = int(self.n_shards[slot])
-            out.append({
+            rec = {
                 "tick": int(self.idx[slot]),
                 "edge": float(self.edge[slot]),
                 "stage_t0": float(self.stage_t0[slot]),
@@ -186,7 +205,15 @@ class TickTraceRing:
                 "shard_send_ms": [
                     float(x) for x in self.shard_send_ms[slot, :ns]
                 ],
-            })
+            }
+            ran = np.flatnonzero(self.block_dur[slot] > 0.0)
+            if len(ran):
+                rec["blocks"] = {
+                    NAMES[i]: [float(self.block_t0[slot, i]),
+                               float(self.block_dur[slot, i])]
+                    for i in ran
+                }
+            out.append(rec)
         return out
 
 

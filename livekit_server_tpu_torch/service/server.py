@@ -179,7 +179,6 @@ class LivekitServer:
             "tick_ms": rt.tick_ms,
             "stats": rt.stats,
             "pipeline_depth": 0 if rt.low_latency else 1,
-            "recent_tick_s": list(getattr(rt, "recent_tick_s", [])),
             "recent_ticks": list(getattr(rt, "recent_ticks", [])),
         }
         body["sleep_bias_us"] = round(
@@ -227,10 +226,14 @@ class LivekitServer:
             return web.json_response({"error": "ticks must be an integer"}, status=400)
         from livekit_server_tpu_torch.telemetry import trace_export
 
+        records = rt.trace.snapshot(n)
         body: dict = {
-            "traceEvents": trace_export.to_chrome(rt.trace.snapshot(n), rt.tick_ms),
+            "traceEvents": trace_export.to_chrome(records, rt.tick_ms),
             "displayTimeUnit": "ms",
         }
+        if records:
+            # ts 0 on the unix epoch: lines up with a profiler's trace.
+            body["baseTimeNanoseconds"] = trace_export.base_time_ns(records, rt.trace.anchor)
         if rt.wire_stages is not None:
             # Perfetto ignores unknown top-level keys; curl consumers get
             # the stage decomposition without a second request.

@@ -9,15 +9,24 @@ load directly:
   pid 1, one tid per pipeline lane:
     loop    — stage_host (with the express retier nested inside),
               ctrl_upload, and a tick_edge instant marker
-    device  — device_step
+    device  — device_step, with the host spans of the tick's blocks
+              (plane.unpack … plane.pack, plane.tick around decide
+              through allocate) nested inside it where the ring holds
+              them
     fanout  — fan_out (munge+assemble) and egress_send (delivery cbs)
     shard N — per-egress-shard munge/send walls, synthesized inside the
               fan-out/send windows
 
 `validate()` checks the schema the hard way (required fields, dur >= 0,
-and strict span nesting per tid — overlap without containment is a
-broken trace), and `selftest()` runs a tiny plane on the given device
-for a few ticks and validates its own export.
+strict span nesting per tid — overlap without containment is a broken
+trace — and every block span inside a device_step), and `selftest()`
+runs a tiny plane on the given device for a few ticks and validates its
+own export.
+
+Each `ts` is µs from the window's earliest stamp. Given the ring's clock
+anchor, `export_json` (and /debug/trace) also write that stamp on the
+unix epoch as `baseTimeNanoseconds`, as torch's Chrome traces do, so the
+file lines up with a profiler trace of the same ticks.
 
 Port of the JAX package's telemetry/trace_export.py over the port's
 runtime/trace.py ring; served at /debug/trace (service/server.py).
@@ -47,20 +56,32 @@ TID_FANOUT = 3
 TID_SHARD0 = 10  # shard i → tid TID_SHARD0 + i
 
 _LANE_NAMES = {TID_LOOP: "loop", TID_DEVICE: "device", TID_FANOUT: "fanout"}
+BLOCK_PREFIX = "plane."
 
 
-def to_chrome(records: list[dict[str, Any]], tick_ms: int = 0) -> list[dict]:
-    """Render trace-ring snapshot records as Chrome trace events."""
-    if not records:
-        return []
-    # Time base: earliest known timestamp in the window → ts 0.
+def time_base(records: list[dict[str, Any]]) -> float:
+    """The window's earliest known stamp (perf_counter s): ts 0."""
     t0s = []
     for r in records:
         for k in ("edge", "stage_t0", "upload_t0", "device_t0", "fanout_t0"):
             v = r.get(k, 0.0)
             if v > 0.0:
                 t0s.append(v)
-    base = min(t0s) if t0s else 0.0
+    return min(t0s) if t0s else 0.0
+
+
+def base_time_ns(records: list[dict[str, Any]], anchor: tuple[float, int]) -> int:
+    """`time_base` on the unix epoch (ns), through a (perf_counter s,
+    epoch ns) anchor read together (`TickTraceRing.anchor`)."""
+    perf_s, epoch_ns = anchor
+    return epoch_ns + round((time_base(records) - perf_s) * 1e9)
+
+
+def to_chrome(records: list[dict[str, Any]], tick_ms: int = 0) -> list[dict]:
+    """Render trace-ring snapshot records as Chrome trace events."""
+    if not records:
+        return []
+    base = time_base(records)
 
     def us(t: float) -> float:
         return round((t - base) * 1e6, 1)
@@ -109,13 +130,28 @@ def to_chrome(records: list[dict[str, Any]], tick_ms: int = 0) -> list[dict]:
                 "dur": dur_us(r.get("device_s", 0.0)),
                 "pid": 1, "tid": TID_DEVICE, "args": args,
             })
+            blocks = r.get("blocks", {})
             # Paged-kernel slice: the phase-0 decide dispatch nested at
             # the head of the device span (0 when the stock tick ran).
+            # With the block spans it sits where the live step launches
+            # it, after plane.unpack, and ends by the next block's start.
             if r.get("kernel_s", 0.0) > 0.0:
+                k0, k_s = r["device_t0"], r["kernel_s"]
+                if "plane.unpack" in blocks:
+                    k0 = sum(blocks["plane.unpack"])
+                    later = [b0 for b0, _ in blocks.values() if b0 >= k0]
+                    if later:
+                        k_s = min(k_s, min(later) - k0)
                 events.append({
                     "name": "paged_kernel", "ph": "X",
-                    "ts": us(r["device_t0"]),
-                    "dur": dur_us(r["kernel_s"]),
+                    "ts": us(k0),
+                    "dur": dur_us(k_s),
+                    "pid": 1, "tid": TID_DEVICE, "args": {"tick": tick},
+                })
+            # The tick's block spans, host clock, inside the step.
+            for name, (b0, bs) in blocks.items():
+                events.append({
+                    "name": name, "ph": "X", "ts": us(b0), "dur": dur_us(bs),
                     "pid": 1, "tid": TID_DEVICE, "args": {"tick": tick},
                 })
         f0 = r.get("fanout_t0", 0.0)
@@ -174,6 +210,7 @@ def validate(events: list[dict]) -> list[str]:
     """Schema + nesting checks; returns a list of problems (empty = ok)."""
     errors: list[str] = []
     spans: dict[tuple, list[tuple[float, float, str]]] = {}
+    steps: dict[tuple, list[tuple[float, float]]] = {}
     for i, e in enumerate(events):
         for field in ("name", "ph", "pid", "tid"):
             if field not in e:
@@ -201,6 +238,9 @@ def validate(events: list[dict]) -> list[str]:
                 (float(e["ts"]), float(e["ts"]) + float(dur),
                  str(e.get("name")))
             )
+            if e.get("name") == "device_step":
+                steps.setdefault((e.get("pid"), e.get("tid")), []).append(
+                    (float(e["ts"]), float(e["ts"]) + float(dur)))
     # Nesting: on one tid, any two overlapping spans must be contained
     # (chrome://tracing silently mis-renders partial overlap).
     EPS = 0.11  # µs: ts/dur are rounded to 0.1 µs independently
@@ -219,15 +259,25 @@ def validate(events: list[dict]) -> list[str]:
                     f"[{stack[-1][0]}, {stack[-1][1]}]"
                 )
             stack.append((s, t, name))
+    # Block spans: each inside a device_step of its lane.
+    for (pid, tid), lst in spans.items():
+        for s, t, name in lst:
+            if name.startswith(BLOCK_PREFIX) and not any(
+                    a - EPS <= s and t <= b + EPS for a, b in steps.get((pid, tid), ())):
+                errors.append(f"tid {tid}: block span {name!r} [{s}, {t}] "
+                              f"outside every device_step")
     return errors
 
 
-def export_json(records: list[dict[str, Any]], tick_ms: int = 0) -> str:
-    """Full Chrome trace JSON document for a ring snapshot."""
-    return json.dumps(
-        {"traceEvents": to_chrome(records, tick_ms),
-         "displayTimeUnit": "ms"}
-    )
+def export_json(records: list[dict[str, Any]], tick_ms: int = 0,
+                anchor: tuple[float, int] | None = None) -> str:
+    """Full Chrome trace JSON document for a ring snapshot; with the
+    ring's `anchor`, its `baseTimeNanoseconds` too."""
+    doc: dict[str, Any] = {"traceEvents": to_chrome(records, tick_ms),
+                           "displayTimeUnit": "ms"}
+    if anchor is not None and records:
+        doc["baseTimeNanoseconds"] = base_time_ns(records, anchor)
+    return json.dumps(doc)
 
 
 def selftest(ticks: int = 6, device="cuda") -> list[str]:
@@ -262,16 +312,19 @@ def selftest(ticks: int = 6, device="cuda") -> list[str]:
         problems.append(
             f"trace ring recorded {len(records)} ticks, expected {ticks}"
         )
-    doc = export_json(records, rt.tick_ms)
+    doc = export_json(records, rt.tick_ms, rt.trace.anchor if rt.trace is not None else None)
     parsed = json.loads(doc)
     events = parsed.get("traceEvents", [])
     if not events:
         problems.append("export produced no trace events")
     problems.extend(validate(events))
     names = {e.get("name") for e in events}
-    for want in ("stage_host", "device_step", "fan_out"):
+    for want in ("stage_host", "device_step", "fan_out", "plane.unpack", "plane.tick",
+                 "plane.pack"):
         if want not in names:
             problems.append(f"expected span {want!r} missing from export")
+    if records and "baseTimeNanoseconds" not in parsed:
+        problems.append("export carries no baseTimeNanoseconds")
     # Black-box round trip: emit + dump on a lane.
     rt.blackbox.emit(0, EV_QUARANTINE, 1.0)
     dumped = rt.blackbox.dump_to(0, "selftest")

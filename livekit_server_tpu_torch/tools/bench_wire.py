@@ -555,7 +555,8 @@ async def wire_bench(
         from livekit_server_tpu_torch.telemetry import trace_export
 
         with open(trace_out, "w", encoding="utf-8") as fh:
-            fh.write(trace_export.export_json(runtime.trace.snapshot(), tick_ms))
+            fh.write(trace_export.export_json(runtime.trace.snapshot(), tick_ms,
+                                                runtime.trace.anchor))
     if runtime.express is not None:
         # Express-tier wire latency (arrival-driven sends; no tick-queue
         # wait) beside the batched tier's, and the lane's own counters.

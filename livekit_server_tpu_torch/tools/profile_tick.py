@@ -1,7 +1,7 @@
 """Per-block profile of the dense media-plane tick at a given shape.
 
     python -m livekit_server_tpu_torch.tools.profile_tick --shape cfg4|northstar|default \
-        [--device cuda|cpu] [--n 8]
+        [--device cuda|cpu] [--n 8] [--trace FILE]
 
 Times the full tick and then each block of the phase-1 core
 (`models/plane.py` `_room_tick`) and of phases 0 and 2 on its own, on the
@@ -20,12 +20,19 @@ which a capture refuses. On the CPU every block is host time
 its event-timed ms beside the graph time, since the eager tick pays the
 launches: the full tick's graph time against its event time is the
 share of the step that is host launch work.
+
+`--trace FILE` instead runs the eager full tick `n` times under
+`torch.profiler` with the tick's block spans annotated (`record_function`
+ranges `plane.<block>`, models/plane.py, utils/spans.py), writes the
+profiler's Chrome trace to FILE and prints each block's median host span
+a call: the launch work the served tick pays, where the device waits.
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import statistics
 
 import numpy as np
 import torch
@@ -45,6 +52,7 @@ from livekit_server_tpu_torch.ops import (
     vp8,
 )
 from livekit_server_tpu_torch.tools.timing import event_ms, graph_ms, wall_ms
+from livekit_server_tpu_torch.utils import spans
 
 SHAPES = {
     "cfg4": (
@@ -77,21 +85,18 @@ NOT_IN_TICK = ("4. rtpmunger.munge_tick (retired from tick)",
 GRAPH_LAUNCHES = 4
 
 
-def blocks(dims: plane.PlaneDims, spec: synth.TrafficSpec, device) -> list:
-    """[(label, fn, capturable)] in the reference profile's order; each fn
-    runs its block once on a fixed state and tick (the full tick carries
-    its state from call to call, as the runtime does)."""
-    dev = resolve(device)
-    R, T, K, S = dims
-    state = synth.make_state(dims, spec, device=dev)
+def packed_tick(dims: plane.PlaneDims, spec: synth.TrafficSpec, dev) -> list:
+    """The packed inputs (pkt, fb, tf, tick_ms, roll) of one synthesized
+    tick, on `dev`."""
     traffic = synth.init_traffic(dims, spec)
-    traffic, inp_np = synth.next_tick(traffic, dims, spec, tick_index=7)
-    pkt, fb, tf, tick_ms, roll = (torch.from_numpy(np.asarray(x)).to(dev)
-                                  for x in plane.pack_tick_inputs(inp_np))
-    inp = plane.unpack_tick_inputs(pkt, fb, tf, tick_ms, roll)
-    meta, ctrl = state.meta, state.ctrl
-    out: list = []
+    _, inp_np = synth.next_tick(traffic, dims, spec, tick_index=7)
+    return [torch.from_numpy(np.asarray(x)).to(dev) for x in plane.pack_tick_inputs(inp_np)]
 
+
+def full_tick(dims: plane.PlaneDims, spec: synth.TrafficSpec, dev):
+    """The eager full tick (unpack, tick, pack) on one tick's packed
+    inputs, carrying its state from call to call, as the runtime does."""
+    pkt, fb, tf, tick_ms, roll = packed_tick(dims, spec, dev)
     carried = [synth.make_state(dims, spec, device=dev)]
 
     def full():
@@ -99,7 +104,20 @@ def blocks(dims: plane.PlaneDims, spec: synth.TrafficSpec, device) -> list:
         carried[0], o = plane.media_plane_tick(carried[0], i)
         return plane.pack_tick_outputs(o)
 
-    out.append((FULL, full, True))
+    return full
+
+
+def blocks(dims: plane.PlaneDims, spec: synth.TrafficSpec, device) -> list:
+    """[(label, fn, capturable)] in the reference profile's order; each fn
+    runs its block once on a fixed state and tick (the full tick carries
+    its state from call to call, as the runtime does)."""
+    dev = resolve(device)
+    R, T, K, S = dims
+    state = synth.make_state(dims, spec, device=dev)
+    pkt, fb, tf, tick_ms, roll = packed_tick(dims, spec, dev)
+    inp = plane.unpack_tick_inputs(pkt, fb, tf, tick_ms, roll)
+    meta, ctrl = state.meta, state.ctrl
+    out: list = [(FULL, full_tick(dims, spec, dev), True)]
 
     # ---- phase 0 on the tick's inputs; its outputs feed phases 1 and 2 ----
     base = (ctrl.subscribed & ~ctrl.sub_muted
@@ -287,6 +305,34 @@ def profile(dims: plane.PlaneDims, spec: synth.TrafficSpec, device="cuda", n: in
     return res
 
 
+def trace(dims: plane.PlaneDims, spec: synth.TrafficSpec, path: str, device="cuda",
+          n: int = 8) -> dict[str, float]:
+    """The eager full tick `n` times under torch.profiler, its block spans
+    annotated; writes the Chrome trace to `path`. Returns {span: median
+    host ms a call} (`spans.SPANS`)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    dev = resolve(device)
+    full = full_tick(dims, spec, dev)
+    for _ in range(2):          # kernel builds and the allocator's first blocks
+        full()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    rec = spans.recorder()
+    rec.annotate = True
+    try:
+        with torch_profile(activities=acts) as prof:
+            for _ in range(n):
+                full()
+                sync()
+    finally:
+        rec.annotate = False
+    prof.export_chrome_trace(path)
+    return {name: statistics.median(d for _, d in rec.calls(i)[-n:]) / 1e6
+            for i, name in enumerate(spans.SPANS)}
+
+
 def blocks_sum(res: dict[str, float]) -> float:
     """Sum of the blocks that run inside the tick (the full tick and the
     retired and whole-tick variants left out)."""
@@ -299,8 +345,20 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", default="cfg4", choices=list(SHAPES))
     ap.add_argument("--n", type=int, default=8, help="timed calls (graph replays) a block")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", metavar="FILE",
+                    help="profile the eager full tick with its block spans and write the "
+                         "Chrome trace here")
     args = ap.parse_args(argv)
     dims, spec = SHAPES[args.shape]
+    if args.trace:
+        med = trace(dims, spec, args.trace, args.device, args.n)
+        print(f"shape={args.shape} dims={tuple(dims)} device={args.device} "
+              f"trace={args.trace} ({args.n} ticks)")
+        for name, ms in med.items():
+            print(f"plane.{name:14s} {ms:9.3f} ms  (median host span a call)")
+        blocks_ms = sum(ms for name, ms in med.items() if name != "tick")
+        print(f"{'sum of the blocks':20s} {blocks_ms:9.3f} ms")
+        return 0
     detail: dict = {}
     res = profile(dims, spec, args.device, args.n, detail)
     print(f"shape={args.shape} dims={tuple(dims)} device={args.device}")

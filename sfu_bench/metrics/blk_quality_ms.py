@@ -1,0 +1,10 @@
+"""Median over the traced stretch of the host span of `plane.quality` a
+call, in ms (expected and received deltas, loss, jitter, MOS, snapshots;
+models/plane.py): the launch work the host does for that block of the eager
+tick (sfu_bench/blockspans.py)."""
+
+from sfu_bench import blockspans
+
+
+def read(rec):
+    return blockspans.block_ms(rec, "quality")

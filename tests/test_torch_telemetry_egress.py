@@ -8,7 +8,14 @@ families carry the same label sets, the count-valued gauges (entries,
 grouped entries, datagrams, express datagrams, sent per shard, shards)
 are equal, and the ms-valued gauges and the pps are present and not
 negative. Its own file: one test, one JAX tick compile.
+
+The reference runs on its native egress library, as its served path does
+(`reference_on_native_egress`): without it the JAX transport sends
+through its pure-Python path, which counts no datagrams in the egress
+plane, and the counts could not agree.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -16,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from livekit_server_tpu import native as jnative  # noqa: E402
 from livekit_server_tpu.runtime import crypto as jcrypto, udp as judp  # noqa: E402
 from livekit_server_tpu.telemetry.service import TelemetryService as JTelemetry  # noqa: E402
 from livekit_server_tpu_torch.runtime import crypto as tcrypto, udp as tudp  # noqa: E402
@@ -32,6 +40,27 @@ TIMES = ("livekit_host_egress_pps", "livekit_egress_send_ms_total",
          "livekit_egress_munge_ms_total", "livekit_egress_shard_busy_ms_total")
 
 
+def reference_on_native_egress(monkeypatch) -> None:
+    """Bind the JAX transport to its native egress (and munge) library
+    where this process loaded none. On a fresh checkout parallel test
+    workers build the JAX package's libraries into the same files at once,
+    writing them in place; a worker that imported the package while a
+    file was half written falls back to the pure-Python paths for its
+    life. Load again, once the build is whole."""
+    for _ in range(3):
+        if judp.native_egress is not None:
+            break
+        lib = jnative._load_egress()
+        if lib is not None:
+            monkeypatch.setattr(judp, "native_egress", lib)
+            monkeypatch.setattr(jnative, "egress", lib)
+        else:
+            time.sleep(1.0)
+    assert judp.native_egress is not None, "the JAX package's native egress did not load"
+    if jnative.munge is None:
+        monkeypatch.setattr(jnative, "munge", jnative._load_munge())
+
+
 def egress_samples(text: str) -> dict:
     """{(family, labels): value} of the egress plane's families."""
     out = {}
@@ -45,6 +74,7 @@ def egress_samples(text: str) -> dict:
 
 async def test_egress_metrics_match_reference(monkeypatch):
     clock = Clock()
+    reference_on_native_egress(monkeypatch)
     install(monkeypatch, judp, jcrypto, clock)
     ref = Node("jax")
     ref.rm.telemetry = JTelemetry(ref.cfg)

@@ -5,6 +5,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--profile]
 
+Every launch check below takes its expected counts from `dense_launches`
+and `paged_launches`: each stock tick launches B1 (decide_rooms), B2
+(allocate_budget_rooms) and the RTP-stats kernel (rtpstats_rooms) once, and
+a paged live step B3 (paged_kernel) and B2 once.
+
 Phases (any failure exits non-zero; about fifteen minutes on an H100):
 
   1. build    — compile every CUDA kernel with nvcc (one process per
@@ -220,7 +225,7 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
                 hand kernels: output shapes and dtypes equal to the
                 committed analysis/devicecheck_baseline.json, the in-place
                 contract held with the card's storages, and each of the
-                three kernels launched;
+                four kernels launched;
   5i. bench   — the port's bench and profiling tools
                 (livekit_server_tpu_torch/tools/, the egress plane's
                 microbench): (a) the bench's device window
@@ -257,14 +262,15 @@ Phases (any failure exits non-zero; about fifteen minutes on an H100):
                 PAGED_TIMING_DIMS at full occupancy and after releasing half
                 the rooms; each kernel's own time beside its byte bound and
                 its plain version's time, at every launch shape of each
-                path: decide_rooms and allocate_budget_rooms on the
-                north-star tick's operands, paged_kernel on a live step's
+                path: decide_rooms, allocate_budget_rooms and
+                rtpstats_rooms on the north-star tick's operands,
+                paged_kernel on a live step's
                 at full and at half occupancy (65536 and 32768 grid steps),
                 allocate_budget_rooms ([65536, 8, 64]) on the full-pool
                 live step's (each first held equal to its plain version), and
-                decide_rooms and allocate_budget_rooms at the dead-page
-                key's one-page shape (each first held equal to its plain
-                version). A
+                decide_rooms, allocate_budget_rooms and rtpstats_rooms at
+                the dead-page key's one-page shape (each first held equal
+                to its plain version). A
                 kernel's `ms` is device time: a
                 CUDA graph of GRAPH_LAUNCHES launches of the wrapper, inputs
                 captured from a real tick, replayed between a CUDA event
@@ -383,7 +389,7 @@ from livekit_server_tpu_torch.config.config import Config, load_config, port_ove
 from livekit_server_tpu_torch.interop import dtls as dtls_mod, sdp as sdp_mod, stun as stun_mod
 from livekit_server_tpu_torch.models import paged, plane, synth
 from livekit_server_tpu_torch.ops import (
-    allocation, bwe, cuda, pacer, paged_kernel, rtpmunger, selector, svc, vp8,
+    allocation, bwe, cuda, pacer, paged_kernel, rtpmunger, rtpstats, selector, svc, vp8,
 )
 from livekit_server_tpu_torch.ops.mix import MIX_TOP_K
 from livekit_server_tpu_torch.parallel import mesh as mesh_mod
@@ -445,7 +451,27 @@ KERNELS = {
         source="livekit_server_tpu_torch/csrc/paged_kernel.cu",
         replaces="livekit_server_tpu/ops/paged_kernel.py:82",
     ),
+    "rtpstats_rooms": dict(
+        source="livekit_server_tpu_torch/csrc/rtpstats_rooms.cu",
+        replaces=None,          # XLA code in the JAX package, no Pallas kernel
+    ),
 }
+
+# The kernels a stock `_room_tick` launches once each (B1, B2 and the
+# RTP-stats kernel); a paged live step launches B3 and B2 alone.
+DENSE_KERNELS = ("decide_rooms", "allocate_budget_rooms", "rtpstats_rooms")
+
+
+def dense_launches(ticks: int) -> dict:
+    """Expected `cuda.launches` after `ticks` stock ticks of the dense plane."""
+    return {**dict.fromkeys(DENSE_KERNELS, ticks), "paged_kernel": 0}
+
+
+def paged_launches(steps: int, keys: int) -> dict:
+    """Expected `cuda.launches` after `steps` paged live steps and `keys`
+    dead-page keys (each one 1-page stock tick)."""
+    return {**dict.fromkeys(DENSE_KERNELS, keys), "paged_kernel": steps,
+            "allocate_budget_rooms": steps + keys}
 
 # Paged plane (the live-extent tick). Page geometries (P, TP, K, SP) of the
 # kernel parity phase; the full-width pool of PAGED_TIMING_DIMS is added to
@@ -531,6 +557,28 @@ def alloc_args(dims: plane.PlaneDims, rng, dev):
             t(rng.random((R, S)) * 8e6, np.float32))
 
 
+def rtpstats_args(dims: plane.PlaneDims, rng, dev):
+    """`rtpstats.route_update_tick` operands at dims (R, T, K, S): a stats
+    state with half its rows started and its 32-bit fields over their
+    range, and seeded packets (layers -1..3, SNs across 16 bits, ts and
+    arrival over the int32 range)."""
+    R, T, K, _ = dims
+    N = T * plane.MAX_LAYERS
+    i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)  # noqa: E731
+    b = lambda p, shape: torch.from_numpy(rng.random(shape) < p).to(dev)  # noqa: E731
+    full = lambda shape: i32(rng.integers(-2**31, 2**31, shape))  # noqa: E731
+    state = rtpstats.StreamStats(
+        b(0.5, (R, N)), i32(rng.integers(0, 65536, (R, N))),
+        i32(rng.integers(0, 65536, (R, N))), i32(rng.integers(0, 4, (R, N))), full((R, N)),
+        i32(rng.integers(0, 2**20, (R, N))), i32(rng.integers(0, 2**30, (R, N))),
+        i32(rng.integers(0, 9, (R, N))), i32(rng.integers(0, 2**24, (R, N))), full((R, N)),
+        i32(np.zeros((R, N))), i32(np.zeros((R, N))))
+    pkt = (i32(rng.integers(-1, 4, (R, T, K))), i32(rng.integers(0, 65536, (R, T, K))),
+           full((R, T, K)), i32(rng.integers(40, 1300, (R, T, K))), full((R, T, K)),
+           b(0.8, (R, T, K)), b(0.4, (R, T, K)))
+    return (state, b(0.3, (R, T)), *pkt)
+
+
 def tree_equal(a, b) -> tuple[bool, float]:
     """Exact equality of two trees of tensors, and the largest absolute
     difference of their float leaves."""
@@ -563,6 +611,14 @@ def parity_phase(dev) -> dict:
         if not ok:
             raise AssertionError(f"allocate_budget_rooms kernel != plain at {tuple(dims)}")
         errs["allocate_budget_rooms"] = max(errs["allocate_budget_rooms"], err)
+        del args
+        args = rtpstats_args(dims, rng, dev)
+        ok, err = tree_equal(rtpstats.route_update_tick(*args),
+                             rtpstats.route_update_tick_plain(*args))
+        torch.cuda.synchronize()
+        if not ok:
+            raise AssertionError(f"rtpstats_rooms kernel != plain at {tuple(dims)}")
+        errs["rtpstats_rooms"] = max(errs["rtpstats_rooms"], err)
         del args
         torch.cuda.empty_cache()
         log(f"parity ok at {tuple(dims)}")
@@ -680,8 +736,7 @@ async def runtime_phase(dev) -> dict:
 
     if fwd <= 0:
         raise AssertionError("runtime forwarded no packets")
-    expected = {"decide_rooms": RUNTIME_TICKS, "allocate_budget_rooms": RUNTIME_TICKS,
-                "paged_kernel": 0}
+    expected = dense_launches(RUNTIME_TICKS)
     if launches != expected:
         raise AssertionError(f"dense runtime launches {launches}, expected {expected}")
     log(f"runtime ok: {RUNTIME_TICKS} ticks at {tuple(dims)}, {fwd} packets "
@@ -721,10 +776,11 @@ def capture_calls(wrappers, fn):
 
 
 def capture_kernel_args(state, wire, dims):
-    """Run one dense tick with the two kernel wrappers wrapped, recording
+    """Run one dense tick with the three kernel wrappers wrapped, recording
     the arguments and results the main path hands them."""
     (state, _), seen = capture_calls(
-        [(selector, "decide_rooms"), (allocation, "allocate_budget_rooms")],
+        [(selector, "decide_rooms"), (allocation, "allocate_budget_rooms"),
+         (rtpstats, "route_update_tick")],
         lambda: plane.device_tick(state, wire, dims))
     return state, seen
 
@@ -741,6 +797,13 @@ def decide_rooms_bytes(a, res) -> int:
     return nbytes(a[1:], (st.current_spatial, st.current_temporal, st.target_spatial,
                           st.target_temporal),
                   res[1:], (res[0].current_spatial, res[0].current_temporal))
+
+
+def rtpstats_rooms_bytes(a, res) -> int:
+    """Bytes one route_update_tick call must move: the packet fields, the
+    track flags and the stats state in (not the snapshot fields, which it
+    passes through), the new state and the tracker sums out."""
+    return nbytes(a[0][:10], a[1:], res[0][:10], res[1])
 
 
 def decide_pages_bytes(a, res) -> int:
@@ -808,9 +871,13 @@ def timing_phase(dev, profile: bool) -> tuple[dict, dict, plane.PlaneState]:
     al = time_kernel(allocation.allocate_budget_rooms, allocation.allocate_budget_rooms_plain,
                      a2, kw2, nbytes(a2, res2))
     al["shape"] = list(a2[1].shape)
+    a3, kw3, res3 = seen["route_update_tick"]
+    rs = time_kernel(rtpstats.route_update_tick, rtpstats.route_update_tick_plain, a3, kw3,
+                     rtpstats_rooms_bytes(a3, res3))
+    rs["shape"] = list(a3[3].shape)
     if profile:
         profile_ticks(state, wires, dims)
-    return tick, {"decide_rooms": dec, "allocate_budget_rooms": al}, state
+    return tick, {"decide_rooms": dec, "allocate_budget_rooms": al, "rtpstats_rooms": rs}, state
 
 
 def time_kernel(kernel, plain, a, kw, bytes_moved: int) -> dict:
@@ -1106,11 +1173,12 @@ async def paged_runtime_phase(dev) -> dict:
     paged.dead_page_outputs = fresh
 
     # The dead-page outputs are computed once per (tick_ms, roll_quality)
-    # seen — one 1-page stock tick, one launch of kernels 1 and 2 — and
-    # kernel 2 runs once per live tick in phase 2.
+    # seen — one 1-page stock tick, one launch of kernels 1 and 2 and of
+    # the RTP-stats kernel — and kernel 2 runs once per live tick in phase
+    # 2. A live step routes its stats in B3, so it never launches the
+    # RTP-stats kernel.
     keys = len(dead_on_card)
-    expected = {"paged_kernel": live_ticks, "decide_rooms": keys,
-                "allocate_budget_rooms": live_ticks + keys}
+    expected = paged_launches(live_ticks, keys)
     if fwd <= 0:
         raise AssertionError("paged runtime forwarded no packets")
     if launches != expected:
@@ -1387,9 +1455,8 @@ async def serve_rooms(dev, sizes, pubs, spec: synth.TrafficSpec, cfg: Config,
     def expected_launches() -> dict:
         steps = ticks + rt.stats["dropped_steps"] - base_dropped
         if isinstance(rt, PagedPlaneRuntime):
-            return {"paged_kernel": steps, "decide_rooms": keys,
-                    "allocate_budget_rooms": steps + keys}
-        return {"decide_rooms": steps, "allocate_budget_rooms": steps, "paged_kernel": 0}
+            return paged_launches(steps, keys)
+        return dense_launches(steps)
 
     t_wait = time.perf_counter()
     while dict(cuda.launches) != expected_launches() and restarts \
@@ -2056,10 +2123,9 @@ async def udp_loop(rig: UdpRig, spec: synth.TrafficSpec, seconds: float | None,
     ticks = rt.stats["ticks"] - base["ticks"]
     keys = len(dead_keys)
     if isinstance(rt, PagedPlaneRuntime):
-        expected = {"paged_kernel": ticks, "decide_rooms": keys,
-                    "allocate_budget_rooms": ticks + keys}
+        expected = paged_launches(ticks, keys)
     else:
-        expected = {"decide_rooms": ticks, "allocate_budget_rooms": ticks, "paged_kernel": 0}
+        expected = dense_launches(ticks)
     if launches != expected:
         raise AssertionError(f"UDP loop launches {launches}, expected {expected} "
                              f"over {ticks} ticks")
@@ -2453,7 +2519,7 @@ async def express_loop(x: ExpressRig, seconds: float, first_tick: int) -> dict:
         stop.set()
         sink.join(10)
     ticks = rt.stats["ticks"] - base["ticks"]
-    expected = {"decide_rooms": ticks, "allocate_budget_rooms": ticks, "paged_kernel": 0}
+    expected = dense_launches(ticks)
     if launches != expected:
         raise AssertionError(f"express loop launches {launches}, expected {expected}")
     lane = {k: v - lane0.get(k, 0) for k, v in rt.express.stats.items()}
@@ -2485,8 +2551,7 @@ async def express_phase(dev, rooms: int = EXPRESS_ROOMS, lock_ticks: int = EXPRE
     cuda.reset_launches()
     lock = await express_lockstep(x, b, lock_ticks)
     launches = dict(cuda.launches)
-    want = {"decide_rooms": 2 * lock_ticks, "allocate_budget_rooms": 2 * lock_ticks,
-            "paged_kernel": 0}
+    want = dense_launches(2 * lock_ticks)
     if launches != want:
         raise AssertionError(f"express lockstep launches {launches}, expected {want}")
     lane = dict(x.rt.express.stats)
@@ -2879,7 +2944,7 @@ class GatewayRig:
             stop.set()
             thread.join(10)
         n_ticks = rt.stats["ticks"] - base["ticks"]
-        want = {"decide_rooms": n_ticks, "allocate_budget_rooms": n_ticks, "paged_kernel": 0}
+        want = dense_launches(n_ticks)
         if launches != want:
             raise AssertionError(f"gateway loop launches {launches}, expected {want}")
         return {"ticks": n_ticks, "fed": fed[0], "receiver_reports": rrs[0], "wall_s": wall_s,
@@ -3366,8 +3431,7 @@ def shard_north_star(dev, out: dict, worst: dict) -> dict:
     for n in meshes:
         bit_equal[n] &= leaves_match(plane.tree_leaves(mesh_mod.gather_tree(sharded[n])),
                                      plane.tree_leaves(state), names, f"N={n} state", worst)
-    expected = {"decide_rooms": SHARD_N * SHARD_CHECK_TICKS,
-                "allocate_budget_rooms": SHARD_N * SHARD_CHECK_TICKS, "paged_kernel": 0}
+    expected = dense_launches(SHARD_N * SHARD_CHECK_TICKS)
     if launches != expected:
         raise AssertionError(f"north-star shard launches {launches}, expected {expected}")
     out["north_star"] = {"dims": list(dims), "ticks": SHARD_CHECK_TICKS, "launches": launches,
@@ -3488,8 +3552,7 @@ async def shard_room_managers(dev, out: dict) -> dict:
         await rt.stop()
     if fwd <= 0:
         raise AssertionError("cfg4 lockstep: nothing forwarded")
-    expected = {"decide_rooms": SHARD_N * SHARD_LOCK_TICKS,
-                "allocate_budget_rooms": SHARD_N * SHARD_LOCK_TICKS, "paged_kernel": 0}
+    expected = dense_launches(SHARD_N * SHARD_LOCK_TICKS)
     if launches != expected:
         raise AssertionError(f"meshed RoomManager launches {launches}, expected {expected}")
     out["cfg4_room_managers"] = {"dims": list(dims), "shards": SHARD_N,
@@ -3602,10 +3665,11 @@ def twin_flash_scenario() -> traffic_twin.Scenario:
 
 
 def check_twin_launches(launches: dict, debug: dict, where: str) -> None:
-    """B1 and B2 once per step of every node (the warm step, the
-    scenario's and the drain's step_once calls), B3 never (dense plane)."""
+    """B1, B2 and the RTP-stats kernel once per step of every node (the
+    warm step, the scenario's and the drain's step_once calls), B3 never
+    (dense plane)."""
     steps = sum(debug["steps"])
-    want = {"decide_rooms": steps, "allocate_budget_rooms": steps, "paged_kernel": 0}
+    want = dense_launches(steps)
     if not steps or launches != want:
         raise AssertionError(f"twin {where}: launches {launches}, expected {want}")
 
@@ -3804,8 +3868,7 @@ def bench_window_check(dev) -> tuple[dict, dict]:
             != {k: cpu[k] for k in ("fwd", "evaluated", "checksum")}
             or frel > BENCH_FLOAT_RTOL or gpu["fwd"] <= 0):
         raise AssertionError(f"bench window: card {gpu} != CPU {cpu} (float rel {frel})")
-    if (launches["decide_rooms"] != BENCH_WINDOW_TICKS
-            or launches["allocate_budget_rooms"] != BENCH_WINDOW_TICKS):
+    if any(launches[k] != BENCH_WINDOW_TICKS for k in DENSE_KERNELS):
         raise AssertionError(f"bench window launches {launches} for {BENCH_WINDOW_TICKS} ticks")
     return {"dims": list(dims), "ticks": BENCH_WINDOW_TICKS, "card": gpu, "cpu": cpu,
             "float_rel_diff": frel, "launches": launches}, launches
@@ -4022,12 +4085,13 @@ def capture_live_step(state, table, wire, rows, inv):
 
 
 def dead_key_calls(dev) -> dict:
-    """The paged path's decide_rooms and allocate_budget_rooms launches of
-    a dead-page key (the 1-page stock tick at PAGED_TIMING_DIMS' page
-    shape): {name: (args, kwargs, result)}."""
+    """The paged path's decide_rooms, allocate_budget_rooms and
+    route_update_tick launches of a dead-page key (the 1-page stock tick at
+    PAGED_TIMING_DIMS' page shape): {name: (args, kwargs, result)}."""
     d = PAGED_TIMING_DIMS
     _, seen = capture_calls(
-        [(selector, "decide_rooms"), (allocation, "allocate_budget_rooms")],
+        [(selector, "decide_rooms"), (allocation, "allocate_budget_rooms"),
+         (rtpstats, "route_update_tick")],
         lambda: paged.dead_page_outputs(d.tracks // d.tpage, d.tpage, d.pkts, d.spage,
                                         PAGED_SPEC.tick_ms, 0, device=dev))
     return seen
@@ -4071,8 +4135,8 @@ def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict, plane.PlaneState
     each occupancy and the phase-2 allocation's on the full pool's (each
     held equal to its plain version there first), beside their byte
     bounds and their plain versions' times; and the dead-page key's
-    decide_rooms and allocate_budget_rooms launches, each held equal to
-    its plain version and timed."""
+    decide_rooms, allocate_budget_rooms and rtpstats_rooms launches, each
+    held equal to its plain version and timed."""
     dims = PAGED_TIMING_DIMS
     pager, room_sizes, state, table, rows, inv, n_live, wires = full_pool(dev)
     sizes = room_sizes[room_sizes > 0]
@@ -4109,7 +4173,13 @@ def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict, plane.PlaneState
                                     allocation.allocate_budget_rooms_plain, a4, kw4,
                                     nbytes(a4, res4))
     alloc["dead_key"]["shape"] = list(a4[1].shape)
-    del dead_calls, a3, kw3, res3, a4, kw4, res4
+    a5, kw5, res5 = dead_calls["route_update_tick"]
+    require_exact("rtpstats_rooms", rtpstats.route_update_tick_plain, a5, kw5, res5,
+                  f"the dead-page key {list(a5[3].shape)}")
+    dead_rs = time_kernel(rtpstats.route_update_tick, rtpstats.route_update_tick_plain, a5,
+                          kw5, rtpstats_rooms_bytes(a5, res5))
+    dead_rs["shape"] = list(a5[3].shape)
+    del dead_calls, a3, kw3, res3, a4, kw4, res4, a5, kw5, res5
     torch.cuda.empty_cache()
 
     rows, inv, n_live, wires = release_half(pager, room_sizes, state, table, dev)
@@ -4122,7 +4192,7 @@ def paged_timing_phase(dev, profile: bool) -> tuple[dict, dict, plane.PlaneState
     tick = {"dims": list(dims), "ticks": PAGED_TIMED_TICKS, "full": full, "half": half,
             "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     return (tick, {"paged_kernel": kernel, "allocate_budget_rooms": alloc,
-                   "decide_rooms": dead}, state)
+                   "decide_rooms": dead, "rtpstats_rooms": dead_rs}, state)
 
 
 # ---------------------------------------------------------------------------
@@ -5010,12 +5080,13 @@ class NodeHandle:
 
 
 def check_launches(rep: dict) -> None:
-    """A node's kernel launches since its join: B1 and B2 once a step, so
-    each equals the node's completed and dropped steps plus the steps in
-    flight, at most 2 (the pipelined loop's device step and the step
-    before it, whose fan-out has not completed); B3 never (dense plane)."""
+    """A node's kernel launches since its join: B1, B2 and the RTP-stats
+    kernel once a step, so each equals the node's completed and dropped
+    steps plus the steps in flight, at most 2 (the pipelined loop's device
+    step and the step before it, whose fan-out has not completed); B3
+    never (dense plane)."""
     lc, steps = rep["launches"], rep["steps"]
-    extra = {k: lc[k] - steps for k in ("decide_rooms", "allocate_budget_rooms")}
+    extra = {k: lc[k] - steps for k in DENSE_KERNELS}
     if any(not 0 <= v <= 2 for v in extra.values()) or lc["paged_kernel"] or not steps:
         raise AssertionError(f"node {rep['node']}: launches {lc} over {steps} steps")
 
@@ -5279,8 +5350,8 @@ def main() -> int:
     errs = parity_phase(dev)
     errs["paged_kernel"], mix_t = paged_parity_phase(dev)
     done("parity")
-    dense_launches = asyncio.run(runtime_phase(dev))
-    paged_launches = asyncio.run(paged_runtime_phase(dev))
+    runtime_launches = asyncio.run(runtime_phase(dev))
+    paged_runtime_launches = asyncio.run(paged_runtime_phase(dev))
     done("runtime")
     serving = asyncio.run(serving_phase(dev))
     print(json.dumps({"serving": serving}), flush=True)
@@ -5331,12 +5402,13 @@ def main() -> int:
     done("migration")
     print(json.dumps({"phase_end_s": ends}), flush=True)
 
-    # decide_rooms and allocate_budget_rooms belong to the dense path,
-    # paged_kernel to the paged path; each kernel's top-level numbers and
+    # decide_rooms, allocate_budget_rooms and rtpstats_rooms belong to the
+    # dense path, paged_kernel to the paged path; each kernel's top-level numbers and
     # `launches` are from its own path, and `paths` gives each path that
     # launches it: its launch shape, launches and timed numbers there (the
-    # paged allocation's dead-page launch under `dead_key`).
-    launches = {"dense": dense_launches, "paged": paged_launches,
+    # paged path's decide_rooms and rtpstats_rooms are its dead-page key's
+    # launches; the paged allocation's dead-page launch is under `dead_key`).
+    launches = {"dense": runtime_launches, "paged": paged_runtime_launches,
                 "serving_dense": serving["dense"]["launches"],
                 "serving_paged": serving["paged"]["launches"],
                 "udp_dense": udp["dense"]["launches"],
@@ -5352,7 +5424,8 @@ def main() -> int:
                 "bench_window": bench_launches}
     paged_t["paged_kernel"]["mix"] = mix_t
     timed = {"dense": dense_t, "paged": paged_t, "shard": shard_t}
-    own = {"decide_rooms": "dense", "allocate_budget_rooms": "dense", "paged_kernel": "paged"}
+    own = {"decide_rooms": "dense", "allocate_budget_rooms": "dense", "paged_kernel": "paged",
+           "rtpstats_rooms": "dense"}
     kernels = []
     for name, meta in KERNELS.items():
         main_t = timed[own[name]][name]

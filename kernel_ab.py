@@ -11,12 +11,13 @@ unpacked with `git archive`). Each named kernel (default: every kernel of
 `cuda.SOURCES` whose source or shared headers differ between the trees)
 is built from DIR's `livekit_server_tpu_torch/csrc/` with the same nvcc
 flags and bound to this tree's wrapper, so the old source must keep the
-C interface of the new one. Both builds run on the operands chip_smoke.py
-captures from the main paths: one north-star dense tick (decide_rooms,
-allocate_budget_rooms), one live step of the full PAGED_TIMING_DIMS pool
+C interface of the new one (a kernel DIR has no source for is left out).
+Both builds run on the operands chip_smoke.py captures from the main
+paths: one north-star dense tick (decide_rooms, allocate_budget_rooms,
+rtpstats_rooms), one live step of the full PAGED_TIMING_DIMS pool
 (paged_kernel, allocate_budget_rooms) and one after half its rooms are
 released (paged_kernel), and the dead-page key's 1-page stock tick
-(decide_rooms, allocate_budget_rooms); and on the operands of
+(decide_rooms, allocate_budget_rooms, rtpstats_rooms); and on the operands of
 chip_smoke's full-pool parity check, paged_kernel's mix entries (kernel
 launches alone, off the main path). For each launch the two builds'
 outputs must be equal; then each build's device time (chip_smoke.graph_ms)
@@ -37,17 +38,21 @@ import numpy as np
 import torch
 
 import chip_smoke
-from livekit_server_tpu_torch.ops import allocation, cuda, pacer, paged_kernel, selector
+from livekit_server_tpu_torch.ops import (
+    allocation, cuda, pacer, paged_kernel, rtpstats, selector,
+)
 
 # Kernel name → the module whose `_kernel()` returns its C launch function.
 MODULES = {"decide_rooms": selector, "allocate_budget_rooms": allocation,
-           "paged_kernel": paged_kernel}
+           "paged_kernel": paged_kernel, "rtpstats_rooms": rtpstats}
 
 
 def changed(old_csrc: Path) -> list[str]:
-    """The kernels whose library would differ when built from old_csrc."""
+    """The kernels old_csrc has a source for whose library would differ
+    when built from it."""
     return [name for name, source in cuda.SOURCES.items()
-            if cuda.library_path(source, old_csrc) != cuda.library_path(source)]
+            if (old_csrc / f"{source}.cu").is_file()
+            and cuda.library_path(source, old_csrc) != cuda.library_path(source)]
 
 
 def build_old(old_csrc: Path, names) -> dict:
@@ -86,6 +91,8 @@ def launches(dev):
             shape = list(a[4].shape) + [a[0].current_spatial.shape[-1]]
         elif name == "paged_kernel":        # [live rows, TP, K, SP]
             shape = [a[5].numel(), *a[4].layer.shape[1:], a[3].shape[-1]]
+        elif name == "rtpstats_rooms":      # [R, T, K]
+            shape = list(a[3].shape)
         else:                               # [R, S, T]
             shape = list(a[1].shape)
         return name, wrapper, a, kw, shape, count_bytes(a, res), chip_smoke.GRAPH_LAUNCHES
@@ -97,7 +104,9 @@ def launches(dev):
     yield "dense", [
         row("decide_rooms", selector.decide_rooms, *seen["decide_rooms"],
             chip_smoke.decide_rooms_bytes),
-        row("allocate_budget_rooms", alloc, *seen["allocate_budget_rooms"], chip_smoke.nbytes)]
+        row("allocate_budget_rooms", alloc, *seen["allocate_budget_rooms"], chip_smoke.nbytes),
+        row("rtpstats_rooms", rtpstats.route_update_tick, *seen["route_update_tick"],
+            chip_smoke.rtpstats_rooms_bytes)]
     del seen
     torch.cuda.empty_cache()
 
@@ -143,7 +152,9 @@ def launches(dev):
     yield "paged dead key", [
         row("decide_rooms", selector.decide_rooms, *seen["decide_rooms"],
             chip_smoke.decide_rooms_bytes),
-        row("allocate_budget_rooms", alloc, *seen["allocate_budget_rooms"], chip_smoke.nbytes)]
+        row("allocate_budget_rooms", alloc, *seen["allocate_budget_rooms"], chip_smoke.nbytes),
+        row("rtpstats_rooms", rtpstats.route_update_tick, *seen["route_update_tick"],
+            chip_smoke.rtpstats_rooms_bytes)]
 
 
 def compare(name: str, path: str, call, a, kw, shape, old_fn, bytes_moved: int,

@@ -57,7 +57,7 @@ from livekit_server_tpu_torch.ops import (
 from livekit_server_tpu_torch.ops.bits import mask_words, unpack_bits
 from livekit_server_tpu_torch.utils import spans
 
-MAX_LAYERS = 3
+MAX_LAYERS = rtpstats.MAX_LAYERS
 MAX_TEMPORAL = 4
 SPEAKER_TOP_K = 3
 SLAB_WINDOW = 64        # ticks of payload history the host retains for RTX
@@ -328,42 +328,17 @@ def _temporal_fractions(device: torch.device) -> torch.Tensor:
     return torch.tensor(TEMPORAL_FRACTIONS, dtype=torch.float32, device=device)
 
 
-def route_stats(is_svc, layer, sn, ts, size, arrival_rtp, valid, begin_pic):
-    """Sections 1–2 routing of the phase-1 core: each packet's RTP-stats
-    fields one-hot routed into per-(track, layer) rows, and the tracker's
-    per-(track, layer) sums. Returns (st [R, 5, T*L, K] int32 — sn, ts,
-    size, arrival, valid — and tr [R, 3, T*L] int32 — packets, bytes,
-    frame starts).
-
-    Simulcast layers are separate RTP streams (one stats row each); an
-    SVC track's packets all fold into row 0. Routing is a one-hot select,
-    k preserved, so rows never collide. Tracker rows route by each
-    packet's TRUE spatial layer. The live-page kernel
-    (ops/paged_kernel.py) computes the same two stacks."""
-    R, T, K = sn.shape
-    L = MAX_LAYERS
-    i32 = torch.int32
-    lanes = torch.arange(L, dtype=i32, device=sn.device)
-    eff_layer = torch.where(is_svc[:, :, None], 0, layer.clamp(0, L - 1))
-    st_vals = torch.stack([sn, ts, size, arrival_rtp, valid.to(i32)], dim=1)  # [R,5,T,K]
-    st = torch.where((eff_layer[..., None] == lanes)[:, None], st_vals[..., None], 0)
-    st = st.permute(0, 1, 2, 4, 3).reshape(R, 5, T * L, K)
-    t_lane = layer.clamp(0, L - 1)[..., None] == lanes                  # [R,T,K,L]
-    ones_k = torch.ones_like(size)
-    tr_vals = torch.stack([ones_k, size, ones_k], dim=1)                # [R,3,T,K]
-    tr_pred = torch.stack([valid, valid, valid & begin_pic], dim=1)
-    routed = torch.where(t_lane[:, None] & tr_pred[..., None], tr_vals[..., None], 0)
-    return st, routed.sum(3, dtype=i32).reshape(R, 3, T * L)
-
-
 def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
                sent_bytes_i, audio_params, bwe_params, red_enabled: bool,
                routed_stats=None):
     """Phase-1 core over all rooms (R leading). Returns (state', partial
     outputs as a dict, bitrates [R, T, 4, 4] for phase 2).
 
-    `routed_stats`, when given, is `route_stats`'s (st, tr) precomputed
-    by the live-page kernel; the tick then skips its own routing."""
+    `routed_stats`, when given, is `rtpstats.route_stats`'s (st, tr)
+    precomputed by the live-page kernel; the tick then skips its own
+    routing and folds the stacks with `rtpstats.update_tick`. Otherwise
+    `rtpstats.route_update_tick` routes and folds in one step (one
+    launch of csrc/rtpstats_rooms.cu on the card)."""
     R, T, K = inp.sn.shape
     S = state.ctrl.subscribed.shape[-1]
     L = MAX_LAYERS
@@ -374,11 +349,13 @@ def _room_tick(state: PlaneState, inp: TickInputs, need_kf, pkts_sent_i,
     # ---- 1. RTP stats per (track, layer) stream --------------------------
     t = spans.begin(spans.RTPSTATS)
     if routed_stats is None:
-        routed_stats = route_stats(meta.is_svc, inp.layer, inp.sn, inp.ts, inp.size,
-                                   inp.arrival_rtp, inp.valid, inp.begin_pic)
-    st, tr_sums = routed_stats
-    stats = rtpstats.update_tick(state.stats, st[:, 0], st[:, 1], st[:, 2], st[:, 3],
-                                 st[:, 4] != 0)
+        stats, tr_sums = rtpstats.route_update_tick(
+            state.stats, meta.is_svc, inp.layer, inp.sn, inp.ts, inp.size,
+            inp.arrival_rtp, inp.valid, inp.begin_pic)
+    else:
+        st, tr_sums = routed_stats
+        stats = rtpstats.update_tick(state.stats, st[:, 0], st[:, 1], st[:, 2], st[:, 3],
+                                     st[:, 4] != 0)
 
     # ---- 2. per-layer liveness + measured [4][4] bitrate matrix ----------
     t = spans.lap(spans.RTPSTATS, t, spans.STREAMTRACKER)

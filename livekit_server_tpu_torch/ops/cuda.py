@@ -11,8 +11,8 @@ the CPU tests import every module on a machine without `nvcc`.
 Each C entry point enqueues its kernel on the stream it is given and
 returns `cudaGetLastError()`; `check` turns a non-zero code into an
 exception. `launches` counts the launches of each kernel; only the
-wrappers in ops/selector.py, ops/allocation.py and ops/paged_kernel.py
-add to it, through `count_launch`, at the point where they launch.
+wrappers in ops/selector.py, ops/allocation.py, ops/paged_kernel.py and
+ops/rtpstats.py add to it, through `count_launch`, at the point where they launch.
 Every `nvcc` build and every first launch at a new launch shape is also
 an entry of the build ledger (runtime/compile_ledger.py).
 """
@@ -39,6 +39,7 @@ SOURCES = {
     "decide_rooms": "decide_rooms",
     "allocate_budget_rooms": "budget_rooms",
     "paged_kernel": "paged_kernel",
+    "rtpstats_rooms": "rtpstats_rooms",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

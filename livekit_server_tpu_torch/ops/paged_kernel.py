@@ -13,7 +13,7 @@ Each step fuses, for one live page:
     shape): simulcast + SVC selection, base merge, audio path, egress
     bit packing (SP <= 32, so one mask word per (track, packet)) and the
     per-subscriber / per-page send sums;
-  * the phase-1 stats/tracker routing stacks (models/plane.py
+  * the phase-1 stats/tracker routing stacks (ops/rtpstats.py
     `route_stats`), handed to `_room_tick` as `routed_stats`;
   * optionally the page-local active-speaker mix (ops/mix.py `mix_tick`
     algebra): a top-K speaker gate, self-exclusion and a gain-weighted
@@ -38,7 +38,7 @@ import torch
 
 from livekit_server_tpu_torch.analysis.registry import device_entry
 from livekit_server_tpu_torch.models import plane
-from livekit_server_tpu_torch.ops import cuda, mix, selector
+from livekit_server_tpu_torch.ops import cuda, mix, rtpstats, selector
 
 NUM_LAYERS = plane.MAX_LAYERS   # spatial routing lanes
 
@@ -55,7 +55,7 @@ class LiveDecide(NamedTuple):
     sent_bytes: torch.Tensor    # [NL, SP] int32 (wire overhead included)
     fwd_packets: torch.Tensor   # [NL] int32
     fwd_bytes: torch.Tensor     # [NL] int32
-    st: torch.Tensor            # [NL, 5, TP*L, K] int32 (plane.route_stats)
+    st: torch.Tensor            # [NL, 5, TP*L, K] int32 (rtpstats.route_stats)
     tr: torch.Tensor            # [NL, 3, TP*L] int32
 
 
@@ -87,8 +87,8 @@ def decide_pages_plain(sel_state, is_svc, is_video, base, inp, live_rows, *,
         pk["keyframe"], pk["layer_sync"], pk["end_frame"], pk["valid"], pk["size"],
         wire_overhead,
     )
-    st, tr = plane.route_stats(svc, pk["layer"], pk["sn"], pk["ts"], pk["size"],
-                               pk["arrival_rtp"], pk["valid"], pk["begin_pic"])
+    st, tr = rtpstats.route_stats(svc, pk["layer"], pk["sn"], pk["ts"], pk["size"],
+                                  pk["arrival_rtp"], pk["valid"], pk["begin_pic"])
     return LiveDecide(sel_new, send, drop, switch, need_kf, pkts, byts, fp, fb, st, tr)
 
 

@@ -4,16 +4,25 @@ Reference parity: pkg/sfu/buffer rtpstats_*.go (extended SN/TS tracking,
 loss accounting, RFC 3550 interarrival jitter, receiver-report
 snapshots), as formulated by the JAX package's ops/rtpstats.py. One row
 per stream, fields [..., N]; the packet axis K is a Python loop.
+
+The dense tick's routing of packets into stream rows and the fold over K
+run as one launch of the hand-written CUDA kernel csrc/rtpstats_rooms.cu
+on CUDA tensors (`route_update_tick`); CPU tensors take the plain
+`route_update_tick_plain` (`route_stats`, then `update_tick`).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
 from livekit_server_tpu_torch.device import resolve
-from livekit_server_tpu_torch.ops import seqnum
+from livekit_server_tpu_torch.ops import cuda, seqnum
+
+MAX_LAYERS = 3    # spatial layers: stats rows a track (models/plane.py)
 
 
 class StreamStats(NamedTuple):
@@ -99,6 +108,106 @@ def update_tick(state: StreamStats, pkt_sn, pkt_ts, pkt_size, arrival_rtp,
             snap_expected=c.snap_expected,
         )
     return c
+
+
+def route_stats(is_svc, layer, sn, ts, size, arrival_rtp, valid, begin_pic):
+    """Sections 1–2 routing of the phase-1 core: each packet's RTP-stats
+    fields one-hot routed into per-(track, layer) rows, and the tracker's
+    per-(track, layer) sums. Returns (st [R, 5, T*L, K] int32 — sn, ts,
+    size, arrival, valid — and tr [R, 3, T*L] int32 — packets, bytes,
+    frame starts).
+
+    Simulcast layers are separate RTP streams (one stats row each); an
+    SVC track's packets all fold into row 0. Routing is a one-hot select,
+    k preserved, so rows never collide. Tracker rows route by each
+    packet's TRUE spatial layer. The live-page kernel
+    (ops/paged_kernel.py) computes the same two stacks."""
+    R, T, K = sn.shape
+    L = MAX_LAYERS
+    i32 = torch.int32
+    lanes = torch.arange(L, dtype=i32, device=sn.device)
+    eff_layer = torch.where(is_svc[:, :, None], 0, layer.clamp(0, L - 1))
+    st_vals = torch.stack([sn, ts, size, arrival_rtp, valid.to(i32)], dim=1)  # [R,5,T,K]
+    st = torch.where((eff_layer[..., None] == lanes)[:, None], st_vals[..., None], 0)
+    st = st.permute(0, 1, 2, 4, 3).reshape(R, 5, T * L, K)
+    t_lane = layer.clamp(0, L - 1)[..., None] == lanes                  # [R,T,K,L]
+    ones_k = torch.ones_like(size)
+    tr_vals = torch.stack([ones_k, size, ones_k], dim=1)                # [R,3,T,K]
+    tr_pred = torch.stack([valid, valid, valid & begin_pic], dim=1)
+    routed = torch.where(t_lane[:, None] & tr_pred[..., None], tr_vals[..., None], 0)
+    return st, routed.sum(3, dtype=i32).reshape(R, 3, T * L)
+
+
+def route_update_tick_plain(state: StreamStats, is_svc, layer, sn, ts, size, arrival_rtp,
+                            valid, begin_pic) -> tuple[StreamStats, torch.Tensor]:
+    """Plain PyTorch version of the RTP-stats kernel: `route_stats`, then
+    `update_tick` over its stats stack. Arguments and results as in
+    `route_update_tick`."""
+    st, tr = route_stats(is_svc, layer, sn, ts, size, arrival_rtp, valid, begin_pic)
+    return update_tick(state, st[:, 0], st[:, 1], st[:, 2], st[:, 3], st[:, 4] != 0), tr
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = cuda.library("rtpstats_rooms").rtpstats_rooms_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr_array(tensors):
+    """The tensors' device pointers as a C array of void*."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def route_update_tick(state: StreamStats, is_svc, layer, sn, ts, size, arrival_rtp,
+                      valid, begin_pic) -> tuple[StreamStats, torch.Tensor]:
+    """The dense tick's RTP-stats block: the stats routing and the fold over
+    K of every (room, track)'s packets. Returns (state', tr [R, 3, T*L]
+    int32 — the tracker's packets, bytes and frame starts of valid
+    packets).
+
+    Args: state fields [R, T*L] (L = MAX_LAYERS, rows t*L + l); is_svc
+    [R, T] bool; packets [R, T, K] (layer/sn/ts/size/arrival_rtp int32,
+    valid/begin_pic bool), in arrival order along K.
+
+    Every device checks the operands' dtypes and shapes (CUDA also their
+    device and layout); CUDA tensors launch csrc/rtpstats_rooms.cu (and
+    raise if it cannot run), CPU tensors take `route_update_tick_plain`,
+    and any other device raises."""
+    device = sn.device
+    R, T, K = sn.shape
+    N = T * MAX_LAYERS
+    i32, b8 = torch.int32, torch.bool
+    pkt = (sn, ts, size, arrival_rtp, layer, valid, begin_pic)
+    operands = [
+        *zip(pkt, ("sn", "ts", "size", "arrival_rtp", "layer", "valid", "begin_pic"),
+             (i32,) * 5 + (b8,) * 2, [(R, T, K)] * 7),
+        (is_svc, "is_svc", b8, (R, T)),
+        *[(x, name, b8 if name == "started" else i32, (R, N))
+          for x, name in zip(state[:10], StreamStats._fields)],
+    ]
+    for x, name, dt, shape in operands:
+        if device.type == "cuda":
+            cuda.require(x, name, dt, shape, device)
+        elif x.dtype != dt or tuple(x.shape) != shape:
+            raise ValueError(f"route_update_tick: {name} is {x.dtype} {tuple(x.shape)}, "
+                             f"expected {dt} {shape}")
+    if device.type == "cpu":
+        return route_update_tick_plain(state, is_svc, layer, sn, ts, size, arrival_rtp,
+                                       valid, begin_pic)
+    if device.type != "cuda":
+        raise ValueError(f"route_update_tick: unsupported device {device}")
+    if min(R, T, K) < 1:
+        raise ValueError(f"route_update_tick: empty shape R={R} T={T} K={K}")
+
+    new = [torch.empty((R, N), dtype=x.dtype, device=device) for x in state[:10]]
+    tr = torch.empty((R, 3, N), dtype=i32, device=device)
+    err = _kernel()(*[t.data_ptr() for t in pkt], is_svc.data_ptr(), _ptr_array(state[:10]),
+                    _ptr_array(new), tr.data_ptr(), R, T, K, cuda.stream_handle(device))
+    cuda.check(err, "rtpstats_rooms")
+    cuda.count_launch("rtpstats_rooms", (R, T, K))
+    return StreamStats(*new, state.snap_received, state.snap_expected), tr
 
 
 def receiver_report(state: StreamStats):

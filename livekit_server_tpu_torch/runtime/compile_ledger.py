@@ -11,7 +11,7 @@ cost that must not recur once a node serves — is one of three things:
     build);
   * `launch_shape`: the first launch of a hand kernel at a
     (kernel, launch shape) this process has not launched before,
-    recorded by the three wrappers that add to `ops/cuda.py` `launches`
+    recorded by the four wrappers that add to `ops/cuda.py` `launches`
     at the point where they do. This is the port's analogue of a shape
     that escaped the pow2 buckets: the runtimes pad their extents to
     fixed shapes and pow2 buckets precisely so that steady state

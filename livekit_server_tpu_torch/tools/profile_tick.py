@@ -134,19 +134,17 @@ def blocks(dims: plane.PlaneDims, spec: synth.TrafficSpec, device) -> list:
     _, outs, bitrates = plane._room_tick(state, inp, need_kf, pkts_sent, sent_bytes,
                                          audio.AudioLevelParams(), bwe.BWEParams(), True)
 
-    # ---- 1. rtpstats (+routing) ------------------------------------------
+    # ---- 1. rtpstats (+routing; rtpstats_rooms.cu on the card) -----------
     def stats_block():
-        st, _ = plane.route_stats(meta.is_svc, inp.layer, inp.sn, inp.ts, inp.size,
-                                  inp.arrival_rtp, inp.valid, inp.begin_pic)
-        return rtpstats.update_tick(state.stats, st[:, 0], st[:, 1], st[:, 2], st[:, 3],
-                                    st[:, 4] != 0)
+        return rtpstats.route_update_tick(state.stats, meta.is_svc, inp.layer, inp.sn,
+                                          inp.ts, inp.size, inp.arrival_rtp, inp.valid,
+                                          inp.begin_pic)
 
     out.append(("1. rtpstats.update_tick (+routing)", stats_block, True))
 
-    # ---- 2. streamtracker (+routing) -------------------------------------
+    # ---- 2. streamtracker (+routing: the tracker sums of block 1) ----------
     def tracker_block():
-        _, tr = plane.route_stats(meta.is_svc, inp.layer, inp.sn, inp.ts, inp.size,
-                                  inp.arrival_rtp, inp.valid, inp.begin_pic)
+        _, tr = stats_block()
         return streamtracker.update_tick(state.tracker, streamtracker.TrackerParams(),
                                          tr[:, 0], tr[:, 1], inp.tick_ms, frames=tr[:, 2])
 

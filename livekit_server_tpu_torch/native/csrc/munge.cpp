@@ -282,12 +282,13 @@ int64_t munge_walk(
 }
 
 // Sharded walk: n_shards contiguous room ranges [r_lo[i], r_hi[i]),
-// walked concurrently. Phase 1 counts each shard exactly; after a
-// barrier, outputs land at prefix-sum bases so the concatenation is
-// bit-identical to one munge_walk over [0, R). Same return contract as
-// munge_walk (-1 = cap overflow before any mutation; -2 = post-mutation
-// guard, should be unreachable). shard_counts[i] receives each shard's
-// entry count and shard_ns[i] its walk wall time (phase 2 only).
+// walked concurrently. The calling thread counts each shard exactly
+// (a popcount pass, far cheaper than the walk), so outputs land at
+// prefix-sum bases and the concatenation is bit-identical to one
+// munge_walk over [0, R). Same return contract as munge_walk (-1 = cap
+// overflow before any mutation; -2 = post-mutation guard, should be
+// unreachable). shard_counts[i] receives each shard's entry count and
+// shard_ns[i] its walk wall time.
 int64_t munge_walk_multi(
     int32_t n_shards, const int32_t* r_lo, const int32_t* r_hi,
     int64_t* shard_counts, int64_t* shard_ns,
@@ -321,41 +322,37 @@ int64_t munge_walk_multi(
     shard_ns[0] = now_ns() - t0;
     return n;
   }
-  // One spawn per call with a spin barrier between count and walk: the
-  // count phase is sub-100 µs at wire shapes, so a condvar round trip
-  // would dominate it.
-  std::atomic<int> counted{0};
-  std::atomic<int> verdict{0};  // 0 = pending, 1 = go, -1 = overflow
+  int64_t total = 0;
   std::vector<int64_t> bases(n_shards, 0);
-  std::vector<int64_t> results(n_shards, 0);
-  std::vector<std::thread> ths;
   for (int w = 0; w < n_shards; ++w) {
-    ths.emplace_back([&, w] {
-      shard_counts[w] = count_range(a, r_lo[w], r_hi[w]);
-      if (counted.fetch_add(1) + 1 == n_shards) {
-        int64_t total = 0;
-        for (int i = 0; i < n_shards; ++i) {
-          bases[i] = total;
-          total += shard_counts[i];
-        }
-        verdict.store(total > cap ? -1 : 1, std::memory_order_release);
-      }
-      int v;
-      while ((v = verdict.load(std::memory_order_acquire)) == 0) {}
-      if (v < 0) return;  // overflow: no shard mutates anything
+    shard_counts[w] = count_range(a, r_lo[w], r_hi[w]);
+    bases[w] = total;
+    total += shard_counts[w];
+  }
+  if (total > cap) return -1;  // nothing mutated yet
+  // The caller and n_shards - 1 spawned threads claim shards from one
+  // counter, and nobody waits on another before its walk: a thread the
+  // host schedules late finds its share already taken, where a barrier
+  // would hold every other thread spinning until it ran.
+  std::atomic<int> next{0};
+  std::vector<int64_t> results(n_shards, 0);
+  auto work = [&] {
+    for (int w; (w = next.fetch_add(1)) < n_shards;) {
       const int64_t t0 = now_ns();
       results[w] = walk_range(a, r_lo[w], r_hi[w], bases[w], shard_counts[w]);
       shard_ns[w] = now_ns() - t0;
-    });
-  }
+    }
+  };
+  std::vector<std::thread> ths;
+  for (int w = 1; w < n_shards; ++w) ths.emplace_back(work);
+  work();
   for (auto& t : ths) t.join();
-  if (verdict.load() < 0) return -1;
-  int64_t total = 0;
+  int64_t written = 0;
   for (int w = 0; w < n_shards; ++w) {
     if (results[w] < 0) return -2;
-    total += results[w];
+    written += results[w];
   }
-  return total;
+  return written;
 }
 
 }  // extern "C"

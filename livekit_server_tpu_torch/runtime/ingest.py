@@ -16,15 +16,24 @@ and the fault injector's seams (drop / delay / duplicate / flood, with
 delayed packets re-entering at drain); the migration freeze
 (`frozen_rows`, the `freeze_sinks` bridge taps, `extract_row`); and
 the arrival hook `on_put`, set by the express lane (runtime/express.py).
+
+`push_batch` is timed: its seconds and the packets it staged add up in
+`stats` (`push_s`, `pushed_packets`; the runtime's stats when a
+PlaneRuntime owns the buffer), and it opens the `runtime.push` span
+(utils/spans.py). `last_push` is what the pushes drained into the last
+tick took: the first one's start (perf_counter s, 0 = none) and their
+summed seconds.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 
 from livekit_server_tpu_torch.models import plane
+from livekit_server_tpu_torch.utils import spans
 
 # Max NACKed SNs per (room, sub) per tick counted into the BWE loss channel.
 NACK_COUNT_CAP = 8
@@ -212,9 +221,14 @@ class IngestBuffer:
     """Double-buffered staging area for one node's tick inputs: two
     ping-ponged _StagingSets flipped at each drain()."""
 
-    def __init__(self, dims: plane.PlaneDims, tick_ms: int):
+    def __init__(self, dims: plane.PlaneDims, tick_ms: int, stats: dict | None = None):
         self.dims = dims
         self.tick_ms = tick_ms
+        self.stats = {} if stats is None else stats
+        self.stats.update(push_s=0.0, pushed_packets=0)
+        self._push_t0 = 0.0
+        self._push_s0 = 0.0
+        self.last_push = (0.0, 0.0)
         R, T, K, S = dims
         # Drop accounting, split by cause so shedding metrics are
         # trustworthy: capacity = tick slab overflow (real overload
@@ -424,16 +438,31 @@ class IngestBuffer:
         self.pay_len[room] = 0
         return out
 
-    def push_batch(
+    def push_batch(self, *args, **kwargs) -> int:
+        """Vectorized push of a whole receive batch (`_push_batch`'s
+        arguments), timed into `stats` and the `runtime.push` span.
+        Returns packets staged."""
+        t0 = time.perf_counter()
+        span = spans.stage_begin(spans.PUSH)
+        n = self._push_batch(*args, **kwargs)
+        spans.stage_end(spans.PUSH, span)
+        st = self.stats
+        st["push_s"] += time.perf_counter() - t0
+        st["pushed_packets"] += n
+        if not self._push_t0:
+            self._push_t0 = t0
+        return n
+
+    def _push_batch(
         self, room, track, layer, sn, ts, ts_aligned, temporal, keyframe,
         layer_sync, begin_pic, marker, pid, tl0, keyidx, size, frame_ms,
         audio_level, arrival_rtp, pay_start, pay_length, blob,
         dd_start=None, dd_length=None, dd_version=None, end_frame=None,
         t_rx: float = 0.0,
     ) -> int:
-        """Vectorized push of a whole receive batch (equal-length arrays;
-        payload bytes sliced out of `blob` by (pay_start, pay_length);
-        arrival stamp `t_rx`, 0 = none). Returns packets staged."""
+        """The push: equal-length arrays; payload bytes sliced out of
+        `blob` by (pay_start, pay_length); arrival stamp `t_rx`, 0 =
+        none. Returns packets staged."""
         n = len(room)
         if n == 0:
             return 0
@@ -743,6 +772,8 @@ class IngestBuffer:
             dd_ver=self.dd_ver.copy(),
             t_arr=self.t_arr.copy(),
         )
+        self.last_push = (self._push_t0, self.stats["push_s"] - self._push_s0)
+        self._push_t0, self._push_s0 = 0.0, self.stats["push_s"]
         self._sets[self._active].needs_scrub = True
         nxt = self._sets[1 - self._active]
         if nxt.needs_scrub:

@@ -13,6 +13,15 @@ single-device path. Per tick:
   4. fan out: host munging of the bit-packed masks into egress columns,
      speakers, keyframe requests, congestion → registered callbacks.
 
+Each stage is timed into `stats`, always: `push_s` and `pushed_packets`
+(the ingest push, runtime/ingest.py), `stage_s`, `probe_s`,
+`ctrl_upload_s`, `device_s`, `fanout_s` and within it `munge_s` (the
+native walk), and `egress_rows` (the rows the walk gave). With the trace
+ring on, the stages also open the `runtime.*` spans of utils/spans.py on
+the thread that steps the runtime and on the device step's, and the ring
+records each tick's stages, the munge/views split of its fan-out
+included.
+
 The serving loop (`start` → `_run` → `stop`) pipelines three stages
 within one tick window: stage N+1 ‖ device N ‖ fan-out N-1; `step_once`
 runs one tick sequentially (tests, warm-up) and refuses to run while the
@@ -285,12 +294,22 @@ class StagedTick:
     express_log: Any = None
     # Span start stamps for the trace ring: staging start, the express
     # retier's slice of it, the ctrl-upload window and the device
-    # dispatch time.
+    # dispatch time; the pushes drained into this tick (the first one's
+    # start, their summed seconds), the probe, and the fan-out's munge
+    # walk and views.
     stage_t0: float = 0.0
     retier_s: float = 0.0
     upload_t0: float = 0.0
     upload_s: float = 0.0
     device_t0: float = 0.0
+    push_t0: float = 0.0
+    push_s: float = 0.0
+    probe_t0: float = 0.0
+    probe_s: float = 0.0
+    munge_t0: float = 0.0
+    munge_s: float = 0.0
+    views_t0: float = 0.0
+    views_s: float = 0.0
     # The device step's block spans (`SpanRecorder.last`), None when the
     # trace ring is off.
     blocks: Any = None
@@ -325,7 +344,30 @@ class PlaneRuntime:
         # overlapping it with the next device step.
         self.low_latency = low_latency
         self.slots = SlotAllocator(dims.rooms, dims.tracks, dims.subs)
-        self.ingest = IngestBuffer(dims, tick_ms)
+        self.stats = {
+            "ticks": 0, "fwd_packets": 0, "fwd_bytes": 0, "late_ticks": 0,
+            # Pipeline shape: cumulative per-stage seconds + stall count
+            # (a window that found the previous fan-out still running).
+            # The ingest push adds push_s and pushed_packets.
+            "stage_s": 0.0, "probe_s": 0.0, "device_s": 0.0, "fanout_s": 0.0,
+            "pipeline_stalls": 0,
+            # The fan-out's native munge walk and the rows it gave.
+            "munge_s": 0.0, "egress_rows": 0,
+            "ctrl_full_uploads": 0, "ctrl_delta_uploads": 0,
+            "ctrl_delta_rows": 0, "ctrl_upload_bytes": 0, "ctrl_upload_s": 0.0,
+            # Device steps a supervisor restart abandoned (they returned
+            # without committing their state).
+            "abandoned_steps": 0,
+            # Device steps that ran their tick on the card but whose tick
+            # never completes: abandoned after the tick ran, or committed
+            # just before a restart whose loop dropped their outputs.
+            "dropped_steps": 0,
+            # The express lane's post-commit selector reads: count and
+            # cumulative seconds (each a device read of four [R, T, S]
+            # leaves on the runtime's stream).
+            "express_mirrors": 0, "express_mirror_s": 0.0,
+        }
+        self.ingest = IngestBuffer(dims, tick_ms, stats=self.stats)
         self.tick_index = 0
         # Index of the newest tick whose fan-out has run (-1: none yet);
         # `settle_staged` waits on it.
@@ -418,26 +460,6 @@ class PlaneRuntime:
         # thread) vs. other coroutines touching it.
         self.state_lock = asyncio.Lock()
         self._on_tick: list[Callable[[TickResult], Awaitable[None] | None]] = []
-        self.stats = {
-            "ticks": 0, "fwd_packets": 0, "fwd_bytes": 0, "late_ticks": 0,
-            # Pipeline shape: cumulative per-stage seconds + stall count
-            # (a window that found the previous fan-out still running).
-            "stage_s": 0.0, "device_s": 0.0, "fanout_s": 0.0,
-            "pipeline_stalls": 0,
-            "ctrl_full_uploads": 0, "ctrl_delta_uploads": 0,
-            "ctrl_delta_rows": 0, "ctrl_upload_bytes": 0, "ctrl_upload_s": 0.0,
-            # Device steps a supervisor restart abandoned (they returned
-            # without committing their state).
-            "abandoned_steps": 0,
-            # Device steps that ran their tick on the card but whose tick
-            # never completes: abandoned after the tick ran, or committed
-            # just before a restart whose loop dropped their outputs.
-            "dropped_steps": 0,
-            # The express lane's post-commit selector reads: count and
-            # cumulative seconds (each a device read of four [R, T, S]
-            # leaves on the runtime's stream).
-            "express_mirrors": 0, "express_mirror_s": 0.0,
-        }
         # Per-tick stage records (idx/depth/stage_ms/device_ms/fanout_ms/
         # total_ms/late + subclass extras), newest last.
         self.recent_ticks: deque = deque(maxlen=120)
@@ -704,6 +726,8 @@ class PlaneRuntime:
             mark = spans.mark()
         t0 = time.perf_counter()
         st.device_t0 = t0
+        # An abandoned step leaves its span open, which records nothing.
+        span = trace_mod.stage_begin(trace_mod.DEVICE_STEP)
         if self.fault is not None:
             self.fault.maybe_stall()
         if epoch != self.run_epoch:
@@ -744,6 +768,7 @@ class PlaneRuntime:
                 with self._commit_lock:
                     if epoch == self.run_epoch:
                         self.integrity.maybe_audit(st.idx)
+        trace_mod.stage_end(trace_mod.DEVICE_STEP, span)
         st.device_s = time.perf_counter() - t0
         return out
 
@@ -754,6 +779,7 @@ class PlaneRuntime:
         flips to the other staging set, and the packing consumes the
         retired set's field views before that set can be drained again."""
         t0 = time.perf_counter()
+        span = trace_mod.stage_begin(trace_mod.STAGE)
         idx = self.tick_index
         self.tick_index += 1
         # Close the quality/stats window about once per second.
@@ -778,6 +804,8 @@ class PlaneRuntime:
                         express_log=ex_log)
         st.stage_t0 = t0
         st.retier_s = retier_s
+        st.push_t0, st.push_s = self.ingest.last_push
+        trace_mod.stage_end(trace_mod.STAGE, span)
         st.stage_s = time.perf_counter() - t0
         return st
 
@@ -785,6 +813,8 @@ class PlaneRuntime:
         """Probe scheduling (probe_controller.go) against the previous
         tick's outputs; padding rides the first live video track each
         subscriber is subscribed to. pad_num/pad_track are host-only."""
+        t0 = time.perf_counter()
+        span = trace_mod.stage_begin(trace_mod.PROBE)
         vid = self.meta.is_video & self.meta.published & ~self.meta.pub_muted
         cand = vid[:, :, None] & self.ctrl.subscribed
         pad_track = np.where(cand.any(axis=1), cand.argmax(axis=1), -1).astype(np.int32)
@@ -799,6 +829,10 @@ class PlaneRuntime:
         )
         st.inp = st.inp._replace(pad_num=np.asarray(pad_num, np.int32),
                                  pad_track=pad_track)
+        trace_mod.stage_end(trace_mod.PROBE, span)
+        st.probe_t0 = t0
+        st.probe_s = time.perf_counter() - t0
+        self.stats["probe_s"] += st.probe_s
 
     def _mirror_probe_inputs(self, out: plane.TickOutputs) -> None:
         self._last_committed = np.asarray(out.committed_bps)
@@ -811,10 +845,7 @@ class PlaneRuntime:
         deadline (dispatch edge + (1 + depth) periods), after the delivery
         callbacks have run."""
         c0 = time.perf_counter()
-        result = self._fan_out(
-            out, st.payloads, st.inp, 0.0, st.idx,
-            express=(st.express_rows, st.express_words, st.express_log),
-        )
+        result = self._fan_out(out, st)
         fanout_s = time.perf_counter() - c0
         # Attribution stamps for the wire-latency decomposition: the UDP
         # transport reads them off the batch inside the callbacks below.
@@ -829,6 +860,8 @@ class PlaneRuntime:
         self.stats["stage_s"] += st.stage_s
         self.stats["device_s"] += st.device_s
         self.stats["fanout_s"] += fanout_s
+        self.stats["munge_s"] += st.munge_s
+        self.stats["egress_rows"] += len(result.egress_batch)
         s0 = time.perf_counter()
         for cb in self._on_tick:
             r = cb(result)
@@ -864,7 +897,9 @@ class PlaneRuntime:
                 st.idx, st.edge, st.stage_t0, st.stage_s, st.retier_s,
                 st.upload_t0, st.upload_s, st.device_t0, st.device_s,
                 c0, fanout_s, send_s, st.edge_over_us, st.depth, late,
-                kernel_s=st.kernel_s,
+                kernel_s=st.kernel_s, push_t0=st.push_t0, push_s=st.push_s,
+                probe_t0=st.probe_t0, probe_s=st.probe_s, munge_t0=st.munge_t0,
+                munge_s=st.munge_s, views_t0=st.views_t0, views_s=st.views_s,
             )
             if st.blocks is not None:
                 self.trace.set_blocks(slot, st.blocks)
@@ -981,16 +1016,17 @@ class PlaneRuntime:
                 "or consume ticks via on_tick()."
             )
         loop = asyncio.get_running_loop()
-        st = self._stage_host()
-        self._schedule_probe(st)
-        async with self.state_lock:
-            self._upload(st)
-            out = await loop.run_in_executor(self._executor, self._device_step, st)
-        if out is None:
-            raise asyncio.CancelledError("device step abandoned by restart")
-        self._mirror_probe_inputs(out)
-        self.ingest.scrub_retired()
-        result = await self._complete(out, st)
+        with self._flight():
+            st = self._stage_host()
+            self._schedule_probe(st)
+            async with self.state_lock:
+                self._upload(st)
+                out = await loop.run_in_executor(self._executor, self._device_step, st)
+            if out is None:
+                raise asyncio.CancelledError("device step abandoned by restart")
+            self._mirror_probe_inputs(out)
+            self.ingest.scrub_retired()
+            result = await self._complete(out, st)
         if self.integrity is not None:
             # Sequential path: repair right after the tick that audited.
             await self.integrity.process()
@@ -1062,13 +1098,13 @@ class PlaneRuntime:
             for (r, t, s, sn, ts) in pads
         ]
 
-    def _fan_out(self, out: plane.TickOutputs, payloads, inp, tick_s: float,
-                 tick_idx: int | None = None,
-                 express: tuple | None = None) -> TickResult:
+    def _fan_out(self, out: plane.TickOutputs, st: StagedTick) -> TickResult:
         """Bit-packed egress masks → host munge (the native walker, sharded
         by the egress plane's room plan) → column arrays, plus the speaker
-        / keyframe / congestion / quality views of the tick's outputs.
-        `express` = (rows, words, log) of the express lane's window."""
+        / keyframe / congestion / quality views of the tick's outputs, for
+        staged tick `st` (its express lane window included). The walk and
+        the views are timed into `st`."""
+        payloads, inp, eff_idx = st.payloads, st.inp, st.idx
         send_bits, drop_bits, switch_bits = out.send_bits, out.drop_bits, out.switch_bits
         if self.integrity is not None and self.integrity.quarantined:
             # Same-tick quarantine: a room flagged by THIS tick's audit
@@ -1083,7 +1119,7 @@ class PlaneRuntime:
                 send_bits[rows] = 0
                 drop_bits[rows] = 0
                 switch_bits[rows] = 0
-        ex_rows, ex_words, ex_log = express if express is not None else (None,) * 3
+        ex_rows, ex_words, ex_log = st.express_rows, st.express_words, st.express_log
         if ex_rows is not None and len(ex_rows):
             # Express-handled rooms: their fast-path subscribers were
             # served (and their munger lanes advanced) on arrival during
@@ -1096,11 +1132,17 @@ class PlaneRuntime:
             send_bits[ex_rows] &= clear
             drop_bits[ex_rows] &= clear
             switch_bits[ex_rows] &= clear
+        m0 = time.perf_counter()
+        span = trace_mod.stage_begin(trace_mod.MUNGE)
         rr, tt, kk, ss, b_sn, b_ts, b_pid, b_tl0, b_ki = self.munger.apply_columns(
             inp.sn, inp.ts, inp.ts_jump, inp.pid, inp.tl0, inp.keyidx,
             inp.begin_pic, inp.valid, send_bits, drop_bits, switch_bits,
             shard_plan=self._munge_shard_plan,
         )
+        trace_mod.stage_end(trace_mod.MUNGE, span)
+        v0 = time.perf_counter()
+        span = trace_mod.stage_begin(trace_mod.VIEWS)
+        st.munge_t0, st.munge_s = m0, v0 - m0
         if len(self.munger.last_shard_ns):
             self.egress_plane.record_munge(
                 self.munger.last_shard_counts, self.munger.last_shard_ns
@@ -1119,7 +1161,6 @@ class PlaneRuntime:
         congested: dict[int, list[int]] = {}
         for r, s in zip(*np.nonzero(out.congested)):
             congested.setdefault(int(r), []).append(int(s))
-        eff_idx = self.tick_index if tick_idx is None else tick_idx
         self.host_seq.record(batch, eff_idx)
         if ex_log is not None and len(ex_log):
             # Express sends of this window, recorded against the same slab
@@ -1139,7 +1180,7 @@ class PlaneRuntime:
         padding = self._assemble_padding(inp)
         if padding:
             self.stats["pad_packets"] = self.stats.get("pad_packets", 0) + len(padding)
-        return TickResult(
+        result = TickResult(
             tick_index=eff_idx,
             egress_batch=batch,
             padding=padding,
@@ -1148,7 +1189,7 @@ class PlaneRuntime:
             congested=congested,
             fwd_packets=int(out.fwd_packets.sum()),
             fwd_bytes=int(out.fwd_bytes.sum()),
-            tick_s=tick_s,
+            tick_s=0.0,
             outputs=out,
             track_quality=out.track_quality,
             track_mos=out.track_mos,
@@ -1162,12 +1203,25 @@ class PlaneRuntime:
             red_ok=out.red_ok,
             pacer_allowed=out.pacer_allowed,
         )
+        trace_mod.stage_end(trace_mod.VIEWS, span)
+        st.views_t0, st.views_s = v0, time.perf_counter() - v0
+        return result
 
     # -- loop ------------------------------------------------------------
+    def _flight(self):
+        """The calling thread's flight recorder on while the runtime steps
+        (the served path's stage spans), when its trace ring is on."""
+        return trace_mod.flight() if self.trace is not None else contextlib.nullcontext()
+
     def start(self) -> None:
         if self._task is None:
             self.egress_plane.warm()  # spawn shard workers off the hot path
-            self._task = asyncio.ensure_future(self._run())
+            self._task = asyncio.ensure_future(self._serve())
+
+    async def _serve(self) -> None:
+        """The serving loop (`_run`), with the flight recorder on."""
+        with self._flight():
+            await self._run()
 
     async def _calibrate_sleep(self) -> None:
         """Measure this host's asyncio coarse-sleep overshoot once at loop

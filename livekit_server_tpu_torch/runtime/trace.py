@@ -12,7 +12,10 @@ dict/f-string/list construction):
   overshoot, depth, lateness, and per-egress-shard munge/send walls.
   The port's PlaneRuntime records every tick here (`snapshot` reads it),
   with the host spans of the tick's blocks inside its device step (the
-  block spans of models/plane.py, utils/spans.py, re-exported here).
+  block spans of models/plane.py, utils/spans.py, re-exported here) and
+  the served path's stages (`runtime.*`, utils/spans.py `STAGES`): the
+  pushes drained into the tick, its probe, and the munge/views split of
+  its fan-out.
 - **LatencyAttribution** — a deterministic 1-in-K sample of egress
   packets (sampled on the munged SN, so the set is stable across runs)
   whose arrival stamp is decomposed at the wire into staging / device /
@@ -37,7 +40,21 @@ from typing import Any
 
 import numpy as np
 
-from livekit_server_tpu_torch.utils.spans import NAMES, SPANS, set_flight  # noqa: F401
+from livekit_server_tpu_torch.utils.spans import (  # noqa: F401
+    DEVICE_STEP,
+    MUNGE,
+    NAMES,
+    PROBE,
+    PUSH,
+    SPANS,
+    STAGE,
+    STAGE_NAMES,
+    VIEWS,
+    flight,
+    set_flight,
+    stage_begin,
+    stage_end,
+)
 
 # Egress-shard lanes a tick record can hold (EgressPlane caps at 16).
 MAX_SHARDS = 16
@@ -121,6 +138,18 @@ class TickTraceRing:
         # clock; a duration of 0 where the block did not run.
         self.block_t0 = np.zeros((cap, len(SPANS)), np.float64)
         self.block_dur = np.zeros((cap, len(SPANS)), np.float64)
+        # The served path's stages of the tick beyond the spans above
+        # (perf_counter s; 0 where not recorded): the pushes drained into
+        # it (the first one's start, their summed seconds), the probe, and
+        # the fan-out's munge walk and the views after it.
+        self.push_t0 = np.zeros(cap, np.float64)
+        self.push_dur = np.zeros(cap, np.float64)
+        self.probe_t0 = np.zeros(cap, np.float64)
+        self.probe_dur = np.zeros(cap, np.float64)
+        self.munge_t0 = np.zeros(cap, np.float64)
+        self.munge_dur = np.zeros(cap, np.float64)
+        self.views_t0 = np.zeros(cap, np.float64)
+        self.views_dur = np.zeros(cap, np.float64)
         # (perf_counter s, unix epoch ns) read together: the exporter's
         # baseTimeNanoseconds.
         self.anchor = (time.perf_counter(), time.time_ns())
@@ -132,7 +161,10 @@ class TickTraceRing:
                     upload_s: float, device_t0: float, device_s: float,
                     fanout_t0: float, fanout_s: float, send_s: float,
                     wake_over_us: float, depth: int, late: bool,
-                    kernel_s: float = 0.0) -> int:
+                    kernel_s: float = 0.0, push_t0: float = 0.0, push_s: float = 0.0,
+                    probe_t0: float = 0.0, probe_s: float = 0.0,
+                    munge_t0: float = 0.0, munge_s: float = 0.0,
+                    views_t0: float = 0.0, views_s: float = 0.0) -> int:
         slot = self._pos
         self.idx[slot] = idx
         self.edge[slot] = edge
@@ -152,6 +184,14 @@ class TickTraceRing:
         self.late[slot] = late
         self.n_shards[slot] = 0
         self.block_dur[slot] = 0.0
+        self.push_t0[slot] = push_t0
+        self.push_dur[slot] = push_s
+        self.probe_t0[slot] = probe_t0
+        self.probe_dur[slot] = probe_s
+        self.munge_t0[slot] = munge_t0
+        self.munge_dur[slot] = munge_s
+        self.views_t0[slot] = views_t0
+        self.views_dur[slot] = views_s
         self._pos = (slot + 1) % self.cap
         self.recorded += 1
         return slot
@@ -213,7 +253,28 @@ class TickTraceRing:
                                float(self.block_dur[slot, i])]
                     for i in ran
                 }
+            if self.munge_t0[slot] > 0.0:
+                rec["runtime"] = self._stages(slot)
             out.append(rec)
+        return out
+
+    def _stages(self, slot: int) -> dict[str, list[float]]:
+        """The tick's served-path stages as `runtime.<stage>`: [start,
+        duration] (perf_counter s). `runtime.stage` is the staging after
+        the express retier, `runtime.device_step` the device step; a push
+        appears where pushes were drained into the tick, its duration their
+        summed seconds from the first one's start."""
+        s0, rs = float(self.stage_t0[slot]), float(self.retier_dur[slot])
+        out = {}
+        if self.push_t0[slot] > 0.0:
+            out["runtime.push"] = [float(self.push_t0[slot]), float(self.push_dur[slot])]
+        out["runtime.stage"] = [s0 + rs, float(self.stage_dur[slot]) - rs]
+        if self.probe_t0[slot] > 0.0:
+            out["runtime.probe"] = [float(self.probe_t0[slot]), float(self.probe_dur[slot])]
+        out["runtime.device_step"] = [float(self.device_t0[slot]),
+                                      float(self.device_dur[slot])]
+        out["runtime.munge"] = [float(self.munge_t0[slot]), float(self.munge_dur[slot])]
+        out["runtime.views"] = [float(self.views_t0[slot]), float(self.views_dur[slot])]
         return out
 
 

@@ -17,9 +17,18 @@ load directly:
     shard N — per-egress-shard munge/send walls, synthesized inside the
               fan-out/send windows
 
+and, where the ring holds a tick's served-path stages (`runtime.*`,
+utils/spans.py `STAGES`), runtime.stage nested in stage_host after the
+express retier and runtime.probe on the loop lane, runtime.device_step
+over device_step, runtime.munge and runtime.views (the walk, then the
+views and the batch) nested in fan_out, and runtime.push on a lane of
+its own, `ingest`: from the first push drained into the tick, for the
+pushes' summed seconds.
+
 `validate()` checks the schema the hard way (required fields, dur >= 0,
 strict span nesting per tid — overlap without containment is a broken
-trace — and every block span inside a device_step), and `selftest()`
+trace — every block span inside a device_step, and the munge/views split
+inside a fan_out), and `selftest()`
 runs a tiny plane on the given device for a few ticks and validates its
 own export.
 
@@ -53,10 +62,17 @@ from typing import Any
 TID_LOOP = 1
 TID_DEVICE = 2
 TID_FANOUT = 3
+TID_INGEST = 4
 TID_SHARD0 = 10  # shard i → tid TID_SHARD0 + i
 
 _LANE_NAMES = {TID_LOOP: "loop", TID_DEVICE: "device", TID_FANOUT: "fanout"}
 BLOCK_PREFIX = "plane."
+# The lane of each served-path stage; the fan-out's split must lie inside
+# a fan_out.
+STAGE_LANES = {"runtime.push": TID_INGEST, "runtime.stage": TID_LOOP,
+               "runtime.probe": TID_LOOP, "runtime.device_step": TID_DEVICE,
+               "runtime.munge": TID_FANOUT, "runtime.views": TID_FANOUT}
+INSIDE_FAN_OUT = ("runtime.munge", "runtime.views")
 
 
 def time_base(records: list[dict[str, Any]]) -> float:
@@ -67,6 +83,8 @@ def time_base(records: list[dict[str, Any]]) -> float:
             v = r.get(k, 0.0)
             if v > 0.0:
                 t0s.append(v)
+        # A tick's first push comes before its staging.
+        t0s.extend(s0 for s0, _ in r.get("runtime", {}).values() if s0 > 0.0)
     return min(t0s) if t0s else 0.0
 
 
@@ -91,6 +109,7 @@ def to_chrome(records: list[dict[str, Any]], tick_ms: int = 0) -> list[dict]:
 
     events: list[dict] = []
     shard_lanes = 0
+    pushes = False
     for r in records:
         tick = r["tick"]
         args = {"tick": tick, "depth": r.get("depth", 0),
@@ -192,11 +211,23 @@ def to_chrome(records: list[dict[str, Any]], tick_ms: int = 0) -> list[dict]:
                         "pid": 1, "tid": TID_SHARD0 + i,
                         "args": {"tick": tick},
                     })
+        # The served path's stages, each on its lane.
+        for name, (s0, ds) in r.get("runtime", {}).items():
+            pushes |= name == "runtime.push"
+            events.append({
+                "name": name, "ph": "X", "ts": us(s0), "dur": dur_us(ds),
+                "pid": 1, "tid": STAGE_LANES[name], "args": {"tick": tick},
+            })
     # Lane-name metadata events (Perfetto thread names).
     for tid, name in _LANE_NAMES.items():
         events.append({
             "name": "thread_name", "ph": "M", "pid": 1, "tid": tid,
             "args": {"name": name},
+        })
+    if pushes:
+        events.append({
+            "name": "thread_name", "ph": "M", "pid": 1, "tid": TID_INGEST,
+            "args": {"name": "ingest"},
         })
     for i in range(shard_lanes):
         events.append({
@@ -211,6 +242,7 @@ def validate(events: list[dict]) -> list[str]:
     errors: list[str] = []
     spans: dict[tuple, list[tuple[float, float, str]]] = {}
     steps: dict[tuple, list[tuple[float, float]]] = {}
+    fan_outs: dict[tuple, list[tuple[float, float]]] = {}
     for i, e in enumerate(events):
         for field in ("name", "ph", "pid", "tid"):
             if field not in e:
@@ -238,8 +270,9 @@ def validate(events: list[dict]) -> list[str]:
                 (float(e["ts"]), float(e["ts"]) + float(dur),
                  str(e.get("name")))
             )
-            if e.get("name") == "device_step":
-                steps.setdefault((e.get("pid"), e.get("tid")), []).append(
+            if e.get("name") in ("device_step", "fan_out"):
+                into = steps if e["name"] == "device_step" else fan_outs
+                into.setdefault((e.get("pid"), e.get("tid")), []).append(
                     (float(e["ts"]), float(e["ts"]) + float(dur)))
     # Nesting: on one tid, any two overlapping spans must be contained
     # (chrome://tracing silently mis-renders partial overlap).
@@ -259,13 +292,20 @@ def validate(events: list[dict]) -> list[str]:
                     f"[{stack[-1][0]}, {stack[-1][1]}]"
                 )
             stack.append((s, t, name))
-    # Block spans: each inside a device_step of its lane.
+    # Block spans: each inside a device_step of its lane; the fan-out's
+    # split inside a fan_out.
     for (pid, tid), lst in spans.items():
         for s, t, name in lst:
-            if name.startswith(BLOCK_PREFIX) and not any(
-                    a - EPS <= s and t <= b + EPS for a, b in steps.get((pid, tid), ())):
-                errors.append(f"tid {tid}: block span {name!r} [{s}, {t}] "
-                              f"outside every device_step")
+            if name.startswith(BLOCK_PREFIX):
+                kind, parents = "block span", steps.get((pid, tid), ())
+            elif name in INSIDE_FAN_OUT:
+                kind, parents = "fan-out stage", fan_outs.get((pid, tid), ())
+            else:
+                continue
+            if not any(a - EPS <= s and t <= b + EPS for a, b in parents):
+                parent = "device_step" if kind == "block span" else "fan_out"
+                errors.append(f"tid {tid}: {kind} {name!r} [{s}, {t}] "
+                              f"outside every {parent}")
     return errors
 
 
@@ -320,7 +360,8 @@ def selftest(ticks: int = 6, device="cuda") -> list[str]:
     problems.extend(validate(events))
     names = {e.get("name") for e in events}
     for want in ("stage_host", "device_step", "fan_out", "plane.unpack", "plane.tick",
-                 "plane.pack"):
+                 "plane.pack", "runtime.stage", "runtime.probe",
+                 "runtime.device_step", "runtime.munge", "runtime.views"):
         if want not in names:
             problems.append(f"expected span {want!r} missing from export")
     if records and "baseTimeNanoseconds" not in parsed:

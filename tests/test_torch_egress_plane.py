@@ -154,6 +154,41 @@ def test_walk_multi_matches_single_walk():
         np.testing.assert_array_equal(getattr(h_one, f), getattr(h_multi, f), err_msg=f)
 
 
+@pytest.mark.parametrize("shards", [2, 4, 6])
+def test_walk_multi_shards_claimed_and_overflow_untouched(shards):
+    """The sharded walk at several shard counts, down to one room a
+    shard: equal to the single walk, each shard's count and walk time
+    reported; a cap one short of the tick's entries returns None with no
+    munger lane changed."""
+    assert native.munge is not None
+    R, T, K, S = 6, 3, 4, 37
+    dims = plane.PlaneDims(R, T, K, S)
+    rng = np.random.default_rng(31 + shards)
+    h_one, h_multi = HostMunger(dims), HostMunger(dims)
+    r_lo, r_hi = EgressPlane(shards=shards).room_plan(R)
+    for _ in range(3):
+        sn, ts, ts_jump, pid, tl0, ki, begin, valid, fwd, drop, switch = _random_tick(
+            rng, R, T, K, S)
+        fwd &= valid[..., None]
+        drop &= valid[..., None] & ~fwd
+        switch &= fwd
+        words = [bits.pack_bits(torch.from_numpy(m)).numpy() for m in (fwd, drop, switch)]
+        args = (sn, ts, ts_jump, pid, tl0, ki, begin, valid, *words)
+        cap = int(fwd.sum())
+        before = {f: getattr(h_multi, f).copy() for f in HostMunger.FIELDS}
+        assert native.munge.walk_multi(*args, h_multi, cap - 1, r_lo, r_hi) is None
+        for f in HostMunger.FIELDS:
+            np.testing.assert_array_equal(getattr(h_multi, f), before[f], err_msg=f)
+        cols, counts, ns = native.munge.walk_multi(*args, h_multi, cap, r_lo, r_hi)
+        want = native.munge.walk(*args, h_one, cap)
+        for a, b in zip(want, cols):
+            np.testing.assert_array_equal(a, b)
+        assert len(counts) == len(r_lo) and int(counts.sum()) == cap == len(cols[0])
+        assert (ns >= 0).all()
+    for f in HostMunger.FIELDS:
+        np.testing.assert_array_equal(getattr(h_one, f), getattr(h_multi, f), err_msg=f)
+
+
 def test_pool_stress_across_shard_count_changes():
     """C12: before the fix a straggler of one call built a shard of the
     next (short `sent`, 7–35 calls in 3,000) or left the caller waiting

@@ -152,6 +152,12 @@ class _NativeRTP:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p,
         ]
+        self.lib.reorder_slots.restype = ctypes.c_int
+        self.lib.reorder_slots.argtypes = [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
         self.native = True
 
     def gather_ranges(self, blob: np.ndarray, starts, lens) -> bytes:
@@ -165,6 +171,32 @@ class _NativeRTP:
             len(starts_c), out.ctypes.data,
         )
         return out[: int(n)].tobytes()
+
+    def reorder_slots(self, count: np.ndarray, fields: dict) -> tuple[int, int, int]:
+        """The drain's reorder and dedup in place over a staging set:
+        `count` [R, T] int32, `fields` the set's [R, T, K] per-slot arrays
+        by name (C-contiguous, 1-, 4- or 8-byte items; `sn`, `layer` and
+        `valid` among them). Returns (rows with two or more packets, rows
+        permuted, duplicates marked), as `ingest._reorder_dedup_plain`."""
+        sn, layer, valid = fields["sn"], fields["layer"], fields["valid"]
+        R, T, K = sn.shape
+        arrs = list(fields.values())
+        if not (all(a.shape == (R, T, K) and a.flags.c_contiguous for a in arrs)
+                and sn.dtype == layer.dtype == np.int32 and valid.itemsize == 1):
+            raise ValueError("reorder_slots: per-slot arrays must be C-contiguous "
+                             "[R, T, K], sn and layer int32, valid one byte")
+        count = np.ascontiguousarray(count, np.int32)
+        ptrs = np.array([a.ctypes.data for a in arrs], np.uintp)
+        widths = np.array([a.itemsize for a in arrs], np.int32)
+        out = np.zeros(3, np.int64)
+        rc = self.lib.reorder_slots(
+            R * T, K, count.ctypes.data, sn.ctypes.data, layer.ctypes.data,
+            valid.ctypes.data, len(arrs), ptrs.ctypes.data, widths.ctypes.data,
+            out.ctypes.data,
+        )
+        if rc != 0:
+            raise ValueError(f"reorder_slots: item widths {widths.tolist()} not 1, 4 or 8")
+        return int(out[0]), int(out[1]), int(out[2])
 
     def parse_batch(
         self,

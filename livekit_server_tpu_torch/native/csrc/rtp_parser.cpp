@@ -13,6 +13,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 extern "C" {
 
@@ -374,6 +375,103 @@ int64_t gather_ranges(const uint8_t* blob, const int64_t* starts,
     o += l;
   }
   return o;
+}
+
+}  // extern "C"
+
+// row[j] = old row[idx[j]] for j < K, through `tmp` (room for K items).
+template <typename T>
+static inline void permute_row(T* row, const int* idx, int K, void* tmp) {
+  T* t = static_cast<T*>(tmp);
+  for (int j = 0; j < K; j++) t[j] = row[j];
+  for (int j = 0; j < K; j++) row[j] = t[idx[j]];
+}
+
+extern "C" {
+
+// The drain's within-tick reorder and dedup (ingest._reorder_dedup),
+// in place over the [n_rows, K] staging set, visiting only the rows
+// whose count holds two or more packets. A row's slots are sorted
+// stably by (layer, SN relative to the first valid slot of the same
+// layer in slot order, in the 16-bit ring; 0 below layer 0); invalid
+// slots sort last. Every per-slot array in `fields` (widths 1, 4 or 8
+// bytes, [n_rows, K] each) is permuted alike, sn, layer and valid
+// among them. Then a valid slot whose layer and SN equal those of the
+// valid slot before it is marked invalid, judged on the sorted, not yet
+// deduplicated row. out[0]: rows visited, out[1]: rows permuted,
+// out[2]: slots marked duplicate. Returns 0, or -1 on a width it does
+// not know (nothing is touched then).
+int reorder_slots(int64_t n_rows, int K, const int32_t* count,
+                  const int32_t* sn, const int32_t* layer, uint8_t* valid,
+                  int n_fields, uint8_t* const* fields, const int32_t* widths,
+                  int64_t* out) {
+  for (int f = 0; f < n_fields; f++)
+    if (widths[f] != 1 && widths[f] != 4 && widths[f] != 8) return -1;
+  std::vector<int64_t> key(K);
+  std::vector<int> idx(K);
+  std::vector<int64_t> tmp(K);
+  int64_t rows = 0, moved = 0, dupes = 0;
+  for (int64_t r = 0; r < n_rows; r++) {
+    if (count[r] < 2) continue;
+    rows++;
+    const int64_t o = r * K;
+    const int32_t* s = sn + o;
+    const int32_t* l = layer + o;
+    uint8_t* v = valid + o;
+    for (int j = 0; j < K; j++) {
+      idx[j] = j;
+      if (!v[j]) {
+        key[j] = (int64_t)1 << 40;
+        continue;
+      }
+      int64_t rel = 0;
+      if (l[j] >= 0) {
+        int first = 0;
+        while (!(v[first] && l[first] == l[j])) first++;
+        uint32_t d = ((uint32_t)s[j] - (uint32_t)s[first]) & 0xFFFF;
+        rel = d >= 0x8000 ? (int64_t)d - 0x10000 : (int64_t)d;
+      }
+      key[j] = (int64_t)l[j] * (1 << 20) + rel;
+    }
+    // Stable insertion sort of the slot indices by key.
+    bool perm = false;
+    for (int i = 1; i < K; i++) {
+      int x = idx[i];
+      int j = i - 1;
+      while (j >= 0 && key[idx[j]] > key[x]) {
+        idx[j + 1] = idx[j];
+        j--;
+        perm = true;
+      }
+      idx[j + 1] = x;
+    }
+    if (perm) {
+      moved++;
+      for (int f = 0; f < n_fields; f++) {
+        if (widths[f] == 1)
+          permute_row(fields[f] + o, idx.data(), K, tmp.data());
+        else if (widths[f] == 4)
+          permute_row(reinterpret_cast<int32_t*>(fields[f]) + o, idx.data(), K, tmp.data());
+        else
+          permute_row(reinterpret_cast<int64_t*>(fields[f]) + o, idx.data(), K, tmp.data());
+      }
+    }
+    // sn, layer and valid are among the fields, so s, l and v now read
+    // the sorted row; `prev` keeps the slot before's validity undeduped.
+    bool prev = v[0] != 0;
+    for (int j = 1; j < K; j++) {
+      bool cur = v[j] != 0;
+      if (cur && prev && s[j] == s[j - 1] && l[j] == l[j - 1]) {
+        v[j] = 0;
+        dupes++;
+      }
+      prev = cur;
+    }
+  }
+  out[0] = rows;
+  out[1] = moved;
+  out[2] = dupes;
+  return 0;
 }
 
 }  // extern "C"

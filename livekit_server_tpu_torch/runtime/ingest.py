@@ -8,7 +8,9 @@ the device step and resets the cursors. Overflow (more than K packets in
 one tick) drops and counts; payload bytes stay in a host slab.
 
 A copy of the JAX package's runtime/ingest.py: push / push_batch /
-feedback staging, the within-tick reorder + dedup, and the
+feedback staging, the within-tick reorder + dedup (one native pass
+over the rows that hold two or more packets, which also moves the DD
+bytes' indices and the arrival stamps with their packets), and the
 double-buffered drain, with the numpy payload gather and the arrival
 stamps (`t_arr`); drops split by cause (capacity, fault, policed); the
 governor's per-(room, track) ingress policer (scalar and batch paths);
@@ -22,7 +24,9 @@ the arrival hook `on_put`, set by the express lane (runtime/express.py).
 PlaneRuntime owns the buffer), and it opens the `runtime.push` span
 (utils/spans.py). `last_push` is what the pushes drained into the last
 tick took: the first one's start (perf_counter s, 0 = none) and their
-summed seconds.
+summed seconds. The drain's reorder adds to `stats` the rows that held
+two or more packets (`reorder_rows`) and those it permuted
+(`reorder_moved`).
 """
 
 from __future__ import annotations
@@ -63,6 +67,44 @@ def _gather_ranges_plain(blob: np.ndarray, starts: np.ndarray, lens: np.ndarray)
         starts - np.concatenate([[np.int64(0)], np.cumsum(lens[:-1])]), lens
     )
     return (blob[out_base + np.arange(total, dtype=np.int64)]).tobytes()
+
+
+def _reorder_dedup_plain(count: np.ndarray, fields: dict) -> tuple[int, int, int]:
+    """The numpy form of the drain's reorder and dedup, in place over a
+    staging set's [R, T, K] per-slot `fields` (by name; `sn`, `layer`
+    and `valid` among them): each row sorted stably by (layer, SN
+    relative to the layer's first valid slot in the 16-bit ring), invalid
+    slots last, every field permuted alike; then a valid slot equal in SN
+    and layer to the valid slot before it is marked invalid. Returns
+    (rows with two or more packets, rows permuted, duplicates marked)."""
+    sn, layer, valid = fields["sn"], fields["layer"], fields["valid"]
+    K = sn.shape[-1]
+    rel = np.zeros(sn.shape, np.int32)
+    for l in range(int(layer.max()) + 1 if valid.any() else 0):
+        m = valid & (layer == l)
+        if not m.any():
+            continue
+        first = np.argmax(m, axis=-1)
+        base = np.take_along_axis(sn, first[:, :, None], axis=-1)
+        d = (sn - base) & 0xFFFF
+        rel = np.where(m, np.where(d >= 0x8000, d - 0x10000, d), rel)
+    key = np.where(valid, layer.astype(np.int64) * (1 << 20) + rel, 1 << 40)
+    order = np.argsort(key, axis=-1, kind="stable")
+    row_moved = (order != np.arange(K)).any(axis=-1)
+    if row_moved.any():
+        for arr in fields.values():
+            arr[...] = np.take_along_axis(arr, order, axis=-1)
+    dup = np.zeros_like(valid)
+    dup[:, :, 1:] = (
+        valid[:, :, 1:]
+        & valid[:, :, :-1]
+        & (sn[:, :, 1:] == sn[:, :, :-1])
+        & (layer[:, :, 1:] == layer[:, :, :-1])
+    )
+    n = int(dup.sum())
+    if n:
+        valid[dup] = False
+    return int((count > 1).sum()), int(row_moved.sum()), n
 
 
 def _wrap_i32(x: int) -> int:
@@ -158,13 +200,15 @@ class _StagingSet:
     """One of the two ping-ponged per-tick staging halves; IngestBuffer
     binds the active set's arrays as its own attributes."""
 
-    ARRAYS = (
-        "_count", "sn", "ts", "layer", "temporal", "keyframe", "layer_sync",
+    # The [R, T, K] arrays, one entry a packet slot: what the drain's
+    # reorder permutes.
+    SLOT_ARRAYS = (
+        "sn", "ts", "layer", "temporal", "keyframe", "layer_sync",
         "begin_pic", "end_frame", "pid", "tl0", "keyidx", "size", "frame_ms",
         "audio_level", "arrival_rtp", "ts_jump", "valid",
-        "_slab", "pay_off", "pay_len", "marker", "t_arr",
-        "dd_off", "dd_len", "dd_ver",
+        "pay_off", "pay_len", "marker", "t_arr", "dd_off", "dd_len", "dd_ver",
     )
+    ARRAYS = ("_count", "_slab") + SLOT_ARRAYS
 
     def __init__(self, dims: plane.PlaneDims):
         R, T, K, _ = dims
@@ -225,7 +269,7 @@ class IngestBuffer:
         self.dims = dims
         self.tick_ms = tick_ms
         self.stats = {} if stats is None else stats
-        self.stats.update(push_s=0.0, pushed_packets=0)
+        self.stats.update(push_s=0.0, pushed_packets=0, reorder_rows=0, reorder_moved=0)
         self._push_t0 = 0.0
         self._push_s0 = 0.0
         self.last_push = (0.0, 0.0)
@@ -664,43 +708,24 @@ class IngestBuffer:
     def _reorder_dedup(self) -> None:
         """Sort each (room, track)'s staged packets by (layer, SN) and drop
         same-SN duplicates (buffer.go reorder + duplicate detection),
-        within the tick."""
+        within the tick: the native row pass (native/csrc/rtp_parser.cpp
+        reorder_slots) when the library loaded, else
+        `_reorder_dedup_plain`, which gives the same arrays. Adds the rows
+        holding two or more packets and the rows permuted to `stats`
+        (`reorder_rows`, `reorder_moved`)."""
         if not (self._count > 1).any():
             return
-        R, T, K = self.sn.shape
-        rel = np.zeros((R, T, K), np.int32)
-        for l in range(int(self.layer.max()) + 1 if self.valid.any() else 0):
-            m = self.valid & (self.layer == l)
-            if not m.any():
-                continue
-            first = np.argmax(m, axis=-1)
-            base = np.take_along_axis(self.sn, first[:, :, None], axis=-1)
-            d = (self.sn - base) & 0xFFFF
-            rel = np.where(m, np.where(d >= 0x8000, d - 0x10000, d), rel)
-        key = np.where(
-            self.valid, self.layer.astype(np.int64) * (1 << 20) + rel, 1 << 40
-        )
-        order = np.argsort(key, axis=-1, kind="stable")
-        if not (order == np.arange(K)).all():
-            for arr in (
-                self.sn, self.ts, self.layer, self.temporal, self.keyframe,
-                self.layer_sync, self.begin_pic, self.end_frame, self.pid,
-                self.tl0, self.keyidx, self.size, self.frame_ms,
-                self.audio_level, self.arrival_rtp, self.ts_jump, self.valid,
-                self.pay_off, self.pay_len, self.marker,
-            ):
-                arr[...] = np.take_along_axis(arr, order, axis=-1)
-        dup = np.zeros_like(self.valid)
-        dup[:, :, 1:] = (
-            self.valid[:, :, 1:]
-            & self.valid[:, :, :-1]
-            & (self.sn[:, :, 1:] == self.sn[:, :, :-1])
-            & (self.layer[:, :, 1:] == self.layer[:, :, :-1])
-        )
-        n = int(dup.sum())
-        if n:
-            self.valid[dup] = False
-            self.dupes += n
+        from livekit_server_tpu_torch import native
+
+        rtp = native.rtp
+        fields = {name: getattr(self, name) for name in _StagingSet.SLOT_ARRAYS}
+        if getattr(rtp, "native", False):
+            rows, moved, dupes = rtp.reorder_slots(self._count, fields)
+        else:
+            rows, moved, dupes = _reorder_dedup_plain(self._count, fields)
+        self.stats["reorder_rows"] += rows
+        self.stats["reorder_moved"] += moved
+        self.dupes += dupes
 
     def drain(self, roll_quality: bool = False,
               tick_index: int = 0) -> tuple[plane.TickInputs, PayloadSlab]:

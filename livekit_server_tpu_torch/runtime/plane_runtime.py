@@ -14,7 +14,8 @@ single-device path. Per tick:
      speakers, keyframe requests, congestion → registered callbacks.
 
 Each stage is timed into `stats`, always: `push_s` and `pushed_packets`
-(the ingest push, runtime/ingest.py), `stage_s`, `probe_s`,
+(the ingest push, runtime/ingest.py; its drain adds `reorder_rows` and
+`reorder_moved`), `stage_s`, `probe_s`,
 `ctrl_upload_s`, `device_s`, `fanout_s` and within it `munge_s` (the
 native walk), and `egress_rows` (the rows the walk gave). With the trace
 ring on, the stages also open the `runtime.*` spans of utils/spans.py on

@@ -19,14 +19,14 @@ delayed packets re-entering at drain); the migration freeze
 (`frozen_rows`, the `freeze_sinks` bridge taps, `extract_row`); and
 the arrival hook `on_put`, set by the express lane (runtime/express.py).
 
-`push_batch` is timed: its seconds and the packets it staged add up in
-`stats` (`push_s`, `pushed_packets`; the runtime's stats when a
-PlaneRuntime owns the buffer), and it opens the `runtime.push` span
-(utils/spans.py). `last_push` is what the pushes drained into the last
-tick took: the first one's start (perf_counter s, 0 = none) and their
-summed seconds. The drain's reorder adds to `stats` the rows that held
-two or more packets (`reorder_rows`) and those it permuted
-(`reorder_moved`).
+`push_batch` is timed once: its seconds and the packets it staged add
+up in `stats` (`push_s`, `pushed_packets`; the runtime's stats when a
+PlaneRuntime owns the buffer), and `last_push` is what the pushes
+drained into the last tick took: the first one's start (perf_counter s,
+0 = none) and their summed seconds, which the runtime copies into that
+tick's record as its push stage. The drain's reorder adds to `stats`
+the rows that held two or more packets (`reorder_rows`) and those it
+permuted (`reorder_moved`).
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ from dataclasses import dataclass
 import numpy as np
 
 from livekit_server_tpu_torch.models import plane
-from livekit_server_tpu_torch.utils import spans
 
 # Max NACKed SNs per (room, sub) per tick counted into the BWE loss channel.
 NACK_COUNT_CAP = 8
@@ -484,12 +483,9 @@ class IngestBuffer:
 
     def push_batch(self, *args, **kwargs) -> int:
         """Vectorized push of a whole receive batch (`_push_batch`'s
-        arguments), timed into `stats` and the `runtime.push` span.
-        Returns packets staged."""
+        arguments), timed into `stats`. Returns packets staged."""
         t0 = time.perf_counter()
-        span = spans.stage_begin(spans.PUSH)
         n = self._push_batch(*args, **kwargs)
-        spans.stage_end(spans.PUSH, span)
         st = self.stats
         st["push_s"] += time.perf_counter() - t0
         st["pushed_packets"] += n

@@ -64,6 +64,7 @@ from livekit_server_tpu_torch.runtime.plane_runtime import (
 )
 from livekit_server_tpu_torch.runtime.slots import PagedSlotAllocator
 from livekit_server_tpu_torch.utils.logger import Logger
+from livekit_server_tpu_torch.utils.spans import KERNEL
 
 
 def _numpy(tree):
@@ -98,8 +99,7 @@ class PagedPlaneRuntime(PlaneRuntime):
         self.pdims = dims
         self._pk_mode = paged_kernel
         self._pk_enabled = paged_kernel != "off"
-        self._kernel_s_scratch = 0.0
-        self._kernel_steps_scratch = 0
+        self._stepping: StagedTick | None = None   # the tick `_device_step` runs
         self.pager = RoomPager(
             dims.rooms, dims.tracks, dims.subs,
             tpage=dims.tpage, spage=dims.spage, pool_pages=dims.pool_pages,
@@ -168,12 +168,13 @@ class PagedPlaneRuntime(PlaneRuntime):
 
     def _live_step(self, state, wire):
         """Live-extent device step; the phase-0 span and block count go to
-        scratch fields that `_device_step` copies onto the StagedTick."""
-        state, buf, self._kernel_s_scratch = paged.live_step(
+        the record of the tick being stepped."""
+        st = self._stepping
+        state, buf, st.dur[KERNEL] = paged.live_step(
             state, self.table, wire, self.pdims, self._live_rows, self._live_inv,
             self._ap, self._bp, self.red_enabled,
         )
-        self._kernel_steps_scratch = int(self._live_rows.numel())
+        st.kernel_steps = int(self._live_rows.numel())
         return state, buf
 
     def _pack_inputs(self, inp: plane.TickInputs) -> np.ndarray:
@@ -201,11 +202,8 @@ class PagedPlaneRuntime(PlaneRuntime):
                                                      self._logical_fill().sel))
 
     def _device_step(self, st: StagedTick) -> plane.TickOutputs | None:
-        out = super()._device_step(st)
-        if out is not None and self._pk_enabled:
-            st.kernel_s = self._kernel_s_scratch
-            st.kernel_steps = self._kernel_steps_scratch
-        return out
+        self._stepping = st
+        return super()._device_step(st)
 
     def _tick_rec_extras(self, st: StagedTick) -> dict:
         if not self._pk_enabled:
@@ -213,7 +211,7 @@ class PagedPlaneRuntime(PlaneRuntime):
         self.stats["paged_kernel_ticks"] += 1
         self.stats["paged_kernel_steps"] += st.kernel_steps
         return {
-            "paged_kernel_ms": round(st.kernel_s * 1000.0, 3),
+            "paged_kernel_ms": round(float(st.dur[KERNEL]) * 1000.0, 3),
             "page_live_fraction": round(self._live_n / self.pdims.pool_pages, 4),
         }
 

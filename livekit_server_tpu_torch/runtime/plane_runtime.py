@@ -13,15 +13,18 @@ single-device path. Per tick:
   4. fan out: host munging of the bit-packed masks into egress columns,
      speakers, keyframe requests, congestion → registered callbacks.
 
-Each stage is timed into `stats`, always: `push_s` and `pushed_packets`
-(the ingest push, runtime/ingest.py; its drain adds `reorder_rows` and
-`reorder_moved`), `stage_s`, `probe_s`,
-`ctrl_upload_s`, `device_s`, `fanout_s` and within it `munge_s` (the
-native walk), and `egress_rows` (the rows the walk gave). With the trace
-ring on, the stages also open the `runtime.*` spans of utils/spans.py on
-the thread that steps the runtime and on the device step's, and the ring
-records each tick's stages, the munge/views split of its fan-out
-included.
+Each stage of a tick (utils/spans.py `STAGES`) is timed once, into the
+tick's record: `StagedTick.t0` and `.dur`, written by `StagedTick.span`.
+Everything else reads that record: the `stats` counters (`COUNTERS`:
+`stage_s`, `probe_s`, `ctrl_upload_s`, `device_s`, `fanout_s` and within
+it `munge_s`, the native walk; the upload added at dispatch, the probe at
+the edge, so an abandoned step's count, and the rest when the tick
+completes); `recent_ticks`; and, with the trace ring on, the ring
+(runtime/trace.py), which copies the two rows.
+The ingest push counts `push_s` and `pushed_packets` itself
+(runtime/ingest.py; its drain adds `reorder_rows` and `reorder_moved`,
+and hands the tick the pushes it drained, `last_push`); `egress_rows`
+counts the rows the walk gave.
 
 The serving loop (`start` → `_run` → `stop`) pipelines three stages
 within one tick window: stage N+1 ‖ device N ‖ fan-out N-1; `step_once`
@@ -106,6 +109,24 @@ from livekit_server_tpu_torch.runtime.munge import HostMunger
 from livekit_server_tpu_torch.runtime.probe import PAD_BYTES, ProbeController
 from livekit_server_tpu_torch.runtime.slots import SlotAllocator
 from livekit_server_tpu_torch.utils import checksum
+from livekit_server_tpu_torch.utils.spans import (
+    DEVICE_STEP,
+    FANOUT,
+    MUNGE,
+    PROBE,
+    PUSH,
+    RETIER,
+    SEND,
+    STAGE,
+    STAGES,
+    UPLOAD,
+    VIEWS,
+)
+
+# The `stats` counter of each stage the runtime counts: seconds summed
+# over the ticks (the ingest counts the push, `push_s`).
+COUNTERS = {STAGE: "stage_s", PROBE: "probe_s", DEVICE_STEP: "device_s",
+            FANOUT: "fanout_s", MUNGE: "munge_s", UPLOAD: "ctrl_upload_s"}
 
 
 @dataclass
@@ -268,19 +289,16 @@ class TickResult:
 @dataclass
 class StagedTick:
     """One tick's host-staged inputs, carried through the three-stage
-    pipeline (stage N+1 ‖ device N ‖ fan-out N-1) with its per-stage
-    timings. `wire` is the packed device input, a buffer of its own: the
-    ingest staging set it was packed from is free again as soon as
-    `_stage_host` returns, whatever the device copy is doing."""
+    pipeline (stage N+1 ‖ device N ‖ fan-out N-1) with the record of its
+    stages' timings. `wire` is the packed device input, a buffer of its
+    own: the ingest staging set it was packed from is free again as soon
+    as `_stage_host` returns, whatever the device copy is doing."""
 
-    inp: plane.TickInputs
-    payloads: Any
     idx: int
     roll: bool
+    inp: plane.TickInputs | None = None
+    payloads: Any = None
     wire: np.ndarray | None = None   # the packed device inputs, one buffer
-    stage_s: float = 0.0
-    device_s: float = 0.0
-    kernel_s: float = 0.0            # paged live path: phase-0 kernel span
     kernel_steps: int = 0            # paged live path: kernel blocks launched
     edge: float = 0.0      # scheduled dispatch edge (perf_counter)
     deadline: float = 0.0  # owning-tick egress deadline; 0 = unaccounted
@@ -293,27 +311,22 @@ class StagedTick:
     express_rows: Any = None
     express_words: Any = None
     express_log: Any = None
-    # Span start stamps for the trace ring: staging start, the express
-    # retier's slice of it, the ctrl-upload window and the device
-    # dispatch time; the pushes drained into this tick (the first one's
-    # start, their summed seconds), the probe, and the fan-out's munge
-    # walk and views.
-    stage_t0: float = 0.0
-    retier_s: float = 0.0
-    upload_t0: float = 0.0
-    upload_s: float = 0.0
-    device_t0: float = 0.0
-    push_t0: float = 0.0
-    push_s: float = 0.0
-    probe_t0: float = 0.0
-    probe_s: float = 0.0
-    munge_t0: float = 0.0
-    munge_s: float = 0.0
-    views_t0: float = 0.0
-    views_s: float = 0.0
+    # Each stage's start and duration (perf_counter s, STAGES order); 0
+    # where the tick has not run it. The push is the pushes drained into
+    # the tick: the first one's start and their summed seconds.
+    t0: np.ndarray = field(default_factory=lambda: np.zeros(len(STAGES)))
+    dur: np.ndarray = field(default_factory=lambda: np.zeros(len(STAGES)))
     # The device step's block spans (`SpanRecorder.last`), None when the
     # trace ring is off.
     blocks: Any = None
+
+    def span(self, stage: int, t0: float) -> float:
+        """Record `stage` as run from `t0` (perf_counter s) to now;
+        returns now, where a stage that follows it starts."""
+        t1 = time.perf_counter()
+        self.t0[stage] = t0
+        self.dur[stage] = t1 - t0
+        return t1
 
 
 class PlaneRuntime:
@@ -347,15 +360,15 @@ class PlaneRuntime:
         self.slots = SlotAllocator(dims.rooms, dims.tracks, dims.subs)
         self.stats = {
             "ticks": 0, "fwd_packets": 0, "fwd_bytes": 0, "late_ticks": 0,
-            # Pipeline shape: cumulative per-stage seconds + stall count
-            # (a window that found the previous fan-out still running).
-            # The ingest push adds push_s and pushed_packets.
-            "stage_s": 0.0, "probe_s": 0.0, "device_s": 0.0, "fanout_s": 0.0,
+            # Pipeline shape: cumulative per-stage seconds (COUNTERS) +
+            # stall count (a window that found the previous fan-out still
+            # running). The ingest push adds push_s and pushed_packets.
+            **dict.fromkeys(COUNTERS.values(), 0.0),
             "pipeline_stalls": 0,
-            # The fan-out's native munge walk and the rows it gave.
-            "munge_s": 0.0, "egress_rows": 0,
+            # The rows the fan-out's native munge walk gave.
+            "egress_rows": 0,
             "ctrl_full_uploads": 0, "ctrl_delta_uploads": 0,
-            "ctrl_delta_rows": 0, "ctrl_upload_bytes": 0, "ctrl_upload_s": 0.0,
+            "ctrl_delta_rows": 0, "ctrl_upload_bytes": 0,
             # Device steps a supervisor restart abandoned (they returned
             # without committing their state).
             "abandoned_steps": 0,
@@ -696,14 +709,19 @@ class PlaneRuntime:
         self._dirty_rows = set()
         self._ctrl_dirty = False
 
+    def _count(self, st: StagedTick, *stages: int) -> None:
+        """Add `st`'s seconds in each of `stages` to its `stats` counter."""
+        for s in stages:
+            self.stats[COUNTERS[s]] += float(st.dur[s])
+
     def _upload(self, st: StagedTick) -> None:
         """The ctrl upload of `st`'s dispatch, timed, on the runtime's
         stream. Caller holds state_lock (event-loop thread)."""
-        st.upload_t0 = time.perf_counter()
+        t0 = time.perf_counter()
         with self._on_stream():
             self._upload_ctrl()
-        st.upload_s = time.perf_counter() - st.upload_t0
-        self.stats["ctrl_upload_s"] += st.upload_s
+        st.span(UPLOAD, t0)
+        self._count(st, UPLOAD)
 
     def _device_step(self, st: StagedTick) -> plane.TickOutputs | None:
         """The device round trip: one upload of the packed inputs, the
@@ -726,9 +744,6 @@ class PlaneRuntime:
             spans = trace_mod.set_flight(True)
             mark = spans.mark()
         t0 = time.perf_counter()
-        st.device_t0 = t0
-        # An abandoned step leaves its span open, which records nothing.
-        span = trace_mod.stage_begin(trace_mod.DEVICE_STEP)
         if self.fault is not None:
             self.fault.maybe_stall()
         if epoch != self.run_epoch:
@@ -769,8 +784,7 @@ class PlaneRuntime:
                 with self._commit_lock:
                     if epoch == self.run_epoch:
                         self.integrity.maybe_audit(st.idx)
-        trace_mod.stage_end(trace_mod.DEVICE_STEP, span)
-        st.device_s = time.perf_counter() - t0
+        st.span(DEVICE_STEP, t0)
         return out
 
     def _stage_host(self) -> StagedTick:
@@ -780,14 +794,11 @@ class PlaneRuntime:
         flips to the other staging set, and the packing consumes the
         retired set's field views before that set can be drained again."""
         t0 = time.perf_counter()
-        span = trace_mod.stage_begin(trace_mod.STAGE)
         idx = self.tick_index
         self.tick_index += 1
         # Close the quality/stats window about once per second.
         q_ticks = max(1, 1000 // self.tick_ms)
-        roll = (idx + 1) % q_ticks == 0
-        ex_rows = ex_words = ex_log = None
-        retier_s = 0.0
+        st = StagedTick(idx=idx, roll=(idx + 1) % q_ticks == 0)
         if self.express is not None:
             # Tier boundary, in the same event-loop slice as the drain
             # (atomic with respect to arrivals and migration freezes):
@@ -795,19 +806,14 @@ class PlaneRuntime:
             # window for freshly promoted rooms. Returns the rooms whose
             # fast-path subscriber bits this tick's fan-out must skip.
             r0 = time.perf_counter()
-            ex_rows, ex_words, ex_log = self.express.tick_boundary(self.ingest)
-            retier_s = time.perf_counter() - r0
-        inp, payloads = self.ingest.drain(roll_quality=roll, tick_index=idx)
-        self._slab_history[idx % plane.SLAB_WINDOW] = payloads
-        wire = self._pack_inputs(inp)
-        st = StagedTick(inp=inp, payloads=payloads, idx=idx, roll=roll, wire=wire,
-                        express_rows=ex_rows, express_words=ex_words,
-                        express_log=ex_log)
-        st.stage_t0 = t0
-        st.retier_s = retier_s
-        st.push_t0, st.push_s = self.ingest.last_push
-        trace_mod.stage_end(trace_mod.STAGE, span)
-        st.stage_s = time.perf_counter() - t0
+            st.express_rows, st.express_words, st.express_log = \
+                self.express.tick_boundary(self.ingest)
+            st.span(RETIER, r0)
+        st.inp, st.payloads = self.ingest.drain(roll_quality=st.roll, tick_index=idx)
+        self._slab_history[idx % plane.SLAB_WINDOW] = st.payloads
+        st.wire = self._pack_inputs(st.inp)
+        st.t0[PUSH], st.dur[PUSH] = self.ingest.last_push
+        st.span(STAGE, t0)
         return st
 
     def _schedule_probe(self, st: StagedTick) -> None:
@@ -815,7 +821,6 @@ class PlaneRuntime:
         tick's outputs; padding rides the first live video track each
         subscriber is subscribed to. pad_num/pad_track are host-only."""
         t0 = time.perf_counter()
-        span = trace_mod.stage_begin(trace_mod.PROBE)
         vid = self.meta.is_video & self.meta.published & ~self.meta.pub_muted
         cand = vid[:, :, None] & self.ctrl.subscribed
         pad_track = np.where(cand.any(axis=1), cand.argmax(axis=1), -1).astype(np.int32)
@@ -830,10 +835,8 @@ class PlaneRuntime:
         )
         st.inp = st.inp._replace(pad_num=np.asarray(pad_num, np.int32),
                                  pad_track=pad_track)
-        trace_mod.stage_end(trace_mod.PROBE, span)
-        st.probe_t0 = t0
-        st.probe_s = time.perf_counter() - t0
-        self.stats["probe_s"] += st.probe_s
+        st.span(PROBE, t0)
+        self._count(st, PROBE)
 
     def _mirror_probe_inputs(self, out: plane.TickOutputs) -> None:
         self._last_committed = np.asarray(out.committed_bps)
@@ -847,28 +850,26 @@ class PlaneRuntime:
         callbacks have run."""
         c0 = time.perf_counter()
         result = self._fan_out(out, st)
-        fanout_s = time.perf_counter() - c0
+        s0 = st.span(FANOUT, c0)
+        stage_s, device_s, fanout_s = (float(st.dur[s]) for s in (STAGE, DEVICE_STEP, FANOUT))
         # Attribution stamps for the wire-latency decomposition: the UDP
         # transport reads them off the batch inside the callbacks below.
-        result.egress_batch.t_dispatch = st.device_t0
-        result.egress_batch.t_device_end = st.device_t0 + st.device_s
-        result.tick_s = st.stage_s + st.device_s + fanout_s
+        t_dev = float(st.t0[DEVICE_STEP])
+        result.egress_batch.t_dispatch = t_dev
+        result.egress_batch.t_device_end = t_dev + device_s
+        result.tick_s = stage_s + device_s + fanout_s
         result.quality_window_closed = st.roll
         self.stats["ticks"] += 1
         self.completed_tick = max(self.completed_tick, st.idx)
         self.stats["fwd_packets"] += result.fwd_packets
         self.stats["fwd_bytes"] += result.fwd_bytes
-        self.stats["stage_s"] += st.stage_s
-        self.stats["device_s"] += st.device_s
-        self.stats["fanout_s"] += fanout_s
-        self.stats["munge_s"] += st.munge_s
+        self._count(st, STAGE, DEVICE_STEP, FANOUT, MUNGE)
         self.stats["egress_rows"] += len(result.egress_batch)
-        s0 = time.perf_counter()
         for cb in self._on_tick:
             r = cb(result)
             if asyncio.iscoroutine(r):
                 await r
-        send_s = time.perf_counter() - s0
+        st.span(SEND, s0)
         # Egress leaves inside the callbacks, so the deadline check runs
         # after them.
         late = bool(st.deadline) and time.perf_counter() > st.deadline
@@ -876,8 +877,8 @@ class PlaneRuntime:
             self.stats["late_ticks"] += 1
         tick_rec = {
             "idx": st.idx, "depth": st.depth,
-            "stage_ms": round(st.stage_s * 1000.0, 3),
-            "device_ms": round(st.device_s * 1000.0, 3),
+            "stage_ms": round(stage_s * 1000.0, 3),
+            "device_ms": round(device_s * 1000.0, 3),
             "fanout_ms": round(fanout_s * 1000.0, 3),
             "total_ms": round(result.tick_s * 1000.0, 3),
             "late": late,
@@ -894,14 +895,8 @@ class PlaneRuntime:
         tick_rec.update(self._tick_rec_extras(st))
         self.recent_ticks.append(tick_rec)
         if self.trace is not None:
-            slot = self.trace.record_tick(
-                st.idx, st.edge, st.stage_t0, st.stage_s, st.retier_s,
-                st.upload_t0, st.upload_s, st.device_t0, st.device_s,
-                c0, fanout_s, send_s, st.edge_over_us, st.depth, late,
-                kernel_s=st.kernel_s, push_t0=st.push_t0, push_s=st.push_s,
-                probe_t0=st.probe_t0, probe_s=st.probe_s, munge_t0=st.munge_t0,
-                munge_s=st.munge_s, views_t0=st.views_t0, views_s=st.views_s,
-            )
+            slot = self.trace.record_tick(st.idx, st.edge, st.t0, st.dur,
+                                          st.edge_over_us, st.depth, late)
             if st.blocks is not None:
                 self.trace.set_blocks(slot, st.blocks)
             if ep.last_send:
@@ -1017,17 +1012,16 @@ class PlaneRuntime:
                 "or consume ticks via on_tick()."
             )
         loop = asyncio.get_running_loop()
-        with self._flight():
-            st = self._stage_host()
-            self._schedule_probe(st)
-            async with self.state_lock:
-                self._upload(st)
-                out = await loop.run_in_executor(self._executor, self._device_step, st)
-            if out is None:
-                raise asyncio.CancelledError("device step abandoned by restart")
-            self._mirror_probe_inputs(out)
-            self.ingest.scrub_retired()
-            result = await self._complete(out, st)
+        st = self._stage_host()
+        self._schedule_probe(st)
+        async with self.state_lock:
+            self._upload(st)
+            out = await loop.run_in_executor(self._executor, self._device_step, st)
+        if out is None:
+            raise asyncio.CancelledError("device step abandoned by restart")
+        self._mirror_probe_inputs(out)
+        self.ingest.scrub_retired()
+        result = await self._complete(out, st)
         if self.integrity is not None:
             # Sequential path: repair right after the tick that audited.
             await self.integrity.process()
@@ -1134,16 +1128,12 @@ class PlaneRuntime:
             drop_bits[ex_rows] &= clear
             switch_bits[ex_rows] &= clear
         m0 = time.perf_counter()
-        span = trace_mod.stage_begin(trace_mod.MUNGE)
         rr, tt, kk, ss, b_sn, b_ts, b_pid, b_tl0, b_ki = self.munger.apply_columns(
             inp.sn, inp.ts, inp.ts_jump, inp.pid, inp.tl0, inp.keyidx,
             inp.begin_pic, inp.valid, send_bits, drop_bits, switch_bits,
             shard_plan=self._munge_shard_plan,
         )
-        trace_mod.stage_end(trace_mod.MUNGE, span)
-        v0 = time.perf_counter()
-        span = trace_mod.stage_begin(trace_mod.VIEWS)
-        st.munge_t0, st.munge_s = m0, v0 - m0
+        v0 = st.span(MUNGE, m0)
         if len(self.munger.last_shard_ns):
             self.egress_plane.record_munge(
                 self.munger.last_shard_counts, self.munger.last_shard_ns
@@ -1204,25 +1194,14 @@ class PlaneRuntime:
             red_ok=out.red_ok,
             pacer_allowed=out.pacer_allowed,
         )
-        trace_mod.stage_end(trace_mod.VIEWS, span)
-        st.views_t0, st.views_s = v0, time.perf_counter() - v0
+        st.span(VIEWS, v0)
         return result
 
     # -- loop ------------------------------------------------------------
-    def _flight(self):
-        """The calling thread's flight recorder on while the runtime steps
-        (the served path's stage spans), when its trace ring is on."""
-        return trace_mod.flight() if self.trace is not None else contextlib.nullcontext()
-
     def start(self) -> None:
         if self._task is None:
             self.egress_plane.warm()  # spawn shard workers off the hot path
-            self._task = asyncio.ensure_future(self._serve())
-
-    async def _serve(self) -> None:
-        """The serving loop (`_run`), with the flight recorder on."""
-        with self._flight():
-            await self._run()
+            self._task = asyncio.ensure_future(self._run())
 
     async def _calibrate_sleep(self) -> None:
         """Measure this host's asyncio coarse-sleep overshoot once at loop

@@ -7,15 +7,16 @@ is a handful of scalar stores into preallocated numpy arrays (no
 dict/f-string/list construction):
 
 - **TickTraceRing** — one record per tick in a fixed ring: the dispatch
-  edge, per-stage start/duration pairs (stage_host with its nested
-  express retier, ctrl upload, device step, fan-out, egress send), wake
-  overshoot, depth, lateness, and per-egress-shard munge/send walls.
-  The port's PlaneRuntime records every tick here (`snapshot` reads it),
-  with the host spans of the tick's blocks inside its device step (the
-  block spans of models/plane.py, utils/spans.py, re-exported here) and
-  the served path's stages (`runtime.*`, utils/spans.py `STAGES`): the
-  pushes drained into the tick, its probe, and the munge/views split of
-  its fan-out.
+  edge, the start and duration of each of the tick's stages (utils/
+  spans.py `STAGES`: the pushes drained into it, stage_host with its
+  nested express retier, the probe, ctrl upload, device step with the
+  paged kernel's span, fan-out with its munge/views split, egress send),
+  wake overshoot, depth, lateness, and per-egress-shard munge/send
+  walls. The port's PlaneRuntime copies each tick's record here
+  (`StagedTick`'s two stage rows), with the host spans of the tick's
+  blocks inside its device step (the block spans of models/plane.py,
+  utils/spans.py, re-exported here); `snapshot` reads it back as the
+  reference's records, plus the served path's `runtime.*` stages.
 - **LatencyAttribution** — a deterministic 1-in-K sample of egress
   packets (sampled on the munged SN, so the set is stable across runs)
   whose arrival stamp is decomposed at the wire into staging / device /
@@ -42,19 +43,19 @@ import numpy as np
 
 from livekit_server_tpu_torch.utils.spans import (  # noqa: F401
     DEVICE_STEP,
+    FANOUT,
+    KERNEL,
     MUNGE,
     NAMES,
-    PROBE,
-    PUSH,
+    RETIER,
+    RUNTIME,
+    SEND,
     SPANS,
     STAGE,
-    STAGE_NAMES,
-    VIEWS,
-    flight,
+    UPLOAD,
     set_flight,
-    stage_begin,
-    stage_end,
 )
+from livekit_server_tpu_torch.utils.spans import STAGES as TICK_STAGES
 
 # Egress-shard lanes a tick record can hold (EgressPlane caps at 16).
 MAX_SHARDS = 16
@@ -106,7 +107,8 @@ class TickTraceRing:
     """Fixed ring of per-tick span records, preallocated columns.
 
     Single writer (the event loop's `_complete`); `record_tick` and
-    `set_shard` are scalar stores only — the bounded hot-path API.
+    `set_shard` are stores into the preallocated columns only — the
+    bounded hot-path API.
     `snapshot` (cold path: /debug/trace, tools/trace) materializes the
     newest records as dicts for the exporter."""
 
@@ -115,19 +117,10 @@ class TickTraceRing:
         self.cap = cap
         self.idx = np.full(cap, -1, np.int64)
         self.edge = np.zeros(cap, np.float64)
-        self.stage_t0 = np.zeros(cap, np.float64)
-        self.stage_dur = np.zeros(cap, np.float64)
-        self.retier_dur = np.zeros(cap, np.float64)
-        self.upload_t0 = np.zeros(cap, np.float64)
-        self.upload_dur = np.zeros(cap, np.float64)
-        self.device_t0 = np.zeros(cap, np.float64)
-        self.device_dur = np.zeros(cap, np.float64)
-        # Paged-kernel slice of the device span (phase-0 decide dispatch,
-        # runtime/paged_runtime.py); 0 when the stock tick ran.
-        self.kernel_dur = np.zeros(cap, np.float64)
-        self.fanout_t0 = np.zeros(cap, np.float64)
-        self.fanout_dur = np.zeros(cap, np.float64)
-        self.send_dur = np.zeros(cap, np.float64)
+        # Each stage's start and duration (perf_counter s, TICK_STAGES
+        # order); 0 where the tick did not record it.
+        self.t0 = np.zeros((cap, len(TICK_STAGES)), np.float64)
+        self.dur = np.zeros((cap, len(TICK_STAGES)), np.float64)
         self.wake_over_us = np.zeros(cap, np.float32)
         self.depth = np.zeros(cap, np.int8)
         self.late = np.zeros(cap, np.int8)
@@ -138,60 +131,27 @@ class TickTraceRing:
         # clock; a duration of 0 where the block did not run.
         self.block_t0 = np.zeros((cap, len(SPANS)), np.float64)
         self.block_dur = np.zeros((cap, len(SPANS)), np.float64)
-        # The served path's stages of the tick beyond the spans above
-        # (perf_counter s; 0 where not recorded): the pushes drained into
-        # it (the first one's start, their summed seconds), the probe, and
-        # the fan-out's munge walk and the views after it.
-        self.push_t0 = np.zeros(cap, np.float64)
-        self.push_dur = np.zeros(cap, np.float64)
-        self.probe_t0 = np.zeros(cap, np.float64)
-        self.probe_dur = np.zeros(cap, np.float64)
-        self.munge_t0 = np.zeros(cap, np.float64)
-        self.munge_dur = np.zeros(cap, np.float64)
-        self.views_t0 = np.zeros(cap, np.float64)
-        self.views_dur = np.zeros(cap, np.float64)
         # (perf_counter s, unix epoch ns) read together: the exporter's
         # baseTimeNanoseconds.
         self.anchor = (time.perf_counter(), time.time_ns())
         self._pos = 0
         self.recorded = 0
 
-    def record_tick(self, idx: int, edge: float, stage_t0: float,
-                    stage_s: float, retier_s: float, upload_t0: float,
-                    upload_s: float, device_t0: float, device_s: float,
-                    fanout_t0: float, fanout_s: float, send_s: float,
-                    wake_over_us: float, depth: int, late: bool,
-                    kernel_s: float = 0.0, push_t0: float = 0.0, push_s: float = 0.0,
-                    probe_t0: float = 0.0, probe_s: float = 0.0,
-                    munge_t0: float = 0.0, munge_s: float = 0.0,
-                    views_t0: float = 0.0, views_s: float = 0.0) -> int:
+    def record_tick(self, idx: int, edge: float, t0, dur, wake_over_us: float,
+                    depth: int, late: bool) -> int:
+        """Copy one tick in: its index, dispatch edge, its stages' starts
+        and durations (`t0`, `dur`: TICK_STAGES-long rows), wake
+        overshoot, depth and lateness. Returns the slot."""
         slot = self._pos
         self.idx[slot] = idx
         self.edge[slot] = edge
-        self.stage_t0[slot] = stage_t0
-        self.stage_dur[slot] = stage_s
-        self.retier_dur[slot] = retier_s
-        self.upload_t0[slot] = upload_t0
-        self.upload_dur[slot] = upload_s
-        self.device_t0[slot] = device_t0
-        self.device_dur[slot] = device_s
-        self.kernel_dur[slot] = kernel_s
-        self.fanout_t0[slot] = fanout_t0
-        self.fanout_dur[slot] = fanout_s
-        self.send_dur[slot] = send_s
+        self.t0[slot] = t0
+        self.dur[slot] = dur
         self.wake_over_us[slot] = wake_over_us
         self.depth[slot] = depth
         self.late[slot] = late
         self.n_shards[slot] = 0
         self.block_dur[slot] = 0.0
-        self.push_t0[slot] = push_t0
-        self.push_dur[slot] = push_s
-        self.probe_t0[slot] = probe_t0
-        self.probe_dur[slot] = probe_s
-        self.munge_t0[slot] = munge_t0
-        self.munge_dur[slot] = munge_s
-        self.views_t0[slot] = views_t0
-        self.views_dur[slot] = views_s
         self._pos = (slot + 1) % self.cap
         self.recorded += 1
         return slot
@@ -222,20 +182,21 @@ class TickTraceRing:
             if self.idx[slot] < 0:
                 continue
             ns = int(self.n_shards[slot])
+            t0, dur = self.t0[slot], self.dur[slot]
             rec = {
                 "tick": int(self.idx[slot]),
                 "edge": float(self.edge[slot]),
-                "stage_t0": float(self.stage_t0[slot]),
-                "stage_s": float(self.stage_dur[slot]),
-                "retier_s": float(self.retier_dur[slot]),
-                "upload_t0": float(self.upload_t0[slot]),
-                "upload_s": float(self.upload_dur[slot]),
-                "device_t0": float(self.device_t0[slot]),
-                "device_s": float(self.device_dur[slot]),
-                "kernel_s": float(self.kernel_dur[slot]),
-                "fanout_t0": float(self.fanout_t0[slot]),
-                "fanout_s": float(self.fanout_dur[slot]),
-                "send_s": float(self.send_dur[slot]),
+                "stage_t0": float(t0[STAGE]),
+                "stage_s": float(dur[STAGE]),
+                "retier_s": float(dur[RETIER]),
+                "upload_t0": float(t0[UPLOAD]),
+                "upload_s": float(dur[UPLOAD]),
+                "device_t0": float(t0[DEVICE_STEP]),
+                "device_s": float(dur[DEVICE_STEP]),
+                "kernel_s": float(dur[KERNEL]),
+                "fanout_t0": float(t0[FANOUT]),
+                "fanout_s": float(dur[FANOUT]),
+                "send_s": float(dur[SEND]),
                 "wake_over_us": float(self.wake_over_us[slot]),
                 "depth": int(self.depth[slot]),
                 "late": bool(self.late[slot]),
@@ -253,28 +214,26 @@ class TickTraceRing:
                                float(self.block_dur[slot, i])]
                     for i in ran
                 }
-            if self.munge_t0[slot] > 0.0:
-                rec["runtime"] = self._stages(slot)
+            if t0[MUNGE] > 0.0:
+                rec["runtime"] = self._stages(t0, dur)
             out.append(rec)
         return out
 
-    def _stages(self, slot: int) -> dict[str, list[float]]:
-        """The tick's served-path stages as `runtime.<stage>`: [start,
-        duration] (perf_counter s). `runtime.stage` is the staging after
-        the express retier, `runtime.device_step` the device step; a push
-        appears where pushes were drained into the tick, its duration their
-        summed seconds from the first one's start."""
-        s0, rs = float(self.stage_t0[slot]), float(self.retier_dur[slot])
+    @staticmethod
+    def _stages(t0, dur) -> dict[str, list[float]]:
+        """A tick's served-path stages (`RUNTIME`) as `runtime.<stage>`:
+        [start, duration] (perf_counter s), each where the tick recorded
+        it. `runtime.stage` is the staging after the express retier; the
+        push's duration is the summed seconds of the pushes drained into
+        the tick, from the first one's start."""
         out = {}
-        if self.push_t0[slot] > 0.0:
-            out["runtime.push"] = [float(self.push_t0[slot]), float(self.push_dur[slot])]
-        out["runtime.stage"] = [s0 + rs, float(self.stage_dur[slot]) - rs]
-        if self.probe_t0[slot] > 0.0:
-            out["runtime.probe"] = [float(self.probe_t0[slot]), float(self.probe_dur[slot])]
-        out["runtime.device_step"] = [float(self.device_t0[slot]),
-                                      float(self.device_dur[slot])]
-        out["runtime.munge"] = [float(self.munge_t0[slot]), float(self.munge_dur[slot])]
-        out["runtime.views"] = [float(self.views_t0[slot]), float(self.views_dur[slot])]
+        for s, name in RUNTIME.items():
+            s0, ds = float(t0[s]), float(dur[s])
+            if s == STAGE:
+                rs = float(dur[RETIER])
+                s0, ds = s0 + rs, ds - rs
+            if s0 > 0.0:
+                out[name] = [s0, ds]
         return out
 
 

@@ -17,13 +17,14 @@ load directly:
     shard N — per-egress-shard munge/send walls, synthesized inside the
               fan-out/send windows
 
-and, where the ring holds a tick's served-path stages (`runtime.*`,
-utils/spans.py `STAGES`), runtime.stage nested in stage_host after the
-express retier and runtime.probe on the loop lane, runtime.device_step
-over device_step, runtime.munge and runtime.views (the walk, then the
-views and the batch) nested in fan_out, and runtime.push on a lane of
-its own, `ingest`: from the first push drained into the tick, for the
-pushes' summed seconds.
+and, where a record holds the served path's stages (`runtime`: the
+ring's `runtime.<stage>` entries, named by utils/spans.py `RUNTIME`
+from the tick's one record of its stages), runtime.stage nested in
+stage_host after the express retier and runtime.probe on the loop lane,
+runtime.device_step over device_step, runtime.munge and runtime.views
+(the walk, then the views and the batch) nested in fan_out, and
+runtime.push on a lane of its own, `ingest`: from the first push drained
+into the tick, for the pushes' summed seconds.
 
 `validate()` checks the schema the hard way (required fields, dur >= 0,
 strict span nesting per tid — overlap without containment is a broken
@@ -58,6 +59,16 @@ from __future__ import annotations
 import json
 from typing import Any
 
+from livekit_server_tpu_torch.utils.spans import (
+    DEVICE_STEP,
+    MUNGE,
+    PROBE,
+    PUSH,
+    RUNTIME,
+    STAGE,
+    VIEWS,
+)
+
 # tid lanes (Chrome sorts numerically; names land via metadata events).
 TID_LOOP = 1
 TID_DEVICE = 2
@@ -69,10 +80,10 @@ _LANE_NAMES = {TID_LOOP: "loop", TID_DEVICE: "device", TID_FANOUT: "fanout"}
 BLOCK_PREFIX = "plane."
 # The lane of each served-path stage; the fan-out's split must lie inside
 # a fan_out.
-STAGE_LANES = {"runtime.push": TID_INGEST, "runtime.stage": TID_LOOP,
-               "runtime.probe": TID_LOOP, "runtime.device_step": TID_DEVICE,
-               "runtime.munge": TID_FANOUT, "runtime.views": TID_FANOUT}
-INSIDE_FAN_OUT = ("runtime.munge", "runtime.views")
+STAGE_LANES = {RUNTIME[s]: tid for s, tid in (
+    (PUSH, TID_INGEST), (STAGE, TID_LOOP), (PROBE, TID_LOOP), (DEVICE_STEP, TID_DEVICE),
+    (MUNGE, TID_FANOUT), (VIEWS, TID_FANOUT))}
+INSIDE_FAN_OUT = (RUNTIME[MUNGE], RUNTIME[VIEWS])
 
 
 def time_base(records: list[dict[str, Any]]) -> float:
@@ -213,7 +224,7 @@ def to_chrome(records: list[dict[str, Any]], tick_ms: int = 0) -> list[dict]:
                     })
         # The served path's stages, each on its lane.
         for name, (s0, ds) in r.get("runtime", {}).items():
-            pushes |= name == "runtime.push"
+            pushes |= name == RUNTIME[PUSH]
             events.append({
                 "name": name, "ph": "X", "ts": us(s0), "dur": dur_us(ds),
                 "pid": 1, "tid": STAGE_LANES[name], "args": {"tick": tick},
@@ -359,9 +370,9 @@ def selftest(ticks: int = 6, device="cuda") -> list[str]:
         problems.append("export produced no trace events")
     problems.extend(validate(events))
     names = {e.get("name") for e in events}
+    # Every stage but the push, which this drive's `push` does not time.
     for want in ("stage_host", "device_step", "fan_out", "plane.unpack", "plane.tick",
-                 "plane.pack", "runtime.stage", "runtime.probe",
-                 "runtime.device_step", "runtime.munge", "runtime.views"):
+                 "plane.pack", *(n for s, n in RUNTIME.items() if s != PUSH)):
         if want not in names:
             problems.append(f"expected span {want!r} missing from export")
     if records and "baseTimeNanoseconds" not in parsed:

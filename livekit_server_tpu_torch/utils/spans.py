@@ -1,6 +1,6 @@
 """Block spans of the eager tick: where each block of models/plane.py's
 tick starts and how long the host takes to launch it, per thread; and
-the spans of the served path's stages around the tick.
+the names of a served tick's timed stages.
 
 The tick's blocks (`BLOCKS`, in tick order) each open a span where they
 launch their ops; `tick` encloses decide through allocate. A span is two
@@ -8,20 +8,18 @@ launch their ops; `tick` encloses decide through allocate. A span is two
 preallocated ring for that span, and is recorded only while the recorder
 is on: while a torch profiler records, or while the thread's flight
 recorder is on (`set_flight`: a PlaneRuntime with its trace ring turns it
-on for the thread that runs its device step, and, while it steps, for
-the thread that steps it: `flight`). Off, opening a span reads two flags
-and closing it returns at once.
+on for the thread that runs its device step). Off, opening a span reads
+two flags and closing it returns at once.
 
-The served path's stages (`STAGES`: `runtime.push`, the ingest push;
-`runtime.stage`, the drain and pack; `runtime.probe`; `runtime.device_step`;
-`runtime.munge`, the native walk; `runtime.views`, the rest of the
-fan-out; opened in runtime/ingest.py and runtime/plane_runtime.py) go
-through `stage_begin` / `stage_end` into a second recorder of the
-thread's (`stage_recorder`), on and off with the first.
+A served tick's stages (`STAGES`) are not spans of this recorder: the
+runtime times each once into the tick's record (runtime/plane_runtime.py
+`StagedTick`), and its `stats` counters and trace ring (runtime/trace.py)
+read that record. The stages a trace export shows are `RUNTIME`'s, named
+`runtime.<stage>`.
 
 With `annotate` on, each span also opens a `record_function` range named
-after it (`plane.<span>`, `runtime.<stage>`). Only the program's own
-tooling turns it on (`tools.profile_tick --trace`): a range that encloses kernels shows in a
+after it (`plane.<span>`). Only the program's own tooling turns it on
+(`tools.profile_tick --trace`): a range that encloses kernels shows in a
 profiler's device events too, so a profiler the program did not start
 gets the host-clock spans alone.
 
@@ -31,12 +29,12 @@ the clock of a torch profiler's Chrome trace (`baseTimeNanoseconds` plus
 `ts`).
 
 Torch-free, and importing nothing of the package: models/plane.py
-imports it at load time, and runtime/trace.py re-exports it.
+imports it at load time, and runtime/plane_runtime.py, runtime/trace.py
+and telemetry/trace_export.py read its stage names.
 """
 
 from __future__ import annotations
 
-import contextlib
 import sys
 import threading
 import time
@@ -47,9 +45,17 @@ SPANS = BLOCKS + ("tick",)
 (UNPACK, DECIDE, RTPSTATS, STREAMTRACKER, BWE, QUALITY, RED, AUDIO, ALLOCATE, PACK,
  TICK) = range(len(SPANS))
 NAMES = tuple(f"plane.{s}" for s in SPANS)
-STAGES = ("push", "stage", "probe", "device_step", "munge", "views")
-(PUSH, STAGE, PROBE, DEVICE_STEP, MUNGE, VIEWS) = range(len(STAGES))
-STAGE_NAMES = tuple(f"runtime.{s}" for s in STAGES)
+# A served tick's timed stages: the ingest pushes drained into it, its
+# staging (drain and pack) with the express retier inside it, the probe,
+# the ctrl upload, the device step with the paged kernel's span inside
+# it, the fan-out with the munge walk and the views after it, and the
+# egress send.
+STAGES = ("push", "stage", "retier", "probe", "upload", "device_step", "kernel", "fanout",
+          "munge", "views", "send")
+(PUSH, STAGE, RETIER, PROBE, UPLOAD, DEVICE_STEP, KERNEL, FANOUT, MUNGE, VIEWS,
+ SEND) = range(len(STAGES))
+# The stages a trace export shows, by their span names.
+RUNTIME = {s: f"runtime.{STAGES[s]}" for s in (PUSH, STAGE, PROBE, DEVICE_STEP, MUNGE, VIEWS)}
 CAP = 512           # calls each span's ring keeps
 
 _now = time.perf_counter_ns
@@ -57,16 +63,15 @@ _now = time.perf_counter_ns
 
 class SpanRecorder:
     """One thread's rings: the start and duration (perf_counter ns) of the
-    newest `cap` calls of each span of `names` (the tick's by default)."""
+    newest `cap` calls of each span."""
 
-    def __init__(self, cap: int = CAP, names: tuple = NAMES):
+    def __init__(self, cap: int = CAP):
         self.cap = cap
-        self.names = names
         self.flight = False         # the thread's flight recorder is on (set_flight)
         self.annotate = False       # also open record_function ranges
-        self.t0 = [[0] * cap for _ in names]
-        self.dur = [[0] * cap for _ in names]
-        self.count = [0] * len(names)
+        self.t0 = [[0] * cap for _ in SPANS]
+        self.dur = [[0] * cap for _ in SPANS]
+        self.count = [0] * len(SPANS)
         self._ranges: list = []
         self.anchor_ns = _now()
         self.anchor_epoch_ns = time.time_ns()
@@ -80,7 +85,7 @@ class SpanRecorder:
         return list(self.count)
 
     def last(self, mark: list[int] | None = None) -> list[tuple[int, int]]:
-        """(start, duration) in ns of each span's newest call, in `names`
+        """(start, duration) in ns of each span's newest call, in `SPANS`
         order; (0, 0) for a span with no call since `mark`."""
         out = []
         for i, n in enumerate(self.count):
@@ -102,7 +107,7 @@ class SpanRecorder:
     def _open(self, span: int) -> None:
         from torch.autograd.profiler import record_function
 
-        r = record_function(self.names[span])
+        r = record_function(NAMES[span])
         r.__enter__()
         self._ranges.append(r)
 
@@ -112,7 +117,6 @@ class SpanRecorder:
 
 class _Local(threading.local):
     rec: SpanRecorder | None = None
-    stages: SpanRecorder | None = None
 
 
 _local = _Local()
@@ -137,15 +141,6 @@ def recorder() -> SpanRecorder:
     return rec
 
 
-def stage_recorder() -> SpanRecorder:
-    """The calling thread's recorder of the served path's stages, made on
-    first use."""
-    rec = _local.stages
-    if rec is None:
-        rec = _local.stages = SpanRecorder(names=STAGE_NAMES)
-    return rec
-
-
 def current() -> SpanRecorder | None:
     """The calling thread's recorder, or None where it has none."""
     return _local.rec
@@ -163,47 +158,17 @@ def set_flight(on: bool) -> SpanRecorder:
     return rec
 
 
-@contextlib.contextmanager
-def flight():
-    """The calling thread's flight recorder on inside the block, and as it
-    was after it."""
-    was = recorder().flight
-    rec = set_flight(True)
-    try:
-        yield rec
-    finally:
-        set_flight(was)
-
-
-def _on() -> SpanRecorder | None:
-    """The calling thread's recorder while the recorder is on, else None."""
+def begin(span: int) -> int:
+    """Open `span`: its start stamp, or 0 while the recorder is off."""
     p = _prof or _profiler()
     if p is None or not p._is_profiler_enabled:
         if not _flights:
-            return None
+            return 0
         rec = _local.rec
-        return rec if rec is not None and rec.flight else None
-    return recorder()
-
-
-def _store(rec: SpanRecorder, span: int, t0: int) -> int:
-    """Record a call of `span` from `t0` to now in `rec`; returns now."""
-    t1 = _now()
-    n = rec.count[span]
-    j = n % rec.cap
-    rec.t0[span][j] = t0
-    rec.dur[span][j] = t1 - t0
-    rec.count[span] = n + 1
-    if rec._ranges:
-        rec._close()
-    return t1
-
-
-def begin(span: int) -> int:
-    """Open `span`: its start stamp, or 0 while the recorder is off."""
-    rec = _on()
-    if rec is None:
-        return 0
+        if rec is None or not rec.flight:
+            return 0
+    else:
+        rec = recorder()
     t0 = _now()
     if rec.annotate:
         rec._open(span)
@@ -213,7 +178,18 @@ def begin(span: int) -> int:
 def end(span: int, t0: int) -> int:
     """Close `span`, opened at `t0` (0: not recorded); returns the stamp
     it closed at, or 0."""
-    return _store(_local.rec, span, t0) if t0 else 0
+    if not t0:
+        return 0
+    t1 = _now()
+    rec = _local.rec
+    n = rec.count[span]
+    j = n % rec.cap
+    rec.t0[span][j] = t0
+    rec.dur[span][j] = t1 - t0
+    rec.count[span] = n + 1
+    if rec._ranges:
+        rec._close()
+    return t1
 
 
 def lap(span: int, t0: int, nxt: int) -> int:
@@ -226,21 +202,3 @@ def lap(span: int, t0: int, nxt: int) -> int:
     if rec.annotate:
         rec._open(nxt)
     return t1
-
-
-def stage_begin(stage: int) -> int:
-    """Open the served-path stage `stage` (a `STAGES` index): its start
-    stamp, or 0 while the recorder is off."""
-    rec = _on()
-    if rec is None:
-        return 0
-    t0 = _now()
-    if rec.annotate:
-        stage_recorder()._open(stage)
-    return t0
-
-
-def stage_end(stage: int, t0: int) -> int:
-    """Close the stage opened at `t0` (0: not recorded); returns the stamp
-    it closed at, or 0."""
-    return _store(stage_recorder(), stage, t0) if t0 else 0

@@ -8,8 +8,9 @@ that its subscribers switch down a layer and back up (with the keyframe
 requests that brings); the probe's state and padding are compared too
 (the dip's deficits come with congestion here, so no probe starts). Then the
 runtime's stage counters (present, non-negative, within the tick's host
-time) and its `runtime.*` spans (recorded only while the recorder is
-on)."""
+time), and its one record of each tick's stages: counted always, kept in
+the trace ring only while the ring is on, and exported as `runtime.*`
+spans."""
 
 from __future__ import annotations
 
@@ -184,35 +185,38 @@ def test_stage_counters_present_and_within_the_tick():
 
 @pytest.mark.parametrize("recorder", ["off", "flight", "profiler"])
 def test_stage_spans_only_while_the_recorder_is_on(recorder):
+    """The tick's one record of its stages: `stats` counts every stage
+    whether or not anything traces; the trace ring, when on, holds each
+    `runtime.*` stage once a tick; a torch profiler the program did not
+    start, with the ring off, gets no stage record (no `runtime.*` range),
+    and nothing turns the stepping thread's flight recorder on."""
     spec, lib, _ = traffic(13)
     rt = runtime(spec, trace=recorder == "flight")
     spans.set_flight(False)
-    rec = spans.stage_recorder()
-    mark = rec.mark()
     if recorder == "profiler":
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             timed_ticks(rt, lib, 3)
+        assert not [e.key for e in prof.key_averages() if e.key.startswith("runtime.")]
     else:
         timed_ticks(rt, lib, 3)
-    got = dict(zip(spans.STAGES, (n - m for n, m in zip(rec.count, mark))))
-    if recorder == "off":
-        assert set(got.values()) == {0} and rt.trace is None
+    st = rt.stats
+    assert st["ticks"] == 3 and len(rt.recent_ticks) == 3
+    assert all(st[k] > 0 for k in ("push_s", "stage_s", "probe_s", "ctrl_upload_s",
+                                   "device_s", "fanout_s", "munge_s"))
+    assert not spans.recorder().flight
+    if recorder != "flight":
+        assert rt.trace is None
         return
-    # The stepping thread's stages, a call a tick; the device step's span
-    # is on the executor's thread. The pushes came before each step_once:
-    # the flight recorder is on only while the runtime steps.
-    stepped = ("stage", "probe", "munge", "views")
-    assert {k: got[k] for k in stepped} == dict.fromkeys(stepped, 3)
-    assert got["push"] == (3 if recorder == "profiler" else 0)
-    assert got["device_step"] == 0 and not spans.recorder().flight
-    if recorder == "flight":
-        recs = rt.trace.snapshot()
-        assert [sorted(r["runtime"]) for r in recs] == [sorted(spans.STAGE_NAMES)] * 3
-        for r in recs:
-            m0, ms = r["runtime"]["runtime.munge"]
-            v0, vs = r["runtime"]["runtime.views"]
-            assert r["fanout_t0"] <= m0 and m0 + ms <= v0
-            assert v0 + vs <= r["fanout_t0"] + r["fanout_s"]
+    recs = rt.trace.snapshot()
+    assert [sorted(r["runtime"]) for r in recs] == [sorted(spans.RUNTIME.values())] * 3
+    for r in recs:
+        m0, ms = r["runtime"]["runtime.munge"]
+        v0, vs = r["runtime"]["runtime.views"]
+        assert r["fanout_t0"] <= m0 and m0 + ms <= v0
+        assert v0 + vs <= r["fanout_t0"] + r["fanout_s"]
+    assert sum(r["stage_s"] for r in recs) == pytest.approx(st["stage_s"], rel=1e-9)
+    assert sum(r["runtime"]["runtime.push"][1] for r in recs) == pytest.approx(st["push_s"],
+                                                                              rel=1e-9)
 
 
 def test_export_carries_the_served_stages():
@@ -230,7 +234,7 @@ def test_export_carries_the_served_stages():
     for e in events:
         if e["name"].startswith("runtime."):
             lanes.setdefault(e["name"], set()).add(e["tid"])
-    assert lanes == {n: {trace_export.STAGE_LANES[n]} for n in spans.STAGE_NAMES}
+    assert lanes == {n: {trace_export.STAGE_LANES[n]} for n in spans.RUNTIME.values()}
     assert {"name": "ingest"} in [e["args"] for e in events if e["ph"] == "M"]
     munge = next(e for e in events if e["name"] == "runtime.munge")
     late = dict(munge, ts=munge["ts"] + 1e6)

@@ -4,19 +4,22 @@ ring keeps each tick's blocks and clears them when a slot is reused; the
 export adds the block events and nothing else to a record, on the device
 lane inside device_step, which `validate` checks; `baseTimeNanoseconds` is
 the window's time base on the unix epoch; the paged and the meshed
-runtimes carry the blocks their ticks reach; and /debug/trace and
-/debug/ticks serve them with the ctrl upload's seconds."""
+runtimes carry the blocks their ticks reach; the ring, `recent_ticks` and
+`stats` agree on each tick's stages (dense and paged live); and
+/debug/trace and /debug/ticks serve them with the ctrl upload's seconds."""
 
 import json
 import time
 
 import aiohttp
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import torch_paged_fixture as fx  # noqa: E402
+from torch_trace_fixture import stage_rows  # noqa: E402
 
 from livekit_server_tpu.telemetry import trace_export as jax_export  # noqa: E402
 from livekit_server_tpu_torch.config import load_config  # noqa: E402
@@ -46,11 +49,11 @@ def _ring(n_ticks: int = 4, cap: int = 8, with_blocks=lambda i: True) -> TickTra
     ring = TickTraceRing(cap=cap)
     for i in range(n_ticks):
         t = 100.0 + i * 0.005
-        slot = ring.record_tick(
-            idx=i, edge=t, stage_t0=t + 0.0001, stage_s=0.001, retier_s=0.0,
-            upload_t0=t + 0.0012, upload_s=0.0003, device_t0=t + 0.0016,
-            device_s=0.002, fanout_t0=t + 0.0037, fanout_s=0.0008, send_s=0.0004,
-            wake_over_us=1.0, depth=1, late=False)
+        t0, dur = stage_rows(stage=(t + 0.0001, 0.001), upload=(t + 0.0012, 0.0003),
+                             device_step=(t + 0.0016, 0.002), fanout=(t + 0.0037, 0.0008),
+                             send=(0.0, 0.0004))
+        slot = ring.record_tick(idx=i, edge=t, t0=t0, dur=dur, wake_over_us=1.0, depth=1,
+                                late=False)
         if with_blocks(i):
             ring.set_blocks(slot, _blocks_of(t + 0.0016))
     return ring
@@ -155,6 +158,64 @@ async def test_paged_and_meshed_runtimes_carry_their_blocks(kind):
         for k in kernels:
             u = unpacks[k["args"]["tick"]]
             assert k["ts"] >= u["ts"] + u["dur"] - 0.2
+
+
+def _push_batch(rt, k: int) -> None:
+    """Two Opus packets of room 0, track 0 through the batch push."""
+    z, f = np.zeros(2, np.int64), np.zeros(2, bool)
+    sn = np.arange(100 + 2 * k, 102 + 2 * k, dtype=np.int64)
+    rt.ingest.push_batch(z, z, z, sn, 960 * sn, f, z, f, f, f, f, z, z, z,
+                         np.full(2, 8, np.int64), np.full(2, 20, np.int64),
+                         np.full(2, 127, np.int64), z, np.arange(0, 16, 8), np.full(2, 8),
+                         b"p" * 16)
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged_live"])
+async def test_ring_recent_ticks_and_stats_agree(kind):
+    """Each tick's stages, read three ways: the ring's snapshot, the
+    tick's `recent_ticks` record and the change in `stats` over the tick
+    give the same seconds for every stage they share."""
+    if kind == "dense":
+        rt = PlaneRuntime(plane.PlaneDims(2, 2, 2, 2), tick_ms=10, egress_shards=1,
+                          device="cpu")
+    else:
+        rt = _paged("on")
+    counters = ("push_s", "stage_s", "probe_s", "ctrl_upload_s", "device_s", "fanout_s",
+                "munge_s", "paged_kernel_steps")
+    try:
+        rt.set_track(0, 0, published=True, is_video=False)
+        rt.set_subscription(0, 0, 1, subscribed=True)
+        for k in range(3):
+            before = {c: rt.stats.get(c, 0) for c in counters}
+            _push_batch(rt, k)
+            await rt.step_once()
+            d = {c: rt.stats.get(c, 0) - before[c] for c in counters}
+            tick, rec = rt.trace.snapshot(1)[0], rt.recent_ticks[-1]
+            run = tick["runtime"]
+            assert rec["idx"] == tick["tick"] == k
+            for key, stage in (("stage", "stage_s"), ("device", "device_s"),
+                               ("fanout", "fanout_s")):
+                assert rec[f"{key}_ms"] == round(tick[stage] * 1000.0, 3)
+                assert d[stage] == pytest.approx(tick[stage], rel=1e-9)
+            assert rec["total_ms"] == round(
+                (tick["stage_s"] + tick["device_s"] + tick["fanout_s"]) * 1000.0, 3)
+            assert d["ctrl_upload_s"] == pytest.approx(tick["upload_s"], rel=1e-9)
+            for name, counter in (("push", "push_s"), ("probe", "probe_s"),
+                                  ("munge", "munge_s")):
+                assert d[counter] == pytest.approx(run[f"runtime.{name}"][1], rel=1e-9)
+            assert run["runtime.stage"] == [tick["stage_t0"] + tick["retier_s"],
+                                            tick["stage_s"] - tick["retier_s"]]
+            assert run["runtime.device_step"] == [tick["device_t0"], tick["device_s"]]
+            assert tick["fanout_t0"] <= run["runtime.munge"][0]
+            assert sum(run["runtime.views"]) <= tick["fanout_t0"] + tick["fanout_s"]
+            assert tick["send_s"] > 0.0
+            if kind == "paged_live":
+                assert tick["kernel_s"] > 0.0 and d["paged_kernel_steps"] > 0
+                assert rec["paged_kernel_ms"] == round(tick["kernel_s"] * 1000.0, 3)
+            else:
+                assert tick["kernel_s"] == 0.0 and "paged_kernel_ms" not in rec
+    finally:
+        await rt.stop()
 
 
 async def test_debug_routes_serve_blocks_and_upload_seconds():

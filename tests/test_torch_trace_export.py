@@ -23,18 +23,18 @@ from livekit_server_tpu_torch.runtime.ingest import PacketIn  # noqa: E402
 from livekit_server_tpu_torch.runtime.trace import TickTraceRing  # noqa: E402
 from livekit_server_tpu_torch.service.server import create_server  # noqa: E402
 from livekit_server_tpu_torch.telemetry import trace_export  # noqa: E402
+from torch_trace_fixture import stage_rows  # noqa: E402
 
 
 def _record(ring: TickTraceRing, idx: int, base: float = 100.0) -> int:
     """One well-formed tick record at a synthetic perf_counter base."""
     t = base + idx * 0.005
-    return ring.record_tick(
-        idx=idx, edge=t, stage_t0=t + 0.0001, stage_s=0.001,
-        retier_s=0.0002, upload_t0=t + 0.0012, upload_s=0.0003,
-        device_t0=t + 0.0016, device_s=0.002, fanout_t0=t + 0.0037,
-        fanout_s=0.0008, send_s=0.0004, wake_over_us=42.0, depth=1,
-        late=(idx % 7 == 0), kernel_s=0.0005 * (idx % 2),
-    )
+    t0, dur = stage_rows(stage=(t + 0.0001, 0.001), retier=(0.0, 0.0002),
+                         upload=(t + 0.0012, 0.0003), device_step=(t + 0.0016, 0.002),
+                         fanout=(t + 0.0037, 0.0008), send=(0.0, 0.0004),
+                         kernel=(0.0, 0.0005 * (idx % 2)))
+    return ring.record_tick(idx=idx, edge=t, t0=t0, dur=dur, wake_over_us=42.0, depth=1,
+                            late=(idx % 7 == 0))
 
 
 def _ring_records(n_ticks: int = 5) -> list[dict]:
